@@ -1,15 +1,17 @@
 """Smoke run of rayzen_tpu_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version, pass the golden-image gates,
 then drive the main path (a 1920x1080, 64 spp, 5-bounce frame of the demo
-scene) and time it.
+scene) and the large-scene path (a 1920x1080, 4 spp, 5-bounce frame of the
+503k-triangle field of scripts/bench_large.py, walked through the treelet
+view by the tiered K1) and time them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out-dir DIR]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); it exits non-zero, printing no result, without them. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels with
 their launch counts from the main-path run and their measured times.
-With --out-dir, the compiler's full register report and a torch.profiler
-trace of one main-path dispatch are written there.
+With --out-dir, the compiler's full register report and torch.profiler
+traces of one main-path and one field-path dispatch are written there.
 
 Phases (each prints its own lines and stops the run when it fails):
   1 device        card name and power limit
@@ -24,10 +26,21 @@ Phases (each prints its own lines and stops the run when it fails):
                   times, and where one dispatch's time goes (torch.profiler)
   8 launches      K1 launched in the main-path run (K2/K3 run there as device
                   functions of K1); each kernel launched in phase 7
+  9 field         the 520-Suzanne field (bench_large.py), packed with the
+                  defaults: it must come out tiered (treelet view)
+ 10 K8            K8 closest/shadow vs plain at the field's 1080p primary rays
+                  and shadow rays, and vs K2/K3 on the whole tree
+ 11 tiered K1     the tiered K1 vs plain at 320x180, 1 spp, both RNG flows;
+                  vs the whole-tree K1 at 1920x1080, 4 spp
+ 12 field path    the field's 1080p/4 spp frame (render_radiance_with_stats,
+                  tiered K1): timed dispatches, launch counts, the refit and
+                  one profiled dispatch, then in turns with the whole-tree K1
+                  on the same scene (tiered="off")
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -43,8 +56,12 @@ class PhaseFailed(Exception):
     pass
 
 
+START = time.perf_counter()
+
+
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    """A phase line, stamped with the seconds since the script started."""
+    print(f"{msg} [{time.perf_counter() - START:.0f} s]", flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -63,11 +80,81 @@ def nvidia_smi_line() -> str:
         return "unknown"
 
 
-def cuda_ms(fn, reps: int, torch, warm: bool = True):
+def build_field_scene(width: int, height: int, n_instances: int = 520):
+    """The Suzanne field of scripts/bench_large.py:68-102 (field branch; 968
+    triangles per instance, 503,360 in all at 520), in the port's scene
+    model."""
+    import math
+
+    import numpy as np
+    from rayzen_tpu_torch.camera import Camera
+    from rayzen_tpu_torch.demo import ASSET_DIR
+    from rayzen_tpu_torch.light import Light
+    from rayzen_tpu_torch.material import Material
+    from rayzen_tpu_torch.mesh import Mesh
+    from rayzen_tpu_torch.scene import GameObject, Scene
+    from rayzen_tpu_torch.transforms import rotation, translation
+
+    monkey = Mesh.load_from_obj(os.path.join(ASSET_DIR, "monkey.obj"), 0)
+    side = int(math.ceil(math.sqrt(n_instances)))
+    objs = []
+    for i in range(n_instances):
+        gx, gz = i % side, i // side
+        objs.append(
+            GameObject(
+                mesh=monkey,
+                transform=translation(
+                    (2.2 * (gx - side / 2), 0.0, -2.2 * gz)
+                ) @ rotation(math.radians((i * 37.0) % 360.0), (0.0, 1.0, 0.0)),
+                material_override=i % 3,
+            )
+        )
+    return Scene(
+        camera=Camera(
+            position=np.array([0.0, 6.0, 8.0], np.float32),
+            target=np.array([0.0, -0.45, -0.89], np.float32),
+            aspect_ratio=width / height,
+        ),
+        materials=[
+            Material(albedo=(0.8, 0.2, 0.2), metallic=0.1, roughness=0.4),
+            Material(albedo=(0.2, 0.8, 0.3), metallic=0.9, roughness=0.25),
+            Material(albedo=(0.9, 0.9, 0.9), metallic=1.0, roughness=0.05,
+                     reflectivity=1.0),
+        ],
+        lights=[
+            Light(position_or_direction=(5.0, 10.0, 5.0, 1.0),
+                  color=(1.0, 1.0, 1.0), power=300.0),
+            Light(position_or_direction=(0.8, 1.4, 0.3, 0.0),
+                  color=(1.0, 1.0, 1.0), power=2.0),
+        ],
+        game_objects=objs,
+    )
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack frame and spill stores per kernel from nvcc's
+    -Xptxas -v report, keyed "kernel<Walk>"."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            kernel = next((k for k in ("sample_kernel", "closest_kernel",
+                                       "shadow_kernel") if k in mangled), mangled)
+            walk = "TieredWalk" if "TieredWalk" in mangled else "Bvh2Walk"
+            cur = f"{kernel}<{walk}>"
+            out[cur] = {}
+        elif cur and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[cur]["stack"], out[cur]["spill"] = nums[0], nums[1]
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur]["regs"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
+def cuda_ms(fn, reps: int, torch):
     """Per-call device time of fn() in ms (CUDA events), after one warm-up
-    call unless ``warm`` is False."""
-    if warm:
-        fn()
+    call."""
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -136,7 +223,10 @@ def main() -> int:
     from rayzen_tpu_torch.integrator import render_radiance_with_stats
     from rayzen_tpu_torch.ops import megakernel, walk
     from rayzen_tpu_torch.ops.camera_rays import pixel_grid
-    from rayzen_tpu_torch.packing import pack_scene, world_geometry
+    from rayzen_tpu_torch.packing import (
+        SINGLE_TREE_VMEM_BUDGET, pack_scene, pack_scene_host,
+        single_tree_table_bytes, world_geometry,
+    )
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,7 +240,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     say(f"[1 device] {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
-    say(smi)
+    print(smi, flush=True)
 
     # ---- 2 build ----
     t0 = time.perf_counter()
@@ -160,10 +250,11 @@ def main() -> int:
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
             f.write(ext.build_log)
-    spills = [ln.strip() for ln in ext.build_log.splitlines()
-              if "registers" in ln or "spill" in ln]
-    say(f"[2 build] nvcc sm_90a build {build_s:.1f} s; ptxas: "
-        + " | ".join(spills[-6:]))
+    ptxas = ptxas_summary(ext.build_log)
+    say(f"[2 build] nvcc sm_90a build {build_s:.1f} s (one nvcc per source, in "
+        "parallel); ptxas: " + " | ".join(
+            f"{k} {v.get('regs')} regs, {v.get('stack')} B stack, "
+            f"{v.get('spill')} B spill" for k, v in sorted(ptxas.items())))
 
     def scene_setup(w, h, spp=1, **kw):
         cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=5, **kw)
@@ -194,6 +285,14 @@ def main() -> int:
             out.append((p + ld * 0.001, ld, md, hit.found))
         return out
 
+    def hits_agree(kt, ktri, pt, ptri):
+        """(share of rays with the same triangle, max relative and max abs t
+        error over the rays that hit the same triangle)."""
+        same = (ktri == ptri).float().mean().item()
+        f = (ktri >= 0) & (ktri == ptri)
+        rel = ((kt - pt).abs() / pt.abs()).masked_fill(~f, 0).max().item()
+        return same, rel, (kt - pt).abs().masked_fill(~f, 0).max().item()
+
     # ---- 3 walks: K2/K3 vs plain ----
     cfg, scene, arrays, camp = scene_setup(256, 192)
     ws = world_geometry(arrays)
@@ -201,11 +300,7 @@ def main() -> int:
     act = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
     kh = walk.closest_hit_bvh2(ws, o, d, act)
     pt, ptri, _pc, _pm = walk.closest_walk_reference(ws, o, d, act)
-    torch.cuda.synchronize()
-    same = (kh.tri == ptri).float().mean().item()
-    f = kh.found & (kh.tri == ptri)
-    t_err = ((kh.t - pt).abs() / pt.abs()).masked_fill(~f, 0).max().item()
-    k2_err = (kh.t - pt).abs().masked_fill(~f, 0).max().item()
+    same, t_err, k2_err = hits_agree(kh.t, kh.tri, pt, ptri)
     say(f"[3 walks] K2 vs plain, 256x192 primary: same tri {same * 100:.4f}%, "
         f"t max rel err {t_err:.3e}, hits {int(kh.found.sum())}")
     require(same >= 0.9999, "K2 tri agreement < 99.99%")
@@ -305,10 +400,8 @@ def main() -> int:
     mhit = walk.closest_hit_bvh2(mws, mo, md_, mact)
     (pt, ptri, _pc, _pm), p2_ms = timed(
         lambda: walk.closest_walk_reference(mws, mo, md_, mact), torch)
-    same = (mhit.tri == ptri).float().mean().item()
-    f = mhit.found & (mhit.tri == ptri)
-    t_rel = ((mhit.t - pt).abs() / pt.abs()).masked_fill(~f, 0).max().item()
-    k2_err = max(k2_err, (mhit.t - pt).abs().masked_fill(~f, 0).max().item())
+    same, t_rel, t_abs = hits_agree(mhit.t, mhit.tri, pt, ptri)
+    k2_err = max(k2_err, t_abs)
     k2_ms = cuda_ms(lambda: walk.closest_walk(mws, mo, md_, mact), 10, torch)
     say(f"[7 kernels] K2 vs plain, 1080p primary: same tri {same * 100:.4f}%, "
         f"t max rel err {t_rel:.3e}, hits {int(mhit.found.sum())}; "
@@ -355,10 +448,165 @@ def main() -> int:
     say(f"[8 launches] main-path run: {launches}; phase 7 (kernel vs plain): "
         f"{standalone}")
     require(launches["sample_wave"] >= 1, "K1 was not launched on the main path")
-    require(all(v >= 1 for v in standalone.values()),
+    require(all(standalone[k] >= 1 for k in
+                ("sample_wave", "closest_hit_bvh2", "shadow_walk_bvh2")),
             "a kernel was never launched in phase 7")
 
+    # ---- 9 field: the large-scene path's scene, packed with the defaults ----
+    fcfg = RenderConfig(width=1920, height=1080, spp=4, max_bounces=5)
+    fscene = build_field_scene(1920, 1080)
+    fcam = fscene.camera.device_params()
+    t0 = time.perf_counter()
+    fhost = pack_scene_host(fscene, fcfg)
+    pack_s = time.perf_counter() - t0
+    farrays = fhost.to(dev)
+    fws = world_geometry(farrays)
+    n_inner, n_leaf = fhost.bvh2_child_node.shape[0], fhost.bvh2_leaf_node.shape[0]
+    mb = 2.0 ** 20
+    tree_mb = single_tree_table_bytes(n_inner, n_leaf, fcfg.leaf_size) / mb
+    tre_mb = (fws.tre_inner.numel() + fws.tre_leaf.numel()) * 4 / mb
+    say(f"[9 field] {fscene.num_triangles} world triangles, {n_inner} inner rows, "
+        f"{n_leaf} leaf rows, tree depth {fhost.tree_depth}; single-tree tables "
+        f"{tree_mb:.2f} MB vs budget {SINGLE_TREE_VMEM_BUDGET / mb:.2f} MB "
+        f"(MB = 2^20 bytes); host pack {pack_s:.2f} s; tiered {fws.tiered}: "
+        f"{fws.tre_inner.shape[0]} treelets x {fws.tre_inner.shape[1]} rows, top "
+        f"{fws.top_table.shape[0]} rows, top depth {fws.top_depth}, deepest treelet "
+        f"{fws.treelet_depth}, treelet tables {tre_mb:.2f} MB")
+    require(fws.tiered, "the field did not pack tiered (no treelet view)")
+
+    # ---- 10 K8 vs plain and vs K2/K3 on the whole tree, 1080p field rays ----
+    ext.reset_launches()
+    fo, fd = primary_rays(1920, 1080, fcam)
+    fact = torch.ones(fo.shape[0], dtype=torch.bool, device=dev)
+    fhit = walk.closest_hit_tiered(fws, fo, fd, fact)
+    (pt, ptri, _pc, _pm), p8_ms = timed(
+        lambda: walk.tiered_closest_walk_reference(fws, fo, fd, fact), torch)
+    same, t_rel, k8_err = hits_agree(fhit.t, fhit.tri, pt, ptri)
+    k8_ms = cuda_ms(lambda: walk.closest_walk_tiered(fws, fo, fd, fact), 10, torch)
+    whit = walk.closest_hit_bvh2(fws, fo, fd, fact)
+    same2, t_rel2, _ = hits_agree(fhit.t, fhit.tri, whit.t, whit.tri)
+    k2f_ms = cuda_ms(lambda: walk.closest_walk(fws, fo, fd, fact), 10, torch)
+    say(f"[10 K8] closest vs plain, field 1080p primary: same tri {same * 100:.4f}%, "
+        f"t max rel err {t_rel:.3e}, hits {int(fhit.found.sum())}; {k8_ms:.3f} ms vs "
+        f"plain {p8_ms:.2f} ms")
+    say(f"[10 K8] closest vs K2 on the whole tree: same tri {same2 * 100:.4f}%, "
+        f"t max rel err {t_rel2:.3e}; K2 {k2f_ms:.3f} ms")
+    require(same >= 0.9999, "K8 tri agreement with plain < 99.99%")
+    require(t_rel <= 1e-5, "K8 t rtol > 1e-5")
+    require(same2 >= 0.9999, "K8 tri agreement with K2 < 99.99%")
+    k8s_err = 0.0
+    for i, (so, sd, sm, sa) in enumerate(shadow_rays(fws, fhit)):
+        kv, kr = walk.shadow_walk_tiered(fws, so, sd, sm, sa)
+        pv, pms = timed(
+            lambda: walk.tiered_shadow_walk_reference(fws, so, sd, sm, sa), torch)
+        kms = cuda_ms(lambda: walk.shadow_walk_tiered(fws, so, sd, sm, sa), 10, torch)
+        wv, _ = walk.shadow_walk_bvh2(fws, so, sd, sm, sa)
+        k3f_ms = cuda_ms(lambda: walk.shadow_walk_bvh2(fws, so, sd, sm, sa), 10, torch)
+        err, err3 = (kv - pv).abs().max().item(), (kv - wv).abs().max().item()
+        k8s_err = max(k8s_err, err)
+        if i == 0:
+            k8s_ms, p8s_ms = kms, pms
+        say(f"[10 K8] shadow vs plain, field 1080p light {i}: vis max abs err "
+            f"{err:.3e} (vs K3 on the whole tree {err3:.3e}), {int(kr)} rays, "
+            f"{int((kv < 1).sum())} shadowed; {kms:.3f} ms vs plain {pms:.2f} ms, "
+            f"K3 {k3f_ms:.3f} ms")
+        require(err <= 1e-5, "K8 shadow vis atol > 1e-5")
+        require(err3 <= 1e-5, "K8 shadow vis differs from K3 on the whole tree")
+    k8_standalone = dict(ext.LAUNCHES)
+    require(k8_standalone["closest_hit_tiered"] >= 1
+            and k8_standalone["shadow_walk_tiered"] >= 1, "K8 was never launched")
+
+    # ---- 11 tiered K1 vs plain (320x180, 1 spp) and vs the whole-tree K1 ----
+    _, guv = pixel_grid(320, 180, dev)
+    gact = torch.ones(guv.shape[0], dtype=torch.bool, device=dev)
+    k1t_err = 0.0
+    for rng in ("threefry", "reference"):
+        gcfg = fcfg.replace(width=320, height=180, spp=1, rng=rng)
+        k = megakernel.sample_wave(fws, gcfg, guv, gact, fcam, 0, 0, 5, 1)
+        p, pms = timed(lambda: megakernel.sample_wave_reference(
+            fws, gcfg, guv, gact, fcam, 0, 0, 5, 1), torch)
+        k1t_err = max(k1t_err, k1_compare("11 tiered K1", rng, k, p, 320, 180, 1))
+        if rng == fcfg.rng:
+            p1t_ms = pms
+            k1t_ms = cuda_ms(lambda: megakernel.sample_wave(
+                fws, gcfg, guv, gact, fcam, 0, 0, 5, 1), 5, torch)
+    _, fuv = pixel_grid(1920, 1080, dev)
+    whole = dataclasses.replace(fws, tiered=False)  # same tables, K2/K3 walks
+    (tcol, trays), (wcol, wrays) = (
+        megakernel.sample_wave(v, fcfg, fuv, fact, fcam, 0, 0, 5, 4) for v in (fws, whole))
+    ti = torch.clamp(tcol / 4, 0, 1).reshape(1080, 1920, 3)
+    wi = torch.clamp(wcol / 4, 0, 1).reshape(1080, 1920, 3)
+    diff = (ti - wi).abs()
+    s_tw = ssim(ti.cpu().numpy(), wi.cpu().numpy())
+    say(f"[11 tiered K1] vs whole-tree K1, field 1920x1080, 4 spp, 5 bounces: "
+        f"SSIM {s_tw:.6f}, mean abs {diff.mean().item():.3e}, max abs "
+        f"{diff.max().item():.3e}, rays {int(trays)} vs {int(wrays)}")
+    require(s_tw >= 0.995 and diff.mean().item() < 2e-3, "tiered vs whole-tree K1 image")
+    require(abs(int(trays) - int(wrays)) <= 0.001 * int(wrays),
+            "tiered vs whole-tree K1 rays")
+    k1t_1080_ms = cuda_ms(lambda: megakernel.sample_wave(
+        fws, fcfg, fuv, fact, fcam, 0, 0, 5, 4), 3, torch)
+    k1w_1080_ms = cuda_ms(lambda: megakernel.sample_wave(
+        whole, fcfg, fuv, fact, fcam, 0, 0, 5, 4), 3, torch)
+    say(f"[11 tiered K1] field 1080p/4 spp K1 alone on {kind} ({smi}): tiered "
+        f"{k1t_1080_ms:.2f} ms, whole tree {k1w_1080_ms:.2f} ms; 320x180/1 spp: "
+        f"tiered {k1t_ms:.3f} ms vs plain {p1t_ms:.2f} ms")
+
+    # ---- 12 field path: render_radiance_with_stats on the tiered K1 ----
+    img, rays = render_radiance_with_stats(farrays, fcam, fcfg)  # warm-up
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    ftimes, fray_counts = [], []
+    for _ in range(6):
+        (img, rays), ms = timed(
+            lambda: render_radiance_with_stats(farrays, fcam, fcfg), torch)
+        ftimes.append(ms)
+        fray_counts.append(int(rays))
+    flaunches = dict(ext.LAUNCHES)
+    require(img.shape == (1080, 1920, 3), "field frame shape")
+    require(bool(torch.isfinite(img).all()), "field frame has non-finite values")
+    require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, "field frame range")
+    require(len(set(fray_counts)) == 1, "field ray count differs between dispatches")
+    frays = fray_counts[0]
+    fmed, fbest = statistics.median(ftimes), min(ftimes)
+    say(f"[12 field path] 1920x1080 spp 4, 5 bounces, 503k-triangle field on {kind} "
+        f"({smi}): median {fmed:.2f} ms, best {fbest:.2f} ms per dispatch over "
+        f"{len(ftimes)}; {frays} rays per dispatch (int64); "
+        f"{frays / fmed / 1e3:.1f} Mrays/s median, {frays / fbest / 1e3:.1f} best")
+    say(f"[12 field path] dispatch ms: {', '.join(f'{t:.2f}' for t in ftimes)}; "
+        f"launches {flaunches}")
+    require(flaunches["sample_wave_tiered"] >= 1,
+            "the tiered K1 was not launched on the field path")
+    require(flaunches["sample_wave"] == 0, "the field path ran the whole-tree K1")
+    frefit_ms = cuda_ms(lambda: world_geometry(farrays), 10, torch)
+    wall, busy, top = profile_dispatch(
+        lambda: render_radiance_with_stats(farrays, fcam, fcfg), torch,
+        out_dir and os.path.join(out_dir, "field_path_trace.json"))
+    say(f"[12 field path] refit {frefit_ms:.3f} ms; one dispatch under "
+        f"torch.profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({busy / wall * 100:.1f}%); top: "
+        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
+    # the whole-tree K1 on the same scene (tiered="off"), in turns with the
+    # tiered path: the evidence for the tiered="auto" rule on this card
+    wcfg = fcfg.replace(tiered="off")
+    warrays = pack_scene(fscene, wcfg, dev)
+    require(not world_geometry(warrays).tiered, "tiered='off' packed a treelet view")
+    render_radiance_with_stats(warrays, fcam, wcfg)  # warm-up
+    runs = {"tiered": (farrays, fcfg), "whole": (warrays, wcfg)}
+    ab, ab_rays = {"tiered": [], "whole": []}, {"tiered": set(), "whole": set()}
+    for order in (("tiered", "whole"), ("whole", "tiered")) * 3:
+        for name in order:
+            (_, r), ms = timed(lambda: render_radiance_with_stats(
+                runs[name][0], fcam, runs[name][1]), torch)
+            ab[name].append(ms)
+            ab_rays[name].add(int(r))
+    say("[12 field path] in turns: " + "; ".join(
+        f"{name} median {statistics.median(ts):.2f} ms ({', '.join(f'{t:.2f}' for t in ts)}), "
+        f"rays {sorted(ab_rays[name])}" for name, ts in ab.items()))
+
     inside_k1 = "device function inside K1 (csrc/walk.cuh, called by csrc/sample_kernel.cu)"
+    inside_k1t = ("device function inside the tiered K1 (csrc/walk.cuh, called by "
+                  "csrc/sample_kernel.cu)")
     kernels = [
         dict(name="K1 sample_wave", route="cuda",
              source="rayzen_tpu_torch/csrc/sample_kernel.cu",
@@ -377,11 +625,29 @@ def main() -> int:
              launches=launches["shadow_walk_bvh2"], on_main_path=inside_k1,
              standalone_launches=standalone["shadow_walk_bvh2"], max_abs_err=k3_err,
              ms=k3_ms, plain_ms=p3_ms),
+        dict(name="K1 sample_wave_tiered", route="cuda",
+             source="rayzen_tpu_torch/csrc/sample_kernel.cu",
+             replaces="rayzen_tpu/ops/megakernel.py:460",
+             launches=flaunches["sample_wave_tiered"], max_abs_err=k1t_err,
+             ms=k1t_ms, plain_ms=p1t_ms, shape="field 320x180, 1 spp",
+             field_1080p_4spp_ms=k1t_1080_ms, whole_tree_1080p_4spp_ms=k1w_1080_ms),
+        dict(name="K8 closest_hit_tiered", route="cuda",
+             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
+             replaces="rayzen_tpu/ops/pallas_traverse.py:796",
+             launches=flaunches["closest_hit_tiered"], on_main_path=inside_k1t,
+             standalone_launches=k8_standalone["closest_hit_tiered"],
+             max_abs_err=k8_err, ms=k8_ms, plain_ms=p8_ms, k2_whole_tree_ms=k2f_ms),
+        dict(name="K8 shadow_walk_tiered", route="cuda",
+             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
+             replaces="rayzen_tpu/ops/pallas_traverse.py:879",
+             launches=flaunches["shadow_walk_tiered"], on_main_path=inside_k1t,
+             standalone_launches=k8_standalone["shadow_walk_tiered"],
+             max_abs_err=k8s_err, ms=k8s_ms, plain_ms=p8s_ms),
     ]
-    say(smi)
-    say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

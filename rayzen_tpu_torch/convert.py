@@ -4,10 +4,12 @@
 rayzen_tpu ``SceneArrays`` / ``WorldArrays`` with its leaves given as numpy
 arrays — ``{f.name: np.asarray(getattr(x, f.name)) for f in
 dataclasses.fields(x)}`` — and return the port's dataclass with tensors on
-``device``. Fields the port does not use (BVH8, treelet and record views)
-are dropped; the static fields (``instance_meta``, ``tree_depth``,
-``leaf_k``) are carried. Tests use this to feed the port exactly the JAX
-tables.
+``device``. Fields the port does not use (the BVH8 and record views) are
+dropped; the static fields (``instance_meta``, ``tree_depth``, ``leaf_k``,
+``tiered``) are carried. The treelet tables lose JAX's 128-lane padding
+(``tre_inner`` keeps its 16 columns, ``tre_leaf`` the leaf-table width), and
+the tiered walks' depth bounds, which JAX does not keep, are computed from the
+tables. Tests use this to feed the port exactly the JAX tables.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .packing import InstanceMeta, SceneArrays, WorldArrays
+from .packing import InstanceMeta, SceneArrays, WorldArrays, tiered_depths
 
 
 def _tensor(x, device):
@@ -37,18 +39,32 @@ def scene_arrays_from_numpy(d: dict, device) -> SceneArrays:
             )
         elif f.name == "tree_depth":
             arrays[f.name] = int(d.get(f.name, 0))
-        else:
+        elif f.name not in ("top_depth", "treelet_depth"):
             arrays[f.name] = np.array(d[f.name])
+    arrays["top_depth"], arrays["treelet_depth"] = tiered_depths(
+        arrays["top_child_ref"], arrays["top_child_count"],
+        arrays["tre_child_ref"], arrays["tre_child_count"],
+    )
     return SceneArrays(**arrays).to(device)
 
 
 def world_arrays_from_numpy(d: dict, device) -> WorldArrays:
     """A JAX WorldArrays (as a dict of numpy leaves) as the port's
     WorldArrays with tensors on ``device``."""
+    d = dict(d)
+    d["tre_inner"] = np.asarray(d["tre_inner"])[..., :16]
+    d["tre_leaf"] = np.asarray(d["tre_leaf"])[..., : np.shape(d["leaf_table"])[1]]
+    top, tre = np.asarray(d["top_table"]), d["tre_inner"]
+    d["top_depth"], d["treelet_depth"] = tiered_depths(
+        top[:, 12:14].astype(np.int32), top[:, 14:16].astype(np.int32),
+        tre[..., 12:14].astype(np.int32), tre[..., 14:16].astype(np.int32),
+    )
     kw = {}
     for f in dataclasses.fields(WorldArrays):
-        if f.name in ("leaf_k", "tree_depth"):
+        if f.name in ("leaf_k", "tree_depth", "top_depth", "treelet_depth"):
             kw[f.name] = int(d[f.name])
+        elif f.name == "tiered":
+            kw[f.name] = bool(d[f.name])
         else:
             kw[f.name] = _tensor(d[f.name], device).contiguous()
     return WorldArrays(**kw)

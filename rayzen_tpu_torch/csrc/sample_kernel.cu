@@ -10,8 +10,15 @@
 // evaluated inline (:69-110, :605-637). Every expression keeps the operation
 // order of the JAX code and of the plain version in ops/megakernel.py.
 //
+// The walk is a template policy (walk.cuh): rz::Bvh2Walk over the whole tree
+// (K2/K3), or rz::TieredWalk over the treelet view (K8) — the kernel's
+// ``tiered=True`` instantiation (megakernel.py:531-552), which the JAX
+// package runs for scenes past the single-tree budget. Both instantiations
+// share every line of shading, RNG and bounce code below.
+//
 // What bounds it on an H100: the BVH walks (walk.cuh) — dependent, divergent
-// loads from L2-resident tables (~0.5 MB for the demo scene). Shading is a
+// loads from L2-resident tables (~0.5 MB for the demo scene; ~45 MB of
+// treelet tables for the 503k-triangle field, about the size of the L2). Shading is a
 // few hundred flops per bounce and the only global traffic besides the walks
 // is the (R, 2) uv read and the (R, 3) + (R,) result write. The design keeps
 // the whole sample loop in one thread, so no wave state ever goes to memory
@@ -166,8 +173,9 @@ __device__ __forceinline__ void scatter(float dx, float dy, float dz, float nx,
 }
 
 // megakernel._direct_lighting_tiles (glsl:569-663) for one live ray
+template <class Walk>
 __device__ __forceinline__ void direct_lighting(
-    const rz::Tables& tb, const float* lights, const SampleParams& p,
+    const Walk& w, const float* lights, const SampleParams& p,
     float px, float py, float pz, float nx, float ny, float nz, float vx,
     float vy, float vz, const Material& m, float out[3]) {
   const bool is_transparent = m.transp > 0.0f;
@@ -199,8 +207,7 @@ __device__ __forceinline__ void direct_lighting(
 
     const rz::Ray sr = rz::make_ray(px + ldx * 0.001f, py + ldy * 0.001f,
                                     pz + ldz * 0.001f, ldx, ldy, ldz);
-    const float vis = rz::walk_shadow(tb, sr, max_dist, p.min_vis,
-                                      p.shadow_eps);
+    const float vis = w.shadow(sr, max_dist, p.min_vis, p.shadow_eps);
     attenuation = attenuation * vis;
     const bool lit = vis > p.min_vis;
     if (!lit) continue;
@@ -283,7 +290,8 @@ struct Sampler {
   }
 };
 
-__global__ void sample_kernel(rz::Tables tb, const float* __restrict__ mats,
+template <class Walk>
+__global__ void sample_kernel(Walk w, const float* __restrict__ mats,
                               const float* __restrict__ lights,
                               const float* __restrict__ cam,
                               const float* __restrict__ uv,
@@ -350,7 +358,7 @@ __global__ void sample_kernel(rz::Tables tb, const float* __restrict__ mats,
       float cr = 0.0f, cg = 0.0f, cb = 0.0f;
       rays += 1;
       rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-      rz::walk_closest(tb, rz::make_ray(ox, oy, oz, dx, dy, dz), h);
+      w.closest(rz::make_ray(ox, oy, oz, dx, dy, dz), h);
       if (h.menc == 0.0f) {  // sky (glsl:706-709)
         const float sky_t = 0.5f * (dy + 1.0f);
         acc[0] = acc[0] + (p.sky_h[0] + p.sky_d[0] * sky_t);
@@ -365,7 +373,7 @@ __global__ void sample_kernel(rz::Tables tb, const float* __restrict__ mats,
       float vx = cpx - px, vy = cpy - py, vz = cpz - pz;
       rz::normalize3(vx, vy, vz, 1e-20f);
       float direct[3];
-      direct_lighting(tb, lights, p, px, py, pz, nx, ny, nz, vx, vy, vz, m,
+      direct_lighting(w, lights, p, px, py, pz, nx, ny, nz, vx, vy, vz, m,
                       direct);
       rays += p.n_lights;
       cr = cr + direct[0];
@@ -391,7 +399,7 @@ __global__ void sample_kernel(rz::Tables tb, const float* __restrict__ mats,
       for (int b = 1; b < p.max_bounces; ++b) {
         rays += 1;
         h = rz::HitRec{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-        rz::walk_closest(tb, rz::make_ray(ox, oy, oz, dx, dy, dz), h);
+        w.closest(rz::make_ray(ox, oy, oz, dx, dy, dz), h);
         if (h.menc == 0.0f) {
           const float sky_t = 0.5f * (dy + 1.0f);
           cr = cr + tp[0] * (p.sky_h[0] + p.sky_d[0] * sky_t);
@@ -436,6 +444,19 @@ __global__ void sample_kernel(rz::Tables tb, const float* __restrict__ mats,
   rays_out[i] = rays;
 }
 
+template <class Walk>
+int launch_sample(Walk w, const float* mats, const float* lights,
+                  const float* cam, const float* uv, const uint8_t* act, int n,
+                  const SampleParams* params, float* color_out, int* rays_out,
+                  void* stream) {
+  if (n > 0) {
+    sample_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        w, mats, lights, cam, uv, act, n, *params, color_out, rays_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,13 +468,21 @@ int rz_sample_wave(const float* inner, const float* leaf, int leaf_w,
                    const float* cam, const float* uv, const uint8_t* act,
                    int n, const rz::SampleParams* params, float* color_out,
                    int* rays_out, void* stream) {
-  if (n > 0) {
-    rz::Tables tb{inner, leaf, leaf_w, leaf_k};
-    sample_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        tb, mats, lights, cam, uv, act, n, *params, color_out, rays_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const rz::Bvh2Walk w{{inner, leaf, leaf_w, leaf_k}};
+  return launch_sample(w, mats, lights, cam, uv, act, n, params, color_out,
+                       rays_out, stream);
+}
+
+int rz_sample_wave_tiered(const float* top, const float* tre_inner,
+                          const float* tre_leaf, int si, int sl, int leaf_w,
+                          int leaf_k, const float* mats, const float* lights,
+                          const float* cam, const float* uv,
+                          const uint8_t* act, int n,
+                          const rz::SampleParams* params, float* color_out,
+                          int* rays_out, void* stream) {
+  const rz::TieredWalk w{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}};
+  return launch_sample(w, mats, lights, cam, uv, act, n, params, color_out,
+                       rays_out, stream);
 }
 
 }  // extern "C"

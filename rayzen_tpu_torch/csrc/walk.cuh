@@ -1,10 +1,12 @@
 // Per-thread BVH2 walks over WorldArrays.inner_table / leaf_table: the device
-// functions behind K2 (closest hit) and K3 (shadow transmission), shared by
-// the standalone kernels (walk_kernels.cu) and the sample kernel
-// (sample_kernel.cu).
+// functions behind K2 (closest hit) and K3 (shadow transmission), and the
+// tiered walks of K8 over top_table / tre_inner / tre_leaf, shared by the
+// standalone kernels (walk_kernels.cu) and the sample kernel
+// (sample_kernel.cu) through the walk policies at the end of this file.
 //
 // Replaces rayzen_tpu/ops/pallas_traverse.py::bvh2_walk_closest (:243) and
-// ::bvh2_walk_shadow (:454), single-pop form. The Pallas walks move a packet
+// ::bvh2_walk_shadow (:454), single-pop form, and ::tiered_walk_closest
+// (:796) / ::tiered_walk_shadow (:879). The Pallas walks move a packet
 // of 4096 rays with one scalar node pointer and push a child when any ray of
 // the packet hits it, left child on top. A ray only acts on a node whose box
 // it hits itself, so the nodes it processes are exactly its own depth-first,
@@ -30,6 +32,24 @@ struct Tables {
   const float* leaf;   // (L, leaf_w)
   int leaf_w;
   int leaf_k;
+};
+
+// The tiered view: a top tree in inner-table layout whose child count -2
+// names a treelet, and per treelet a fixed block of si inner rows
+// (treelet-local refs) and sl leaf rows (copies of leaf-table rows).
+struct TieredTables {
+  const float* top;        // (Nt, 16)
+  const float* tre_inner;  // (Tt, si, 16)
+  const float* tre_leaf;   // (Tt, sl, leaf_w)
+  int si, sl;
+  int leaf_w;
+  int leaf_k;
+
+  // treelet tid as an ordinary BVH2 tree (its root is its row 0)
+  RZ_DEV Tables treelet(int tid) const {
+    return Tables{tre_inner + (size_t)tid * si * 16,
+                  tre_leaf + (size_t)tid * sl * leaf_w, leaf_w, leaf_k};
+  }
 };
 
 struct HitRec {
@@ -91,8 +111,27 @@ RZ_DEV float leaf_shadow(const Tables& tb, int leaf_idx, const Ray& r,
   return vis;
 }
 
-// Closest hit. ``h.t`` enters as the initial bound (t_init or T_FAR); hits at
-// or beyond it are ignored. On stack overflow t and menc become NaN.
+// Push the hit internal children, left on top: it is popped (walked) first.
+// Returns false, pushing nothing, when they do not fit the stack.
+RZ_DEV bool push_children(int* stack, int& sp, bool push_l, bool push_r,
+                          int lref, int rref) {
+  const int npush = (int)push_l + (int)push_r;
+  if (sp + npush > STACK_DEPTH) return false;  // never write past the stack
+  if (push_l && push_r) {
+    stack[sp] = rref;
+    stack[sp + 1] = lref;
+  } else if (push_l) {
+    stack[sp] = lref;
+  } else if (push_r) {
+    stack[sp] = rref;
+  }
+  sp += npush;
+  return true;
+}
+
+// Closest hit. ``h`` enters as the state to continue from: ``h.t`` is the
+// initial bound (t_init, T_FAR, or the best hit of an earlier treelet) and
+// hits at or beyond it are ignored. On stack overflow t and menc become NaN.
 RZ_DEV void walk_closest(const Tables& tb, const Ray& r, HitRec& h) {
   int stack[STACK_DEPTH];
   stack[0] = 0;  // root inner node
@@ -108,34 +147,21 @@ RZ_DEV void walk_closest(const Tables& tb, const Ray& r, HitRec& h) {
     const int lcnt = (int)row[14], rcnt = (int)row[15];
     if (hitl && lcnt >= 0) leaf_closest(tb, lref, r, h);
     if (hitr && rcnt >= 0) leaf_closest(tb, rref, r, h);
-    const bool push_l = hitl && lcnt < 0;
-    const bool push_r = hitr && rcnt < 0;
-    const int npush = (int)push_l + (int)push_r;
-    if (sp + npush > STACK_DEPTH) {  // never write past the stack
+    if (!push_children(stack, sp, hitl && lcnt < 0, hitr && rcnt < 0, lref,
+                       rref)) {
       h.t = nan_f();
       h.menc = nan_f();
       return;
     }
-    // left child on top: it is popped (walked) first
-    if (push_l && push_r) {
-      stack[sp] = rref;
-      stack[sp + 1] = lref;
-    } else if (push_l) {
-      stack[sp] = lref;
-    } else if (push_r) {
-      stack[sp] = rref;
-    }
-    sp += npush;
   }
 }
 
 // Transmission visibility along the ray within (t_eps, maxd): the product of
-// the transparencies of the triangles hit, 0 past an opaque one. The walk
-// stops once vis <= min_vis (shadowVisibility, glsl:507-528). NaN on stack
-// overflow.
+// the transparencies of the triangles hit, 0 past an opaque one, times
+// ``vis`` (vis_init: 1, or what earlier treelets left). The walk stops once
+// vis <= min_vis (shadowVisibility, glsl:507-528). NaN on stack overflow.
 RZ_DEV float walk_shadow(const Tables& tb, const Ray& r, float maxd,
-                         float min_vis, float t_eps) {
-  float vis = 1.0f;
+                         float min_vis, float t_eps, float vis = 1.0f) {
   if (!(vis > min_vis)) return vis;
   int stack[STACK_DEPTH];
   stack[0] = 0;
@@ -154,21 +180,111 @@ RZ_DEV float walk_shadow(const Tables& tb, const Ray& r, float maxd,
     if (hitl && lcnt >= 0) vis = leaf_shadow(tb, lref, r, maxd, t_eps, vis);
     if (hitr && rcnt >= 0) vis = leaf_shadow(tb, rref, r, maxd, t_eps, vis);
     if (!(vis > min_vis)) return vis;
-    const bool push_l = hitl && lcnt < 0;
-    const bool push_r = hitr && rcnt < 0;
-    const int npush = (int)push_l + (int)push_r;
-    if (sp + npush > STACK_DEPTH) return nan_f();
-    if (push_l && push_r) {
-      stack[sp] = rref;
-      stack[sp + 1] = lref;
-    } else if (push_l) {
-      stack[sp] = lref;
-    } else if (push_r) {
-      stack[sp] = rref;
+    if (!push_children(stack, sp, hitl && lcnt < 0, hitr && rcnt < 0, lref,
+                       rref)) {
+      return nan_f();
     }
-    sp += npush;
   }
   return vis;
 }
+
+// K8 closest hit over the tiered view. Per popped top node, as the packet walk
+// (pallas_traverse.py:836-871): both children's boxes are tested against the
+// best t so far, then the left treelet is walked, then the right one (each
+// with walk_closest seeded with the best hit so far), and only then are the
+// hit internal children pushed, left on top. So the processed nodes are the
+// ray's depth-first walk of the whole tree with the same pruning, and the
+// hit (ties included) is the whole-tree walk's. Two stacks: this one for the
+// top tree and walk_closest's for the treelet; the host checks both depths.
+RZ_DEV void walk_closest_tiered(const TieredTables& tt, const Ray& r,
+                                HitRec& h) {
+  int stack[STACK_DEPTH];
+  stack[0] = 0;
+  int sp = 1;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    float row[16];
+    load_inner(tt.top, node, row);
+    float tminl, tminr;
+    const bool hitl = slab(r, row, tminl) && (tminl <= h.t);
+    const bool hitr = slab(r, row + 6, tminr) && (tminr <= h.t);
+    const int lref = (int)row[12], rref = (int)row[13];
+    const int lcnt = (int)row[14], rcnt = (int)row[15];
+    // one call site for both treelets keeps a single inlined sub-walk
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      if (side == 0 ? (hitl && lcnt == -2) : (hitr && rcnt == -2)) {
+        walk_closest(tt.treelet(side == 0 ? lref : rref), r, h);
+      }
+    }
+    if (isnan(h.t)) return;  // a treelet walk overflowed its stack
+    if (!push_children(stack, sp, hitl && lcnt == -1, hitr && rcnt == -1,
+                       lref, rref)) {
+      h.t = nan_f();
+      h.menc = nan_f();
+      return;
+    }
+  }
+}
+
+// K8 transmission over the tiered view: the treelets' walk_shadow calls
+// multiply into the carried visibility, left treelet first. The packet walk
+// tests a top node's boxes only for rays still above min_vis (:910) and walks
+// the right treelet with what the left one left; returning as soon as vis
+// drops to min_vis gives the same product.
+RZ_DEV float walk_shadow_tiered(const TieredTables& tt, const Ray& r,
+                                float maxd, float min_vis, float t_eps) {
+  float vis = 1.0f;
+  if (!(vis > min_vis)) return vis;
+  int stack[STACK_DEPTH];
+  stack[0] = 0;
+  int sp = 1;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    float row[16];
+    load_inner(tt.top, node, row);
+    float tminl, tminr;
+    const bool hitl = slab(r, row, tminl) && (tminl <= maxd);
+    const bool hitr = slab(r, row + 6, tminr) && (tminr <= maxd);
+    const int lref = (int)row[12], rref = (int)row[13];
+    const int lcnt = (int)row[14], rcnt = (int)row[15];
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      if (side == 0 ? (hitl && lcnt == -2) : (hitr && rcnt == -2)) {
+        vis = walk_shadow(tt.treelet(side == 0 ? lref : rref), r, maxd,
+                          min_vis, t_eps, vis);
+      }
+    }
+    if (!(vis > min_vis)) return vis;  // also a NaN from an overflow
+    if (!push_children(stack, sp, hitl && lcnt == -1, hitr && rcnt == -1,
+                       lref, rref)) {
+      return nan_f();
+    }
+  }
+  return vis;
+}
+
+// Walk policies: the tables a kernel walks and how. The standalone kernels
+// and sample_kernel are templates over them, so the tiered K1 shares every
+// line of shading, RNG and bounce code with the whole-tree K1.
+struct Bvh2Walk {
+  Tables tb;
+  RZ_DEV void closest(const Ray& r, HitRec& h) const { walk_closest(tb, r, h); }
+  RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
+                      float t_eps) const {
+    return walk_shadow(tb, r, maxd, min_vis, t_eps);
+  }
+};
+
+struct TieredWalk {
+  TieredTables tt;
+  RZ_DEV void closest(const Ray& r, HitRec& h) const {
+    walk_closest_tiered(tt, r, h);
+  }
+  RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
+                      float t_eps) const {
+    return walk_shadow_tiered(tt, r, maxd, min_vis, t_eps);
+  }
+};
 
 }  // namespace rz

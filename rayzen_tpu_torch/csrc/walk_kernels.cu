@@ -1,11 +1,16 @@
-// K2 and K3 as standalone kernels: one thread per ray over flat (R,) arrays.
+// K2, K3 and K8 as standalone kernels: one thread per ray over flat (R,)
+// arrays.
 //
 // K2 replaces rayzen_tpu/ops/pallas_traverse.py::_make_closest_kernel_bvh2
 // (:428), launched by pallas_closest_hit_bvh2 (:1338); K3 replaces
 // ::_make_shadow_kernel_bvh2 (:580), launched by pallas_shadow_walk_bvh2
-// (:1350). The walks themselves (and what bounds them on the card) are in
-// walk.cuh. These kernels add only the per-ray loads and stores: rays are
-// (R, 3) rows, read once, so the launch is latency-bound like the walk.
+// (:1350). K8 (::tiered_walk_closest :796, ::tiered_walk_shadow :879) has no
+// launcher of its own in the JAX package, only its use inside the sample
+// kernel; these launchers let it be held against its plain version and
+// against K2/K3 on the whole tree. The walks themselves (and what bounds
+// them on the card) are in walk.cuh. These kernels add only the per-ray
+// loads and stores: rays are (R, 3) rows, read once, so the launch is
+// latency-bound like the walk.
 //
 // Plain C interface for ctypes (ext.py). Each entry point launches on the
 // given stream, never synchronises, and returns cudaGetLastError().
@@ -15,7 +20,8 @@ namespace {
 
 constexpr int kBlock = 128;
 
-__global__ void closest_kernel(rz::Tables tb, const float* __restrict__ orig,
+template <class Walk>
+__global__ void closest_kernel(Walk w, const float* __restrict__ orig,
                                const float* __restrict__ dir,
                                const uint8_t* __restrict__ act,
                                const float* __restrict__ t_init, int n,
@@ -30,7 +36,7 @@ __global__ void closest_kernel(rz::Tables tb, const float* __restrict__ orig,
     const rz::Ray r = rz::make_ray(orig[3 * i], orig[3 * i + 1],
                                    orig[3 * i + 2], dir[3 * i],
                                    dir[3 * i + 1], dir[3 * i + 2]);
-    rz::walk_closest(tb, r, h);
+    w.closest(r, h);
   }
   t_out[i] = h.t;
   tri_out[i] = h.tri;
@@ -40,7 +46,8 @@ __global__ void closest_kernel(rz::Tables tb, const float* __restrict__ orig,
   menc_out[i] = h.menc;
 }
 
-__global__ void shadow_kernel(rz::Tables tb, const float* __restrict__ orig,
+template <class Walk>
+__global__ void shadow_kernel(Walk w, const float* __restrict__ orig,
                               const float* __restrict__ dir,
                               const float* __restrict__ maxd,
                               const uint8_t* __restrict__ act, int n,
@@ -53,9 +60,34 @@ __global__ void shadow_kernel(rz::Tables tb, const float* __restrict__ orig,
     const rz::Ray r = rz::make_ray(orig[3 * i], orig[3 * i + 1],
                                    orig[3 * i + 2], dir[3 * i],
                                    dir[3 * i + 1], dir[3 * i + 2]);
-    vis = rz::walk_shadow(tb, r, maxd[i], min_vis, t_eps);
+    vis = w.shadow(r, maxd[i], min_vis, t_eps);
   }
   vis_out[i] = vis;
+}
+
+template <class Walk>
+int launch_closest(Walk w, const float* orig, const float* dir,
+                   const uint8_t* act, const float* t_init, int n,
+                   float* t_out, int* tri_out, float* cross_out,
+                   float* menc_out, void* stream) {
+  if (n > 0) {
+    closest_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        w, orig, dir, act, t_init, n, t_out, tri_out, cross_out, menc_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Walk>
+int launch_shadow(Walk w, const float* orig, const float* dir,
+                  const float* maxd, const uint8_t* act, int n, float min_vis,
+                  float t_eps, float* vis_out, void* stream) {
+  if (n > 0) {
+    shadow_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        w, orig, dir, maxd, act, n, min_vis, t_eps, vis_out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -73,26 +105,39 @@ int rz_closest_bvh2(const float* inner, const float* leaf, int leaf_w,
                     const uint8_t* act, const float* t_init, int n,
                     float* t_out, int* tri_out, float* cross_out,
                     float* menc_out, void* stream) {
-  if (n > 0) {
-    rz::Tables tb{inner, leaf, leaf_w, leaf_k};
-    closest_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        tb, orig, dir, act, t_init, n, t_out, tri_out, cross_out, menc_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const rz::Bvh2Walk w{{inner, leaf, leaf_w, leaf_k}};
+  return launch_closest(w, orig, dir, act, t_init, n, t_out, tri_out,
+                        cross_out, menc_out, stream);
 }
 
 int rz_shadow_bvh2(const float* inner, const float* leaf, int leaf_w,
                    int leaf_k, const float* orig, const float* dir,
                    const float* maxd, const uint8_t* act, int n,
                    float min_vis, float t_eps, float* vis_out, void* stream) {
-  if (n > 0) {
-    rz::Tables tb{inner, leaf, leaf_w, leaf_k};
-    shadow_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        tb, orig, dir, maxd, act, n, min_vis, t_eps, vis_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const rz::Bvh2Walk w{{inner, leaf, leaf_w, leaf_k}};
+  return launch_shadow(w, orig, dir, maxd, act, n, min_vis, t_eps, vis_out,
+                       stream);
+}
+
+int rz_closest_tiered(const float* top, const float* tre_inner,
+                      const float* tre_leaf, int si, int sl, int leaf_w,
+                      int leaf_k, const float* orig, const float* dir,
+                      const uint8_t* act, int n, float* t_out, int* tri_out,
+                      float* cross_out, float* menc_out, void* stream) {
+  const rz::TieredWalk w{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}};
+  return launch_closest(w, orig, dir, act, nullptr, n, t_out, tri_out,
+                        cross_out, menc_out, stream);
+}
+
+int rz_shadow_tiered(const float* top, const float* tre_inner,
+                     const float* tre_leaf, int si, int sl, int leaf_w,
+                     int leaf_k, const float* orig, const float* dir,
+                     const float* maxd, const uint8_t* act, int n,
+                     float min_vis, float t_eps, float* vis_out,
+                     void* stream) {
+  const rz::TieredWalk w{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}};
+  return launch_shadow(w, orig, dir, maxd, act, n, min_vis, t_eps, vis_out,
+                       stream);
 }
 
 }  // extern "C"

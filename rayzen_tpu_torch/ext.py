@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (csrc/).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded through ctypes; pointers go in as
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded through ctypes; pointers go in as
 ``tensor.data_ptr()`` and the stream as ``torch.cuda.current_stream()``.
 The build runs at first use, under a file lock, into ``csrc/build/`` (listed
 in .gitignore), and again whenever a source is newer than the library.
@@ -31,7 +32,7 @@ HEADERS = ("common.cuh", "walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,7 +40,11 @@ NVCC_FLAGS = (
 STACK_DEPTH = 64
 
 # kernel -> launches made by its wrapper (reset with reset_launches())
-LAUNCHES = {"sample_wave": 0, "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0}
+LAUNCHES = {
+    "sample_wave": 0, "sample_wave_tiered": 0,
+    "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
+    "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
+}
 
 _lib = None
 build_log = ""  # nvcc's output of the last build (ptxas register/spill report)
@@ -77,16 +82,25 @@ def build(force: bool = False) -> str:
     with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if force or _stale():
-            tmp = LIB_PATH + f".tmp{os.getpid()}"
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-                os.path.join(CSRC, f) for f in SOURCES
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{build_log}"
+            exe = nvcc()
+            objs = [os.path.join(BUILD_DIR, f + ".o") for f in SOURCES]
+            procs = [
+                subprocess.Popen(
+                    [exe, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, f)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
+                for f, obj in zip(SOURCES, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{build_log}")
+            tmp = LIB_PATH + f".tmp{os.getpid()}"
+            proc = subprocess.run([exe, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            build_log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{build_log}")
             os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
@@ -132,6 +146,15 @@ def lib() -> ctypes.CDLL:
             p, p, i, i, p, p, p, p, p, i, ctypes.POINTER(SampleParams), p, p, p,
         ]
         L.rz_sample_wave.restype = i
+        L.rz_closest_tiered.argtypes = [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]
+        L.rz_closest_tiered.restype = i
+        L.rz_shadow_tiered.argtypes = [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]
+        L.rz_shadow_tiered.restype = i
+        L.rz_sample_wave_tiered.argtypes = [
+            p, p, p, i, i, i, i, p, p, p, p, p, i, ctypes.POINTER(SampleParams),
+            p, p, p,
+        ]
+        L.rz_sample_wave_tiered.restype = i
         if L.rz_sample_params_size() != ctypes.sizeof(SampleParams):
             raise RuntimeError("SampleParams layout differs from the CUDA source")
         if L.rz_stack_depth() != STACK_DEPTH:

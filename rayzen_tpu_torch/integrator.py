@@ -8,6 +8,16 @@ per frame (packing.world_geometry), then one K1 launch that sums all
 Ray counts are int64 throughout (the JAX package keeps them in int32, which
 overflows past 2^31 rays per call).
 
+Large scenes: ``cfg.tiered`` ("auto", "on", "off") is a pack-time choice
+(packing.pack_scene_host). When the pack built the treelet view (past
+``SINGLE_TREE_VMEM_BUDGET`` with "auto", always with "on"), K1 runs its
+tiered instantiation with the K8 walks, as the JAX megakernel does. With
+"off" past the budget the JAX package leaves the megakernel for its XLA path
+(rayzen_tpu/integrator.py:365-384) and its Renderer chunks the scene
+(renderer.py:65-80); the port has neither yet (bigscene.py and the portable
+path, ROADMAP queue 1) and runs the whole-tree K1 there, which the H100
+holds in device memory at any size the pack reaches.
+
 Configuration knobs of the JAX package that this port does not implement
 raise NotImplementedError. The packet-only knobs ``packet_tile``,
 ``dense_leaves`` and ``dual_pop`` shape how a 4096-ray packet walks the
@@ -38,7 +48,6 @@ def check_config(cfg: RenderConfig, tracer: str = "bvh") -> None:
         "octant_bounce_walks": cfg.octant_bounce_walks,
         "walk_pop": cfg.walk_pop > 1,
         "sample_fuse": cfg.sample_fuse > 1,
-        "tiered": cfg.tiered == "on",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:

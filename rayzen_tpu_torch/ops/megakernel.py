@@ -4,11 +4,14 @@ pixel.
 
 Counterpart of rayzen_tpu/ops/megakernel.py: ``sample_wave`` replaces its
 ``sample_wave`` (:1044) and the kernel body ``_make_sample_kernel`` (:460).
-For CUDA tensors it launches csrc/sample_kernel.cu, one thread per pixel;
-for CPU tensors it runs ``sample_wave_reference``, the plain PyTorch version
-built from the helpers below, each ported 1:1 from the JAX tile helpers
-(megakernel.py:56-457) with the same operation order. The plain version is
-vectorised over rays: each bounce runs on the rays still alive.
+For CUDA tensors it launches csrc/sample_kernel.cu, one thread per pixel:
+over the whole tree (K2/K3 walks), or, when the pack built the treelet view
+(``ws.tiered``), its tiered instantiation (K8 walks), as the JAX package
+does (:1097-1135). For CPU tensors it runs ``sample_wave_reference``, the
+plain PyTorch version built from the helpers below, each ported 1:1 from the
+JAX tile helpers (megakernel.py:56-457) with the same operation order, on
+the plain walks of the same view. The plain version is vectorised over
+rays: each bounce runs on the rays still alive.
 
 Kept reference quirks (as in the JAX module): direct lighting on bounce 0
 only, throughput trims 0.95 / 0.98 / albedo*0.4, the scatter draw reused for
@@ -332,7 +335,7 @@ def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
         attenuation = torch.where(is_point, g(7) / (dist * dist), g(7))
         max_dist = torch.where(is_point, dist, torch.full_like(dist, 1e30))
 
-        vis = walk.shadow_walk_reference(
+        vis = walk.plain_walks(ws)[1](
             ws,
             torch.stack([px + ldx * 0.001, py + ldy * 0.001, pz + ldz * 0.001], 1),
             torch.stack([ldx, ldy, ldz], 1), max_dist, live, min_vis, 1e-3,
@@ -485,7 +488,7 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
     ox, oy, oz, dx, dy, dz = _raygen_tiles(u, v, jx, jy, cam)
     rays = torch.ones((n,), dtype=torch.int64, device=dev)
     act = torch.ones((n,), dtype=torch.bool, device=dev)
-    t, _tri, cross, menc = walk.closest_walk_reference(
+    t, _tri, cross, menc = walk.plain_walks(ws)[0](
         ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1), act
     )
     found = menc != 0.0
@@ -525,7 +528,7 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
         if not sel.numel():
             break
         rays[sel] += 1
-        t, _tri, cross, menc = walk.closest_walk_reference(
+        t, _tri, cross, menc = walk.plain_walks(ws)[0](
             ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),
             torch.ones_like(ox, dtype=torch.bool),
         )
@@ -574,7 +577,7 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
                           n_samples: int = 1):
     """Plain version of K1 on uv's device. Returns (color sum over samples
     (R, 3) f32, rays () int64)."""
-    walk.check_depth(ws)
+    walk.check_walks(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
     n, dev = uv.shape[0], uv.device
     cam = _pack_camera(camera_params, dev)
@@ -602,13 +605,13 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
                 n_samples: int = 1):
     """Trace ``n_samples`` full samples per pixel (uv (R, 2) in [0, 1],
     active (R,) bool). Returns (color sum over samples (R, 3) f32, rays ()
-    int64). K1 on CUDA tensors, the plain version on CPU tensors."""
+    int64). K1 on CUDA tensors (its tiered instantiation when ``ws.tiered``),
+    the plain version on CPU tensors."""
     if uv.device.type == "cpu":
         return sample_wave_reference(ws, cfg, uv, active, camera_params, samp,
                                      rng_key, max_bounces, n_samples)
     if not uv.is_cuda:
         raise ValueError(f"no K1 for device {uv.device}")
-    walk.check_depth(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
     dev = uv.device
     uvc = uv.to(torch.float32).contiguous()
@@ -616,7 +619,8 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
     if uvc.dim() != 2 or uvc.shape[1] != 2 or act.shape != (uvc.shape[0],):
         raise ValueError("uv must be (R, 2) and active (R,)")
     cam = _pack_camera(camera_params, dev)
-    walk.check_cuda_inputs(ws, uvc, act, cam, ws.materials, ws.lights)
+    walk.check_cuda_inputs(ws, uvc, act, cam, ws.materials, ws.lights,
+                           tiered=ws.tiered)
     for t in (ws.materials, ws.lights):
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 8:
             raise ValueError("materials and lights must be (n, 8) float32")
@@ -631,13 +635,14 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
         (ctypes.c_float * 3)(*c.ambient),
     )
     L = ext.lib()
-    err = L.rz_sample_wave(
-        ws.inner_table.data_ptr(), ws.leaf_table.data_ptr(),
-        ws.leaf_table.shape[1], ws.leaf_k, ws.materials.data_ptr(),
+    entry, name = ((L.rz_sample_wave_tiered, "sample_wave_tiered") if ws.tiered
+                   else (L.rz_sample_wave, "sample_wave"))
+    err = entry(
+        *walk.table_args(ws, ws.tiered), ws.materials.data_ptr(),
         ws.lights.data_ptr(), cam.data_ptr(), uvc.data_ptr(), act.data_ptr(),
         n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    ext.check(err, "sample_wave")
-    ext.LAUNCHES["sample_wave"] += n > 0  # the entry point skips n == 0
+    ext.check(err, name)
+    ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
     return color, rays.sum(dtype=torch.int64)

@@ -1,21 +1,28 @@
-"""BVH2 closest-hit (K2) and shadow-transmission (K3) walks.
+"""BVH2 closest-hit (K2) and shadow-transmission (K3) walks, and their
+tiered form over the treelet view (K8).
 
 Counterpart of rayzen_tpu/ops/pallas_traverse.py: ``closest_hit_bvh2`` /
 ``shadow_walk_bvh2`` replace ``pallas_closest_hit_bvh2`` (:1338) and
-``pallas_shadow_walk_bvh2`` (:1350). For CUDA tensors each wrapper launches
-its kernel (csrc/walk_kernels.cu); for CPU tensors it runs the plain
-PyTorch version below. The plain versions run on any device, so the kernels
-can be held against them on the card.
+``pallas_shadow_walk_bvh2`` (:1350); ``closest_hit_tiered`` /
+``shadow_walk_tiered`` launch ``tiered_walk_closest`` (:796) /
+``tiered_walk_shadow`` (:879), which the JAX package runs only inside its
+sample kernel. For CUDA tensors each wrapper launches its kernel
+(csrc/walk_kernels.cu); for CPU tensors it runs the plain PyTorch version
+below. The plain versions run on any device, so the kernels can be held
+against them on the card.
 
 Both forms walk each ray's own depth-first, left-first path through the
-inner/leaf tables with t pruning, exactly as csrc/walk.cuh does; see there
-why that reproduces the Pallas packet walk's hits. The plain versions carry
-one stack per ray and advance all unfinished rays one node per step.
+tables with t pruning, exactly as csrc/walk.cuh does; see there why that
+reproduces the Pallas packet walk's hits. The plain versions carry one stack
+per ray and advance all unfinished rays one node per step; the tiered ones
+walk the flattened treelet tables with each ray's refs offset by its
+treelet's first row, so rays in different treelets share one loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -44,14 +51,36 @@ class Hit:
     menc: torch.Tensor  # (R,) (mat + 1) * orientation, 0 if none
 
 
-def check_depth(ws: WorldArrays) -> None:
+def _check_stack(what: str, depth: int) -> None:
     """A single-pop walk needs depth + 1 stack slots (0 = unknown depth: the
     walks then NaN-poison a result whose stack would overflow)."""
-    if ws.tree_depth and ws.tree_depth + 1 > STACK_DEPTH:
+    if depth and depth + 1 > STACK_DEPTH:
         raise ValueError(
-            f"BVH depth {ws.tree_depth} needs {ws.tree_depth + 1} stack "
-            f"entries; the walks hold {STACK_DEPTH}"
+            f"{what} depth {depth} needs {depth + 1} stack entries; the "
+            f"walks hold {STACK_DEPTH}"
         )
+
+
+def check_depth(ws: WorldArrays) -> None:
+    """The whole-tree walks' (K2/K3) stack bound."""
+    _check_stack("BVH", ws.tree_depth)
+
+
+def check_tiered(ws: WorldArrays) -> None:
+    """The tiered walks (K8) need the treelet view, and each of their two
+    stacks (top tree, treelet) its depth + 1 slots."""
+    if not ws.tiered:
+        raise ValueError(
+            "the scene has no treelet view: pack it with tiered='on', or "
+            "'auto' past packing.SINGLE_TREE_VMEM_BUDGET"
+        )
+    _check_stack("top-tree", ws.top_depth)
+    _check_stack("treelet", ws.treelet_depth)
+
+
+def check_walks(ws: WorldArrays) -> None:
+    """The depth check of the view the kernels walk (see plain_walks)."""
+    (check_tiered if ws.tiered else check_depth)(ws)
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -107,17 +136,15 @@ def _moller_trumbore(r, tri):
     return t, hit
 
 
-def _leaf_rows(ws, leaf_idx):
-    K = ws.leaf_k
-    rows = ws.leaf_table[leaf_idx]
+def _leaf_rows(leaf, K, leaf_idx):
+    rows = leaf[leaf_idx]
     return rows, rows[:, : 9 * K].reshape(-1, K, 9)
 
 
-def _leaf_closest(ws, leaf_idx, r, sel, state):
+def _leaf_closest(leaf, K, leaf_idx, r, sel, state):
     """bvh2_walk_closest.leaf_proc for the rays ``sel`` (r = their rows)."""
     t_best, tri_best, cross, menc = state
-    K = ws.leaf_k
-    rows, tris = _leaf_rows(ws, leaf_idx)
+    rows, tris = _leaf_rows(leaf, K, leaf_idx)
     first = rows[:, 10 * K].to(torch.int32)
     count = rows[:, 10 * K + 1].to(torch.int32)
     t, h = _moller_trumbore(r[:, None, :], tris)
@@ -136,10 +163,9 @@ def _leaf_closest(ws, leaf_idx, r, sel, state):
     t_best[sel], tri_best[sel], cross[sel], menc[sel] = tb, tr, cx, me
 
 
-def _leaf_shadow(ws, leaf_idx, r, maxd, t_eps, vis):
+def _leaf_shadow(leaf, K, leaf_idx, r, maxd, t_eps, vis):
     """bvh2_walk_shadow.leaf_proc; returns the updated vis of those rays."""
-    K = ws.leaf_k
-    rows, tris = _leaf_rows(ws, leaf_idx)
+    rows, tris = _leaf_rows(leaf, K, leaf_idx)
     count = rows[:, 10 * K + 1].to(torch.int32)
     t, h = _moller_trumbore(r[:, None, :], tris)
     for k in range(K):
@@ -148,126 +174,310 @@ def _leaf_shadow(ws, leaf_idx, r, maxd, t_eps, vis):
     return vis
 
 
-def _step(ws, stack, sp, live):
-    """Pop each live ray's top node; returns (sp after the pop, inner rows)."""
-    sp_l = sp[live] - 1
-    return sp_l, ws.inner_table[stack[live, sp_l]]
-
-
-def _push(stack, sp, live, sp_l, row, hitl, hitr):
-    """Push hit internal children, left on top. Returns the per-live-ray
-    overflow mask (those rays push nothing)."""
+def _push(stack, sp, ids, sp_l, row, hitl, hitr):
+    """Push hit internal children (count -1), left on top, onto the stacks
+    of the rays ``ids`` (``sp_l``: their stack pointers before the push).
+    Returns the overflow mask (those rays push nothing)."""
     lref, rref = row[:, 12].long(), row[:, 13].long()
-    push_l = hitl & (row[:, 14] < 0)
-    push_r = hitr & (row[:, 15] < 0)
+    push_l = hitl & (row[:, 14] == -1)
+    push_r = hitr & (row[:, 15] == -1)
     npush = push_l.long() + push_r.long()
     ovf = sp_l + npush > STACK_DEPTH
     both = push_l & push_r
     first = torch.where(both, rref, torch.where(push_l, lref, rref))
     w1 = ~ovf & (npush >= 1)
-    stack[live[w1], sp_l[w1]] = first[w1]
+    stack[ids[w1], sp_l[w1]] = first[w1]
     w2 = ~ovf & both
-    stack[live[w2], sp_l[w2] + 1] = lref[w2]
-    sp[live] = sp_l + torch.where(ovf, 0, npush)
+    stack[ids[w2], sp_l[w2] + 1] = lref[w2]
+    sp[ids] = sp_l + torch.where(ovf, 0, npush)
     return ovf
 
 
-def closest_walk_reference(ws: WorldArrays, origin, direction, active,
-                           t_init=None):
-    """Plain closest-hit walk. Returns (t, tri, cross (R, 3), menc)."""
-    check_depth(ws)
-    n, dev = origin.shape[0], origin.device
-    r_all = _rays9(origin, direction)
+def _stacks(n, rays, dev):
+    """(stack, sp) for n rays, indexed by ray id: the rays ``rays`` hold the
+    root row 0, the others nothing."""
+    sp = torch.zeros((n,), dtype=torch.long, device=dev)
+    sp[rays] = 1
+    return torch.zeros((n, STACK_DEPTH), dtype=torch.long, device=dev), sp
+
+
+def _boxes(r, row, bound):
+    """Both children's box tests of the rows, bounded by ``bound``."""
+    tminl, boxl = _slab(r, row[:, 0:6])
+    tminr, boxr = _slab(r, row[:, 6:12])
+    return boxl & (tminl <= bound), boxr & (tminr <= bound)
+
+
+@dataclasses.dataclass
+class _Walk:
+    """What a walk keeps per ray and does at a leaf (all indexed by ray id):
+    ``bound(ids)`` prunes the box tests, ``leaves(leaf, K, li, r, ids)`` runs
+    leaf rows ``li``, ``stop(ids)`` ends a ray early, ``poison(ids)`` marks a
+    stack overflow."""
+
+    bound: Callable
+    leaves: Callable
+    stop: Callable
+    poison: Callable
+
+
+def _closest_ops(state) -> _Walk:
+    """The closest-hit walk on state = (t_best, tri, cross, menc)."""
+    t_best, _tri, _cross, menc = state
+
+    def leaves(leaf, K, li, r, ids):
+        _leaf_closest(leaf, K, li, r, ids, state)
+
+    def poison(ids):
+        t_best[ids] = float("nan")
+        menc[ids] = float("nan")
+
+    return _Walk(lambda ids: t_best[ids], leaves,
+                 lambda ids: torch.zeros_like(ids, dtype=torch.bool), poison)
+
+
+def _shadow_ops(vis, maxd, min_visibility, t_eps) -> _Walk:
+    """The transmission walk multiplying into ``vis``; a ray stops once its
+    vis drops to min_visibility."""
+
+    def leaves(leaf, K, li, r, ids):
+        vis[ids] = _leaf_shadow(leaf, K, li, r, maxd[ids], t_eps, vis[ids])
+
+    def poison(ids):
+        vis[ids] = float("nan")
+
+    return _Walk(lambda ids: maxd[ids], leaves,
+                 lambda ids: ~(vis[ids] > min_visibility), poison)
+
+
+def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
+          lbase=None):
+    """One node for each ray of ``ids``: pop it, test both children's boxes,
+    run the hit leaf children (left first), push the hit internal children
+    (left on top). ``ibase``/``lbase`` (by ray id) offset the local inner and
+    leaf refs: the ray's treelet in the flattened tiered tables. Returns the
+    rays that stop: by ``w.stop`` (before pushing) or by a stack overflow
+    (poisoned)."""
+    sp_l = sp[ids] - 1
+    node = stack[ids, sp_l]
+    row = inner[node if ibase is None else node + ibase[ids]]
+    r = r_all[ids]
+    hitl, hitr = _boxes(r, row, w.bound(ids))
+    for hit, ref, cnt in ((hitl, row[:, 12], row[:, 14]),
+                          (hitr, row[:, 13], row[:, 15])):
+        m = hit & (cnt >= 0)
+        if m.any():
+            li = ref[m].long()
+            if lbase is not None:
+                li = li + lbase[ids[m]]
+            w.leaves(leaf, K, li, r[m], ids[m])
+    stop = w.stop(ids)
+    ovf = _push(stack, sp, ids, sp_l, row, hitl & ~stop, hitr & ~stop)
+    if ovf.any():  # never write past the stack: poison and stop
+        w.poison(ids[ovf])
+    return stop | ovf
+
+
+def _walk(w: _Walk, inner, leaf, K, r_all, rays):
+    """Whole-tree walk (K2/K3) of the ray ids ``rays``. One stack per ray;
+    all unfinished rays advance one node per step."""
+    stack, sp = _stacks(r_all.shape[0], rays, r_all.device)
+    live = rays
+    while live.numel():
+        stop = _step(w, inner, leaf, K, r_all, live, stack, sp)
+        live = live[~stop & (sp[live] > 0)]
+
+
+def _walk_tiered(w: _Walk, ws: WorldArrays, r_all, rays):
+    """K8's walk of the ray ids ``rays`` as one vectorised loop. Per top node
+    (walk.cuh's order): both boxes against the bound of the node's start, the
+    hit left treelet, the hit right treelet, then the hit internal children
+    pushed, left on top. Each step a ray either pops a top node (after the
+    pushes its last one left pending), starts its next pending treelet, or
+    walks one treelet node, so rays in different treelets advance together
+    on the flattened treelet tables. Two stacks, as in the kernel."""
+    n, dev = r_all.shape[0], r_all.device
+    inner, leaf, si, sl = _treelet_rows(ws)
+    top, top_sp = _stacks(n, rays, dev)
+    tre, tre_sp = _stacks(n, rays[:0], dev)
+    ibase = torch.zeros((n,), dtype=torch.long, device=dev)
+    lbase = torch.zeros_like(ibase)
+    pend = torch.full((n, 2), -1, dtype=torch.long, device=dev)  # treelet ids
+    prow = torch.zeros((n, 16), dtype=ws.top_table.dtype, device=dev)
+    phit = torch.zeros((n, 2), dtype=torch.bool, device=dev)
+    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    live = rays
+    while live.numel():
+        # between treelets, none pending: the last top node's pushes, then
+        # the next top node
+        idle = live[(tre_sp[live] == 0) & (pend[live] < 0).all(1)]
+        if idle.numel():
+            ovf = _push(top, top_sp, idle, top_sp[idle], prow[idle],
+                        phit[idle, 0], phit[idle, 1])
+            if ovf.any():
+                w.poison(idle[ovf])
+            done[idle[ovf | (top_sp[idle] == 0)]] = True
+            go = idle[~ovf & (top_sp[idle] > 0)]
+            sp_l = top_sp[go] - 1
+            top_sp[go] = sp_l
+            row = ws.top_table[top[go, sp_l]]
+            hitl, hitr = _boxes(r_all[go], row, w.bound(go))
+            pend[go] = torch.stack([
+                torch.where(hitl & (row[:, 14] == -2), row[:, 12].long(), -1),
+                torch.where(hitr & (row[:, 15] == -2), row[:, 13].long(), -1),
+            ], 1)
+            prow[go] = row
+            phit[go] = torch.stack([hitl, hitr], 1)
+        # between treelets: start the next pending one, left first
+        st = live[(tre_sp[live] == 0) & (pend[live] >= 0).any(1)]
+        if st.numel():
+            side = (pend[st, 0] < 0).long()
+            tid = pend[st, side]
+            pend[st, side] = -1
+            tre[st, 0] = 0
+            tre_sp[st] = 1
+            ibase[st] = tid * si
+            lbase[st] = tid * sl
+        inside = live[tre_sp[live] > 0]
+        if inside.numel():
+            stop = _step(w, inner, leaf, ws.leaf_k, r_all, inside, tre, tre_sp,
+                         ibase, lbase)
+            done[inside[stop]] = True
+        live = live[~done[live]]
+
+
+def _closest_state(n, dev, t_init):
+    """(t_best, tri, cross, menc) before any hit."""
     t_best = (
         torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
         if t_init is None else t_init.to(torch.float32).clone()
     )
-    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    cross = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    menc = torch.zeros((n,), dtype=torch.float32, device=dev)
-    state = (t_best, tri, cross, menc)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.long, device=dev)
-    sp = torch.ones((n,), dtype=torch.long, device=dev)
-    live = active.nonzero()[:, 0]
-    while live.numel():
-        sp_l, row = _step(ws, stack, sp, live)
-        r = r_all[live]
-        tminl, boxl = _slab(r, row[:, 0:6])
-        tminr, boxr = _slab(r, row[:, 6:12])
-        tb = t_best[live]
-        hitl = boxl & (tminl <= tb)
-        hitr = boxr & (tminr <= tb)
-        for hit, ref, cnt in ((hitl, row[:, 12], row[:, 14]),
-                              (hitr, row[:, 13], row[:, 15])):
-            m = hit & (cnt >= 0)
-            if m.any():
-                _leaf_closest(ws, ref[m].long(), r[m], live[m], state)
-        ovf = _push(stack, sp, live, sp_l, row, hitl, hitr)
-        if ovf.any():  # never write past the stack: poison and stop
-            t_best[live[ovf]] = float("nan")
-            menc[live[ovf]] = float("nan")
-        live = live[~ovf & (sp[live] > 0)]
-    return t_best, tri, cross, menc
+    return (t_best, torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            torch.zeros((n,), dtype=torch.float32, device=dev))
+
+
+def _max_dist(max_dist, n, dev):
+    return torch.broadcast_to(
+        torch.as_tensor(max_dist, dtype=torch.float32, device=dev), (n,)
+    )
+
+
+def closest_walk_reference(ws: WorldArrays, origin, direction, active,
+                           t_init=None):
+    """Plain closest-hit walk (K2). Returns (t, tri, cross (R, 3), menc)."""
+    check_depth(ws)
+    state = _closest_state(origin.shape[0], origin.device, t_init)
+    _walk(_closest_ops(state), ws.inner_table, ws.leaf_table, ws.leaf_k,
+          _rays9(origin, direction), active.nonzero()[:, 0])
+    return state
+
+
+def _shadow_setup(origin, max_dist, active, min_visibility):
+    """(vis, maxd, the ray ids that walk) of a transmission walk."""
+    n, dev = origin.shape[0], origin.device
+    vis = torch.ones((n,), dtype=torch.float32, device=dev)
+    rays = (active & (vis > min_visibility)).nonzero()[:, 0]
+    return vis, _max_dist(max_dist, n, dev), rays
 
 
 def shadow_walk_reference(ws: WorldArrays, origin, direction, max_dist,
                           active, min_visibility: float = 0.05,
                           t_eps: float = 1e-3):
-    """Plain transmission walk. Returns vis (R,), 1 for inactive rays."""
+    """Plain transmission walk (K3). Returns vis (R,), 1 for inactive rays."""
     check_depth(ws)
-    n, dev = origin.shape[0], origin.device
-    r_all = _rays9(origin, direction)
-    maxd = torch.broadcast_to(
-        torch.as_tensor(max_dist, dtype=torch.float32, device=dev), (n,)
-    )
-    vis = torch.ones((n,), dtype=torch.float32, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.long, device=dev)
-    sp = torch.ones((n,), dtype=torch.long, device=dev)
-    live = (active & (vis > min_visibility)).nonzero()[:, 0]
-    while live.numel():
-        sp_l, row = _step(ws, stack, sp, live)
-        r, md = r_all[live], maxd[live]
-        tminl, boxl = _slab(r, row[:, 0:6])
-        tminr, boxr = _slab(r, row[:, 6:12])
-        hitl = boxl & (tminl <= md)
-        hitr = boxr & (tminr <= md)
-        for hit, ref, cnt in ((hitl, row[:, 12], row[:, 14]),
-                              (hitr, row[:, 13], row[:, 15])):
-            m = hit & (cnt >= 0)
-            if m.any():
-                sel = live[m]
-                vis[sel] = _leaf_shadow(
-                    ws, ref[m].long(), r[m], md[m], t_eps, vis[sel]
-                )
-        dead = ~(vis[live] > min_visibility)
-        # dead rays stop before pushing (their stack is never read again)
-        ovf = _push(stack, sp, live, sp_l, row, hitl & ~dead, hitr & ~dead)
-        if ovf.any():
-            vis[live[ovf]] = float("nan")
-        live = live[~dead & ~ovf & (sp[live] > 0)]
+    vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
+    _walk(_shadow_ops(vis, maxd, min_visibility, t_eps), ws.inner_table,
+          ws.leaf_table, ws.leaf_k, _rays9(origin, direction), rays)
     return vis
+
+
+def _treelet_rows(ws):
+    """The treelet tables flattened to (Tt * SI, 16) / (Tt * SL, W2), and the
+    row strides SI, SL of one treelet."""
+    si, sl = ws.tre_inner.shape[1], ws.tre_leaf.shape[1]
+    return (ws.tre_inner.reshape(-1, 16),
+            ws.tre_leaf.reshape(-1, ws.tre_leaf.shape[2]), si, sl)
+
+
+def tiered_closest_walk_reference(ws: WorldArrays, origin, direction, active):
+    """Plain K8 closest-hit walk over the treelet view: the top tree walk,
+    with each treelet child a ray's box test hits walked by the K2 walk on
+    that treelet's rows. Returns (t, tri, cross (R, 3), menc)."""
+    check_tiered(ws)
+    state = _closest_state(origin.shape[0], origin.device, None)
+    _walk_tiered(_closest_ops(state), ws, _rays9(origin, direction),
+                 active.nonzero()[:, 0])
+    return state
+
+
+def tiered_shadow_walk_reference(ws: WorldArrays, origin, direction,
+                                 max_dist, active,
+                                 min_visibility: float = 0.05,
+                                 t_eps: float = 1e-3):
+    """Plain K8 transmission walk over the treelet view: the treelets' K3
+    walks multiply into the carried visibility, left treelet first. Returns
+    vis (R,), 1 for inactive rays."""
+    check_tiered(ws)
+    vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
+    _walk_tiered(_shadow_ops(vis, maxd, min_visibility, t_eps), ws,
+                 _rays9(origin, direction), rays)
+    return vis
+
+
+def plain_walks(ws: WorldArrays):
+    """(closest, shadow) plain walks of the view the kernels walk: K8's over
+    the treelet view when ``ws.tiered``, K2/K3's over the whole tree
+    otherwise."""
+    if ws.tiered:
+        return tiered_closest_walk_reference, tiered_shadow_walk_reference
+    return closest_walk_reference, shadow_walk_reference
 
 
 # ---- kernel launches -------------------------------------------------------
 
 
-def check_cuda_inputs(ws: WorldArrays, *tensors):
-    """Validate what a kernel launch reads: one CUDA device, contiguous, the
-    table layouts the kernels index (None entries are skipped)."""
-    check_depth(ws)
-    for t in (ws.inner_table, ws.leaf_table) + tensors:
+def _table_tensors(ws: WorldArrays, tiered: bool):
+    return ((ws.top_table, ws.tre_inner, ws.tre_leaf) if tiered
+            else (ws.inner_table, ws.leaf_table))
+
+
+def check_cuda_inputs(ws: WorldArrays, *tensors, tiered: bool = False):
+    """Validate what a kernel launch reads: the depth bound, one CUDA device,
+    contiguous, the table layouts the kernels index (None entries are
+    skipped). ``tiered``: the launch walks the treelet view."""
+    (check_tiered if tiered else check_depth)(ws)
+    tables = _table_tensors(ws, tiered)
+    for t in tables + tensors:
         if t is None:
             continue
-        if not t.is_cuda or t.device != ws.inner_table.device:
+        if not t.is_cuda or t.device != tables[0].device:
             raise ValueError("kernel inputs must all lie on one CUDA device")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-    inner, leaf = ws.inner_table, ws.leaf_table
-    if inner.dtype != torch.float32 or inner.dim() != 2 or inner.shape[1] != 16:
-        raise ValueError("inner_table must be (Ni, 16) float32")
-    if leaf.dtype != torch.float32 or leaf.dim() != 2 or (
-            leaf.shape[1] < 11 * ws.leaf_k + 2):
-        raise ValueError(f"leaf_table must be (L, >= {11 * ws.leaf_k + 2}) float32")
+    *inner, leaf = tables
+    for t in inner:
+        if t.dtype != torch.float32 or t.shape[-1] != 16:
+            raise ValueError("inner and top tables must have 16 float32 columns")
+    if leaf.dtype != torch.float32 or leaf.shape[-1] < 11 * ws.leaf_k + 2:
+        raise ValueError(f"leaf tables must have >= {11 * ws.leaf_k + 2} float32 columns")
+    if tiered and not (ws.top_table.dim() == 2 and ws.tre_inner.dim() == 3
+                       and ws.tre_leaf.dim() == 3
+                       and ws.tre_inner.shape[0] == ws.tre_leaf.shape[0]):
+        raise ValueError("tiered tables must be (Nt, 16), (Tt, SI, 16), (Tt, SL, W2)")
+    if not tiered and (inner[0].dim() != 2 or leaf.dim() != 2):
+        raise ValueError("inner_table must be (Ni, 16) and leaf_table (L, W2)")
+
+
+def table_args(ws: WorldArrays, tiered: bool) -> tuple:
+    """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k),
+    or for the tiered view (top, tre_inner, tre_leaf, si, sl, leaf_w,
+    leaf_k)."""
+    ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, tiered))
+    if tiered:
+        return ptrs + (ws.tre_inner.shape[1], ws.tre_leaf.shape[1],
+                       ws.tre_leaf.shape[2], ws.leaf_k)
+    return ptrs + (ws.leaf_table.shape[1], ws.leaf_k)
 
 
 def _ray_operands(origin, direction, active):
@@ -281,46 +491,48 @@ def _ray_operands(origin, direction, active):
     return o, d, a
 
 
-def _closest_cuda(ws, origin, direction, active, t_init):
+def _closest_cuda(ws, origin, direction, active, t_init, tiered):
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
     ti = None if t_init is None else t_init.to(torch.float32).contiguous()
-    check_cuda_inputs(ws, o, d, a, ti)
+    check_cuda_inputs(ws, o, d, a, ti, tiered=tiered)
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     cross = torch.empty((n, 3), dtype=torch.float32, device=o.device)
     menc = torch.empty((n,), dtype=torch.float32, device=o.device)
     L = ext.lib()
-    err = L.rz_closest_bvh2(
-        ws.inner_table.data_ptr(), ws.leaf_table.data_ptr(),
-        ws.leaf_table.shape[1], ws.leaf_k, o.data_ptr(), d.data_ptr(),
-        a.data_ptr(), None if ti is None else ti.data_ptr(), n,
-        t.data_ptr(), tri.data_ptr(), cross.data_ptr(), menc.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
-    )
-    ext.check(err, "closest_hit_bvh2")
-    ext.LAUNCHES["closest_hit_bvh2"] += n > 0  # the entry point skips n == 0
+    rays = (o.data_ptr(), d.data_ptr(), a.data_ptr())
+    outs = (t.data_ptr(), tri.data_ptr(), cross.data_ptr(), menc.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if tiered:  # K8 takes no t_init (nor does the JAX tiered walk)
+        err = L.rz_closest_tiered(*table_args(ws, True), *rays, n, *outs)
+        name = "closest_hit_tiered"
+    else:
+        err = L.rz_closest_bvh2(*table_args(ws, False), *rays,
+                                None if ti is None else ti.data_ptr(), n, *outs)
+        name = "closest_hit_bvh2"
+    ext.check(err, name)
+    ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
     return t, tri, cross, menc
 
 
 def _shadow_cuda(ws, origin, direction, max_dist, active, min_visibility,
-                 t_eps):
+                 t_eps, tiered):
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
-    md = torch.broadcast_to(
-        torch.as_tensor(max_dist, dtype=torch.float32, device=o.device), (n,)
-    ).contiguous()
-    check_cuda_inputs(ws, o, d, a, md)
+    md = _max_dist(max_dist, n, o.device).contiguous()
+    check_cuda_inputs(ws, o, d, a, md, tiered=tiered)
     vis = torch.empty((n,), dtype=torch.float32, device=o.device)
     L = ext.lib()
-    err = L.rz_shadow_bvh2(
-        ws.inner_table.data_ptr(), ws.leaf_table.data_ptr(),
-        ws.leaf_table.shape[1], ws.leaf_k, o.data_ptr(), d.data_ptr(),
-        md.data_ptr(), a.data_ptr(), n, float(min_visibility), float(t_eps),
-        vis.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream,
+    entry, name = ((L.rz_shadow_tiered, "shadow_walk_tiered") if tiered
+                   else (L.rz_shadow_bvh2, "shadow_walk_bvh2"))
+    err = entry(
+        *table_args(ws, tiered), o.data_ptr(), d.data_ptr(), md.data_ptr(),
+        a.data_ptr(), n, float(min_visibility), float(t_eps), vis.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream,
     )
-    ext.check(err, "shadow_walk_bvh2")
-    ext.LAUNCHES["shadow_walk_bvh2"] += n > 0
+    ext.check(err, name)
+    ext.LAUNCHES[name] += n > 0
     return vis
 
 
@@ -328,10 +540,20 @@ def closest_walk(ws: WorldArrays, origin, direction, active, t_init=None):
     """Raw closest-hit walk (t, tri, cross, menc): K2 on CUDA tensors, the
     plain version on CPU tensors."""
     if origin.is_cuda:
-        return _closest_cuda(ws, origin, direction, active, t_init)
+        return _closest_cuda(ws, origin, direction, active, t_init, False)
     if origin.device.type != "cpu":
         raise ValueError(f"no K2 for device {origin.device}")
     return closest_walk_reference(ws, origin, direction, active, t_init)
+
+
+def closest_walk_tiered(ws: WorldArrays, origin, direction, active):
+    """Raw closest-hit walk over the treelet view: K8 on CUDA tensors, the
+    plain version on CPU tensors."""
+    if origin.is_cuda:
+        return _closest_cuda(ws, origin, direction, active, None, True)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no K8 for device {origin.device}")
+    return tiered_closest_walk_reference(ws, origin, direction, active)
 
 
 def decode_hit(ws: WorldArrays, origin, direction, t, tri, cross, menc) -> Hit:
@@ -360,17 +582,40 @@ def closest_hit_bvh2(ws: WorldArrays, origin, direction, active,
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
+def closest_hit_tiered(ws: WorldArrays, origin, direction, active) -> Hit:
+    """Closest hit per ray over the treelet view (K8,
+    pallas_traverse.tiered_walk_closest); the same hits as closest_hit_bvh2
+    on the whole tree."""
+    t, tri, cross, menc = closest_walk_tiered(ws, origin, direction, active)
+    return decode_hit(ws, origin, direction, t, tri, cross, menc)
+
+
+def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
+            tiered):
+    if origin.is_cuda:
+        vis = _shadow_cuda(ws, origin, direction, max_dist, active,
+                           min_visibility, t_eps, tiered)
+    elif origin.device.type == "cpu":
+        plain = tiered_shadow_walk_reference if tiered else shadow_walk_reference
+        vis = plain(ws, origin, direction, max_dist, active, min_visibility,
+                    t_eps)
+    else:
+        raise ValueError(f"no {'K8' if tiered else 'K3'} for device {origin.device}")
+    return vis, active.sum(dtype=torch.int64)
+
+
 def shadow_walk_bvh2(ws: WorldArrays, origin, direction, max_dist, active,
                      min_visibility: float = 0.05, t_eps: float = 1e-3):
     """Transmission visibility per ray and the number of shadow rays cast
     (pallas_shadow_walk_bvh2): (vis (R,), rays () int64). Inactive rays
     report vis 1. K3 on CUDA tensors, the plain version on CPU tensors."""
-    if origin.is_cuda:
-        vis = _shadow_cuda(ws, origin, direction, max_dist, active,
-                           min_visibility, t_eps)
-    elif origin.device.type == "cpu":
-        vis = shadow_walk_reference(ws, origin, direction, max_dist, active,
-                                    min_visibility, t_eps)
-    else:
-        raise ValueError(f"no K3 for device {origin.device}")
-    return vis, active.sum(dtype=torch.int64)
+    return _shadow(ws, origin, direction, max_dist, active, min_visibility,
+                   t_eps, False)
+
+
+def shadow_walk_tiered(ws: WorldArrays, origin, direction, max_dist, active,
+                       min_visibility: float = 0.05, t_eps: float = 1e-3):
+    """shadow_walk_bvh2 over the treelet view (K8,
+    pallas_traverse.tiered_walk_shadow)."""
+    return _shadow(ws, origin, direction, max_dist, active, min_visibility,
+                   t_eps, True)

@@ -1,23 +1,30 @@
 """Scene -> device tables: host packing (numpy) and the per-frame refit (torch).
 
 Port of rayzen_tpu.packing. ``pack_scene_host`` is carried over near verbatim
-and builds the same BVH2 arrays as the JAX package (tests/test_torch_pack.py
-holds them equal); ``world_geometry`` is the per-frame refit written as torch
-tensor glue, producing the ``inner_table``/``leaf_table`` column layouts the
-walks read (rayzen_tpu/packing.py:937-942 and :1075-1086).
+and builds the same BVH2 arrays and, past ``SINGLE_TREE_VMEM_BUDGET``, the same
+tiered treelet view as the JAX package (tests/test_torch_pack.py and
+tests/test_torch_tiered.py hold them equal); ``world_geometry`` is the
+per-frame refit written as torch tensor glue, producing the
+``inner_table``/``leaf_table`` and ``top_table``/``tre_inner``/``tre_leaf``
+column layouts the walks read (rayzen_tpu/packing.py:937-942, :1075-1086 and
+:1092-1121, without the 128-lane padding that only Mosaic's DMA blocks need).
+
+The tiered decision keeps the JAX rule, budget and default (36 MB) so both
+packages walk the same view under the same config; on the H100 the treelet
+view is walked by K8 (csrc/walk.cuh) inside the tiered K1.
 
 Left out until the kernels that read them are ported (ROADMAP queue 2):
-the BVH8 collapse and ``inner8_table``/``leaf8_table`` (K5), the tiered
-treelet view and ``top_table``/``tre_*`` (K8), and the miss-link ``records``
-(K7). The BLAS disk cache is left out too: the port keeps only the
-in-process memo, so packing reads and writes no files.
+the BVH8 collapse and ``inner8_table``/``leaf8_table`` (K5) and the
+miss-link ``records`` (K7). The BLAS disk cache is left out too: the port
+keeps only the in-process memo, so packing reads and writes no files.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,11 +78,23 @@ class SceneArrays:
     bvh2_child_ref: np.ndarray  # (Ni, 2) i32 inner index | leaf-table index
     bvh2_child_count: np.ndarray  # (Ni, 2) i32 -1 internal; >= 0 leaf count
     bvh2_leaf_node: np.ndarray  # (L,) i32 unified node id per leaf-table row
+    # tiered treelet view (_build_treelets), 1-row dummies when not built
+    top_child_node: np.ndarray  # (Nt, 2) i32 unified node id per child
+    top_child_ref: np.ndarray  # (Nt, 2) i32 top index | treelet id
+    top_child_count: np.ndarray  # (Nt, 2) i32 -1 internal; -2 treelet
+    tre_child_node: np.ndarray  # (Tt, SI, 2) i32 unified ids; -1 pad
+    tre_child_ref: np.ndarray  # (Tt, SI, 2) i32 local inner row | local leaf slot
+    tre_child_count: np.ndarray  # (Tt, SI, 2) i32 -1 internal; >= 0 leaf count
+    tre_leaf_src: np.ndarray  # (Tt, SL) i32 global leaf-table row per slot (-1 pad)
     materials: np.ndarray  # (M, 8) f32
     lights: np.ndarray  # (L, 8) f32
     instance_meta: Tuple[InstanceMeta, ...] = ()
     # inner-node depth of the BVH2 tree; bounds the walks' stack (0 = unknown)
     tree_depth: int = 0
+    # inner depths of the top tree and of the deepest treelet: they bound the
+    # tiered walks' two stacks (0 = unknown)
+    top_depth: int = 0
+    treelet_depth: int = 0
 
     @property
     def num_instances(self) -> int:
@@ -99,26 +118,57 @@ class SceneArrays:
 # SceneArrays fields that hold arrays (all but the static layout)
 _SCENE_ARRAY_FIELDS = tuple(
     f.name for f in dataclasses.fields(SceneArrays)
-    if f.name not in ("instance_meta", "tree_depth")
+    if f.name not in ("instance_meta", "tree_depth", "top_depth", "treelet_depth")
+)
+
+# Raw traversal-table bytes one tree may keep VMEM-resident before the pack
+# switches to the tiered view (rayzen_tpu/packing.py:154-164: the largest
+# single tree the JAX package ran on a TPU v5e, with margin). Kept with the
+# same default and override so both packages build the same view.
+SINGLE_TREE_VMEM_BUDGET = int(
+    float(os.environ.get("RAYZEN_TREE_BUDGET_MB", "36")) * 1024 * 1024
 )
 
 
-def bvh2_depth(child_ref, child_count) -> int:
+def single_tree_table_bytes(n_inner: int, n_leaf_rows: int, leaf_size: int) -> int:
+    """Raw inner+leaf table bytes for one tree."""
+    leaf_w = ((11 * leaf_size + 2 + 7) // 8) * 8
+    return 4 * (n_inner * 16 + n_leaf_rows * leaf_w)
+
+
+def bvh2_depth(child_ref, child_count, roots=None) -> int:
     """Inner-node depth of the BVH2 tree (host, pack time): one level-BFS
-    pass per level from the root. A single-pop walk's stack never holds more
-    than depth + 1 entries."""
+    pass per level from the root (or from each of ``roots``). A single-pop
+    walk's stack never holds more than depth + 1 entries."""
     ref = np.asarray(child_ref)
     cnt = np.asarray(child_count)
     if ref.shape[0] == 0:
         return 0
-    frontier = np.zeros((1,), np.int64)
+    frontier = (np.zeros((1,), np.int64) if roots is None
+                else np.asarray(roots, np.int64))
     depth = 0
     while frontier.size and depth <= ref.shape[0]:
         depth += 1
         r = ref[frontier].ravel()
         c = cnt[frontier].ravel()
-        frontier = r[c == -1].astype(np.int64)
+        # unique: rows that share a child (not made by the builder, but
+        # possible in hand-made tables) must not double the frontier
+        frontier = np.unique(r[c == -1].astype(np.int64))
     return depth
+
+
+def tiered_depths(top_ref, top_count, tre_ref, tre_count) -> Tuple[int, int]:
+    """(top-tree depth, deepest treelet's depth): bvh2_depth over the top
+    tree, and over all treelets at once with each treelet's local refs offset
+    by its first row in the flattened (Tt * SI, 2) tables."""
+    tre_ref = np.asarray(tre_ref)
+    tt, si = tre_ref.shape[:2]
+    flat_ref = tre_ref + (np.arange(tt) * si)[:, None, None]
+    top = bvh2_depth(top_ref, top_count)
+    tre = bvh2_depth(flat_ref.reshape(-1, 2),
+                     np.asarray(tre_count).reshape(-1, 2),
+                     roots=np.arange(tt) * si)
+    return top, tre
 
 
 _blas_cache: dict = {}
@@ -220,6 +270,29 @@ def pack_scene_host(
     )
     tree_depth = bvh2_depth(uni["bvh2_child_ref"], uni["bvh2_child_count"])
 
+    # tiered treelet view when the single tree exceeds the budget
+    # (rayzen_tpu/packing.py:327-343)
+    n_inner = uni["bvh2_child_node"].shape[0]
+    n_leaf_rows = uni["bvh2_leaf_node"].shape[0]
+    tiered_on = cfg.tiered == "on" or (
+        cfg.tiered == "auto"
+        and single_tree_table_bytes(n_inner, n_leaf_rows, cfg.leaf_size)
+        > SINGLE_TREE_VMEM_BUDGET
+    )
+    if tiered_on and cfg.leaf_size <= 11:  # leaf rows must fit 128 f32 lanes
+        uni.update(
+            _build_treelets(
+                uni["bvh2_child_node"], uni["bvh2_child_ref"],
+                uni["bvh2_child_count"], cfg.treelet_rows,
+            )
+        )
+    else:
+        uni.update(_empty_treelets())
+    top_depth, treelet_depth = tiered_depths(
+        uni["top_child_ref"], uni["top_child_count"],
+        uni["tre_child_ref"], uni["tre_child_count"],
+    )
+
     total_tris = sum(m.num_triangles for m in instance_meta)
     log.info(
         f"Packed scene: {len(unique_meshes)} unique meshes, "
@@ -242,6 +315,8 @@ def pack_scene_host(
         lights=pack_lights(scene.lights),
         instance_meta=tuple(instance_meta),
         tree_depth=tree_depth,
+        top_depth=top_depth,
+        treelet_depth=treelet_depth,
         **uni,
     )
 
@@ -443,6 +518,173 @@ def _build_bvh2(uni_meta: np.ndarray, n_tlas: int):
     )
 
 
+def _build_treelets(child_node: np.ndarray, child_ref: np.ndarray,
+                    child_count: np.ndarray, max_rows: int):
+    """Cut the BVH2 child-table tree into treelets of at most ``max_rows``
+    inner rows and ``max_rows`` leaf rows each, plus the remaining small top
+    tree (see SceneArrays tiered-field docs).
+
+    Top-tree children: count -1 = top internal (ref = top row), -2 = treelet
+    (ref = treelet id). Treelet-local children: count -1 = local inner row,
+    count >= 0 = leaf with ``ref`` = local leaf SLOT (the slot's global
+    leaf-table row lives in tre_leaf_src)."""
+    ni = child_node.shape[0]
+
+    # subtree sizes per inner node (iterative reverse-BFS accumulation)
+    order, seen, stack = [], set(), [0]
+    while stack:
+        n = stack.pop()
+        if n in seen:
+            continue
+        seen.add(n)
+        order.append(n)
+        for c in range(2):
+            if child_count[n, c] < 0:
+                stack.append(int(child_ref[n, c]))
+    inner_cnt = np.ones(ni, dtype=np.int64)
+    leaf_cnt = np.zeros(ni, dtype=np.int64)
+    for n in reversed(order):
+        for c in range(2):
+            if child_count[n, c] < 0:
+                r = int(child_ref[n, c])
+                inner_cnt[n] += inner_cnt[r]
+                leaf_cnt[n] += leaf_cnt[r]
+            elif child_node[n, c] >= 0:
+                leaf_cnt[n] += 1
+
+    def cuttable(idx):
+        return inner_cnt[idx] <= max_rows and leaf_cnt[idx] <= max_rows
+
+    treelets = []  # per treelet: (local child tables, leaf_src)
+
+    def make_treelet(entry):
+        """entry = ('inner', bvh2 idx) or ('leaf', leaf_ref, count, node_id).
+        Returns the treelet id."""
+        t_node, t_ref, t_cnt, leaf_src = [], [], [], []
+        if entry[0] == "leaf":
+            # synthetic root: one real leaf child + inert padding child
+            _, lref, lcount, lnode = entry
+            leaf_src.append(int(lref))
+            t_node.append((int(lnode), -1))
+            t_ref.append((0, 0))
+            t_cnt.append((int(lcount), 0))
+        else:
+            root = entry[1]
+            index_of = {root: 0}
+            queue = [root]
+            t_node, t_ref, t_cnt = [None], [None], [None]
+            while queue:
+                n = queue.pop(0)
+                slot = index_of[n]
+                kn, kr, kc = [], [], []
+                for c in range(2):
+                    cnt = int(child_count[n, c])
+                    if cnt < 0:  # internal child -> local inner row
+                        r = int(child_ref[n, c])
+                        if r not in index_of:
+                            index_of[r] = len(t_node)
+                            t_node.append(None)
+                            t_ref.append(None)
+                            t_cnt.append(None)
+                            queue.append(r)
+                        kr.append(index_of[r])
+                        kc.append(-1)
+                    else:  # leaf child -> local leaf slot
+                        kr.append(len(leaf_src))
+                        leaf_src.append(int(child_ref[n, c]))
+                        kc.append(cnt)
+                    kn.append(int(child_node[n, c]))
+                t_node[slot] = tuple(kn)
+                t_ref[slot] = tuple(kr)
+                t_cnt[slot] = tuple(kc)
+        treelets.append((t_node, t_ref, t_cnt, leaf_src))
+        return len(treelets) - 1
+
+    # top tree: BFS over un-cut inner nodes; the root is always a top node
+    # (a fully-cuttable tree gets a synthetic top root with one treelet child)
+    top_node, top_ref, top_cnt = [], [], []
+    if cuttable(0):
+        tid = make_treelet(("inner", 0))
+        top_node.append((0, -1))
+        top_ref.append((tid, 0))
+        top_cnt.append((-2, 0))
+    else:
+        index_of = {0: 0}
+        queue = [0]
+        top_node, top_ref, top_cnt = [None], [None], [None]
+        while queue:
+            n = queue.pop(0)
+            slot = index_of[n]
+            kn, kr, kc = [], [], []
+            for c in range(2):
+                cnt = int(child_count[n, c])
+                if cnt < 0:
+                    r = int(child_ref[n, c])
+                    if cuttable(r):
+                        kr.append(make_treelet(("inner", r)))
+                        kc.append(-2)
+                    else:
+                        if r not in index_of:
+                            index_of[r] = len(top_node)
+                            top_node.append(None)
+                            top_ref.append(None)
+                            top_cnt.append(None)
+                            queue.append(r)
+                        kr.append(index_of[r])
+                        kc.append(-1)
+                elif child_node[n, c] >= 0:  # bare leaf above the cuts
+                    kr.append(
+                        make_treelet(
+                            ("leaf", int(child_ref[n, c]), cnt,
+                             int(child_node[n, c]))
+                        )
+                    )
+                    kc.append(-2)
+                else:  # padding child
+                    kr.append(0)
+                    kc.append(0)
+                kn.append(int(child_node[n, c]))
+            top_node[slot] = tuple(kn)
+            top_ref[slot] = tuple(kr)
+            top_cnt[slot] = tuple(kc)
+
+    # pack treelets to fixed (Tt, max_rows, ...) blocks
+    tt = len(treelets)
+    tre_node = np.full((tt, max_rows, 2), -1, dtype=np.int32)
+    tre_ref = np.zeros((tt, max_rows, 2), dtype=np.int32)
+    tre_cnt = np.zeros((tt, max_rows, 2), dtype=np.int32)
+    tre_leaf = np.full((tt, max_rows), -1, dtype=np.int32)
+    for t, (t_node, t_ref, t_cnt, leaf_src) in enumerate(treelets):
+        assert len(t_node) <= max_rows and len(leaf_src) <= max_rows
+        for i in range(len(t_node)):
+            tre_node[t, i] = t_node[i]
+            tre_ref[t, i] = t_ref[i]
+            tre_cnt[t, i] = t_cnt[i]
+        tre_leaf[t, : len(leaf_src)] = leaf_src
+    return dict(
+        top_child_node=np.asarray(top_node, dtype=np.int32),
+        top_child_ref=np.asarray(top_ref, dtype=np.int32),
+        top_child_count=np.asarray(top_cnt, dtype=np.int32),
+        tre_child_node=tre_node,
+        tre_child_ref=tre_ref,
+        tre_child_count=tre_cnt,
+        tre_leaf_src=tre_leaf,
+    )
+
+
+def _empty_treelets():
+    """1-row dummies marking "tiered view absent" (top_child_count[0,0]=0)."""
+    return dict(
+        top_child_node=np.full((1, 2), -1, dtype=np.int32),
+        top_child_ref=np.zeros((1, 2), dtype=np.int32),
+        top_child_count=np.zeros((1, 2), dtype=np.int32),
+        tre_child_node=np.full((1, 1, 2), -1, dtype=np.int32),
+        tre_child_ref=np.zeros((1, 1, 2), dtype=np.int32),
+        tre_child_count=np.zeros((1, 1, 2), dtype=np.int32),
+        tre_leaf_src=np.full((1, 1), -1, dtype=np.int32),
+    )
+
+
 @dataclasses.dataclass
 class WorldArrays:
     """Per-frame world-space scene: what the walks and shading read.
@@ -450,7 +692,13 @@ class WorldArrays:
     inner_table row: [lmin(3) lmax(3) rmin(3) rmax(3) lref rref lcnt rcnt]
     leaf_table row: [K tris x (v0 e1 e2) | K transparencies | first | count |
     K sign-encoded materials | pad to a multiple of 8]; refs and counts are
-    float-encoded integers (exact below 2^24)."""
+    float-encoded integers (exact below 2^24).
+
+    Tiered view: ``top_table`` rows have the inner_table layout with child
+    count -2 for a treelet (ref = treelet id); treelet ``t`` is the inner rows
+    ``tre_inner[t]`` (treelet-local refs) and the leaf rows ``tre_leaf[t]``
+    (copies of leaf_table rows, so ``first`` stays the global triangle id).
+    ``tiered`` is set when the pack built the treelet view."""
 
     tri_v0: torch.Tensor  # (Tw, 3) f32 world space
     tri_e1: torch.Tensor  # (Tw, 3) f32
@@ -464,6 +712,12 @@ class WorldArrays:
     lights: torch.Tensor  # (L, 8) f32
     leaf_k: int = 4
     tree_depth: int = 0  # BVH2 inner depth (0 = unknown)
+    top_table: Optional[torch.Tensor] = None  # (Nt, 16) f32
+    tre_inner: Optional[torch.Tensor] = None  # (Tt, SI, 16) f32
+    tre_leaf: Optional[torch.Tensor] = None  # (Tt, SL, W2) f32
+    tiered: bool = False
+    top_depth: int = 0  # top-tree inner depth (0 = unknown)
+    treelet_depth: int = 0  # deepest treelet's inner depth (0 = unknown)
 
     @property
     def num_lights(self) -> int:
@@ -589,6 +843,28 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
     if pad:
         leaf_table = torch.nn.functional.pad(leaf_table, (0, pad))
 
+    # tiered tables: the top tree in inner_table layout, and per treelet its
+    # inner rows and a gather of its leaf rows; presence is a shape property
+    # (the dummies are (1, 1, 2)), as in the JAX package
+    tiered = int(arrays.tre_child_node.shape[1]) > 1
+    tcn = arrays.top_child_node.long()  # (Nt, 2)
+    tbnd = torch.where((tcn >= 0)[..., None], node_bounds[tcn.clamp(min=0)],
+                       inverted)
+    top_table = torch.cat(
+        [tbnd[:, 0, :], tbnd[:, 1, :], arrays.top_child_ref.float(),
+         arrays.top_child_count.float()],
+        dim=1,
+    )  # (Nt, 16)
+    tn = arrays.tre_child_node.long()  # (Tt, SI, 2)
+    tb2 = torch.where((tn >= 0)[..., None], node_bounds[tn.clamp(min=0)],
+                      inverted)
+    tre_inner = torch.cat(
+        [tb2[..., 0, :], tb2[..., 1, :], arrays.tre_child_ref.float(),
+         arrays.tre_child_count.float()],
+        dim=-1,
+    )  # (Tt, SI, 16)
+    tre_leaf = leaf_table[arrays.tre_leaf_src.long().clamp(min=0)]  # (Tt, SL, W2)
+
     return WorldArrays(
         tri_v0=v0,
         tri_e1=e1,
@@ -602,4 +878,10 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         lights=arrays.lights,
         leaf_k=int(leaf_k),
         tree_depth=int(arrays.tree_depth),
+        top_table=top_table.contiguous(),
+        tre_inner=tre_inner.contiguous(),
+        tre_leaf=tre_leaf.contiguous(),
+        tiered=tiered,
+        top_depth=int(arrays.top_depth),
+        treelet_depth=int(arrays.treelet_depth),
     )

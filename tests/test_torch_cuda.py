@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K3) against their plain PyTorch versions on
+"""The port's CUDA kernels (K1-K3, K8 and the tiered K1) against their plain PyTorch versions on
 the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
 run on the GPU machine with
 
@@ -37,7 +37,9 @@ def setup():
     ray = megakernel._raygen_tiles(uv[:, 0], uv[:, 1], z, z,
                                    megakernel._pack_camera(cam, dev))
     o, d = torch.stack(ray[:3], 1), torch.stack(ray[3:], 1)
-    return dict(dev=dev, cfg=cfg, ws=ws, cam=cam, uv=uv, o=o, d=d)
+    # the same scene with the treelet view (the tiered K1 and K8 walk it)
+    tws = world_geometry(pack_scene(scene, cfg.replace(tiered="on", treelet_rows=8), dev))
+    return dict(dev=dev, cfg=cfg, ws=ws, tws=tws, cam=cam, uv=uv, o=o, d=d)
 
 
 def test_k2_matches_plain_with_t_init(setup):
@@ -72,6 +74,44 @@ def test_k1_matches_plain(setup, rng):
     act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
     kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
     pc, pr = megakernel.sample_wave_reference(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+    err = (kc - pc).abs().amax(-1).cpu().numpy()
+    assert (err < 1e-4).mean() >= 0.998
+    assert kr.dtype == torch.int64 and int(kr) == int(pr)
+
+
+def test_k8_matches_plain_and_whole_tree(setup):
+    tws, o, d = setup["tws"], setup["o"], setup["d"]
+    assert tws.tiered
+    act = torch.rand(o.shape[0], device=o.device) < 0.9
+    before = ext.LAUNCHES["closest_hit_tiered"]
+    k = walk.closest_walk_tiered(tws, o, d, act)
+    assert ext.LAUNCHES["closest_hit_tiered"] == before + 1
+    p = walk.tiered_closest_walk_reference(tws, o, d, act)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    whole = walk.closest_walk(tws, o, d, act)  # K2 on the whole tree
+    assert (k[1] != whole[1]).sum() == 0
+    hit = walk.decode_hit(tws, o, d, *k)
+    ldir = torch.tensor([0.3, 0.9, 0.1], device=o.device)
+    ldir = (ldir / ldir.norm()).expand_as(o).contiguous()
+    so = hit.point + ldir * 1e-3
+    kv, kr = walk.shadow_walk_tiered(tws, so, ldir, 50.0, hit.found)
+    pv = walk.tiered_shadow_walk_reference(tws, so, ldir, 50.0, hit.found)
+    wv, _ = walk.shadow_walk_bvh2(tws, so, ldir, 50.0, hit.found)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=1e-6)
+    torch.testing.assert_close(kv, wv, rtol=0, atol=1e-6)
+    assert int(kr) == int(hit.found.sum()) and (kv < 1).any()
+
+
+@pytest.mark.parametrize("rng", ["threefry", "reference"])
+def test_tiered_k1_matches_plain(setup, rng):
+    cfg = setup["cfg"].replace(rng=rng)
+    uv, tws, cam = setup["uv"], setup["tws"], setup["cam"]
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    before = ext.LAUNCHES["sample_wave_tiered"]
+    kc, kr = megakernel.sample_wave(tws, cfg, uv, act, cam, 0, 0, 5, 2)
+    assert ext.LAUNCHES["sample_wave_tiered"] == before + 1
+    pc, pr = megakernel.sample_wave_reference(tws, cfg, uv, act, cam, 0, 0, 5, 2)
     err = (kc - pc).abs().amax(-1).cpu().numpy()
     assert (err < 1e-4).mean() >= 0.998
     assert kr.dtype == torch.int64 and int(kr) == int(pr)

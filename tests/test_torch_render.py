@@ -73,11 +73,16 @@ def test_cli_writes_png(tmp_path):
 @pytest.mark.parametrize("knob", [
     dict(split_bounce=2), dict(wide_nodes=True), dict(frustum_primary=True),
     dict(octant_bounce_walks=True), dict(walk_pop=2), dict(sample_fuse=2),
-    dict(tiered="on"), dict(kernels="xla"),
+    dict(kernels="xla"),
 ])
 def test_unimplemented_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         check_config(RenderConfig(**knob))
+
+
+@pytest.mark.parametrize("tiered", ["on", "auto", "off"])
+def test_check_config_accepts_tiered(tiered):
+    check_config(RenderConfig(tiered=tiered))
 
 
 def test_packet_only_knobs_are_accepted():
