@@ -1,15 +1,20 @@
 """Smoke run of rayzen_tpu_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version, pass the golden-image gates,
 then drive the main path (a 1920x1080, 64 spp, 5-bounce frame of the demo
-scene) and the large-scene path (a 1920x1080, 4 spp, 5-bounce frame of the
+scene), the large-scene path (a 1920x1080, 4 spp, 5-bounce frame of the
 503k-triangle field of scripts/bench_large.py, walked through the treelet
-view by the tiered K1) and time them.
+view by the tiered K1), the split-bounce wavefront (K4) and the
+octant-masked bounce walks (K9) on the demo frame, and time them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out-dir DIR]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); it exits non-zero, printing no result, without them. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels with
-their launch counts from the main-path run and their measured times.
+their launch counts from the main-path runs, their measured times and
+bounds (bound_ms: the larger of the bytes the call must move over 3.35 TB/s
+and its walks' fp32 operations over 67 TFLOP/s, the walk work counted by
+the plain walks on the same inputs; library_ms null: no PyTorch call
+computes a BVH walk).
 With --out-dir, the compiler's full register report and torch.profiler
 traces of one main-path and one field-path dispatch are written there.
 
@@ -36,6 +41,23 @@ Phases (each prints its own lines and stops the run when it fails):
                   tiered K1): timed dispatches, launch counts, the refit and
                   one profiled dispatch, then in turns with the whole-tree K1
                   on the same scene (tiered="off")
+ 13 split         K4 (phase 1 + compaction + continuation) vs its plain
+                  version at 256x192, spp 1, split_bounce 2, in the rank,
+                  octant and octcell modes and with split_every
+ 14 split path    the 1080p/64 spp frame with split_bounce=2,
+                  split_rebin="octant": vs K1's frame, launch counts (64
+                  phase-1 and 64 continuation launches), timed dispatches in
+                  turns with K1, one profiled dispatch; phase 1, compaction and
+                  continuation alone at 1080p vs plain; split_bounce=3 and
+                  split_every at 4 spp vs K1
+ 15 K9            the 1080p/64 spp frame with octant_bounce_walks: vs K1's
+                  frame, launch counts, timed in turns with K1; K9 vs plain at
+                  256x192 (both RNG flows) and 1080p/1 spp; K9's phase 1 and
+                  continuation (split + octant walks) alone vs plain at 256x192
+                  and 1080p, and its tiered instantiation (field 320x180) vs
+                  plain; then the split path
+                  and the field path with octant walks at 1080p/4 spp, each
+                  driven with its own launch counts, vs K1 / the tiered K1
 """
 
 from __future__ import annotations
@@ -50,6 +72,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_R05_RAYS = 351_031_968  # BENCH_r05: rays per 1080p/64 spp dispatch (f32-summed)
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor
+# FLOP/s; the bound of a call is the larger of its bytes and its operations
+# over these.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# fp32 operations per walk step, read from csrc/common.cuh: a node visit is
+# two slab tests (per box 6 subtracts, 6 multiplies, 10 min/max, the final
+# max and compare: 24) plus each box's pruning compare: 50; a triangle test
+# is moller_trumbore (9 + 5 for h and a, 2 for |a| >= eps, 2 for the
+# guarded reciprocal, 3 + 6 for s and u, 9 + 6 + 6 for q, v and t, 6 for the
+# five bounds tests): 54. Shading is left out: the bound stays a lower one.
+OPS_PER_NODE = 50
+OPS_PER_TRI = 54
 
 
 class PhaseFailed(Exception):
@@ -133,15 +169,17 @@ def build_field_scene(width: int, height: int, n_instances: int = 520):
 
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
-    -Xptxas -v report, keyed "kernel<Walk>"."""
+    -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms)."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            kernel = next((k for k in ("sample_kernel", "closest_kernel",
-                                       "shadow_kernel") if k in mangled), mangled)
+            kernel = next((k for k in ("continuation_kernel", "sample_kernel",
+                                       "closest_kernel", "shadow_kernel")
+                           if k in mangled), mangled)
             walk = "TieredWalk" if "TieredWalk" in mangled else "Bvh2Walk"
-            cur = f"{kernel}<{walk}>"
+            octant = ",octant" if "Lb1E" in mangled else ""
+            cur = f"{kernel}<{walk}{octant}>"
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
@@ -178,9 +216,34 @@ def timed(fn, torch):
     return out, start.elapsed_time(end)
 
 
+def counted(fn, torch, walk):
+    """(fn(work), its device time in ms, the counts of the walk.Work that fn
+    passes to its plain walks)."""
+    work = walk.Work()
+    out, ms = timed(lambda: fn(work), torch)
+    return out, ms, work.counts()
+
+
+def bound(work, nbytes):
+    """(bound_ms, bound_by): the least time for a call that moves ``nbytes``
+    and whose walks do ``work`` (walk.Work's node visits and triangle
+    tests), at the published H100 peaks."""
+    ops = OPS_PER_NODE * work["nodes"] + OPS_PER_TRI * work["tris"]
+    t_ops, t_bytes = ops / FP32_OPS_S, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*xs):
+    """Bytes of tensors, or of (rays, bytes per ray) pairs."""
+    return sum(x[0] * x[1] if isinstance(x, tuple) else x.numel() * x.element_size()
+               for x in xs)
+
+
 def profile_dispatch(fn, torch, trace_path):
     """Wall time, summed device kernel time and the top kernels of one call
-    of fn() under torch.profiler (trace written to trace_path, if given)."""
+    of fn() under torch.profiler (trace written to trace_path, if given).
+    The "aten::" rows carry their kernels' device time as well, so only the
+    kernel rows are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -196,7 +259,7 @@ def profile_dispatch(fn, torch, trace_path):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
+        if us > 0 and not e.key.startswith("aten::"):
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     return wall, sum(r[0] for r in rows), rows[:5]
@@ -315,7 +378,7 @@ def main() -> int:
             f"{int(kr)} rays, {int((kv < 1).sum())} shadowed")
         require(err <= 1e-5, "K3 vis atol > 1e-5")
 
-    def k1_compare(tag, rng, k, p, w, h, n_samples):
+    def k1_compare(tag, rng, k, p, w, h, n_samples, what="K1"):
         """Hold K1's (color sum, rays) to the plain version's on the per-pixel
         mean over samples, clipped as the frame is; returns the max abs error."""
         (kc, kr), (pc, pr) = k, p
@@ -325,7 +388,7 @@ def main() -> int:
         mean, mx = diff.mean().item(), diff.max().item()
         frac = (diff.amax(-1) > 1e-3).float().mean().item()
         s = ssim(ki.cpu().numpy(), pi.cpu().numpy())
-        say(f"[{tag}] K1 vs plain, {w}x{h}, {n_samples} spp, {rng}: mean abs {mean:.3e}, "
+        say(f"[{tag}] {what} vs plain, {w}x{h}, {n_samples} spp, {rng}: mean abs {mean:.3e}, "
             f"max abs {mx:.3e}, pixels > 1e-3 {frac * 100:.3f}%, SSIM {s:.6f}, "
             f"rays {int(kr)} vs {int(pr)}")
         if rng == "threefry":
@@ -398,8 +461,8 @@ def main() -> int:
     mo, md_ = primary_rays(1920, 1080, mcam)
     mact = torch.ones(mo.shape[0], dtype=torch.bool, device=dev)
     mhit = walk.closest_hit_bvh2(mws, mo, md_, mact)
-    (pt, ptri, _pc, _pm), p2_ms = timed(
-        lambda: walk.closest_walk_reference(mws, mo, md_, mact), torch)
+    (pt, ptri, _pc, _pm), p2_ms, k2_work = counted(
+        lambda w: walk.closest_walk_reference(mws, mo, md_, mact, work=w), torch, walk)
     same, t_rel, t_abs = hits_agree(mhit.t, mhit.tri, pt, ptri)
     k2_err = max(k2_err, t_abs)
     k2_ms = cuda_ms(lambda: walk.closest_walk(mws, mo, md_, mact), 10, torch)
@@ -410,12 +473,14 @@ def main() -> int:
     require(t_rel <= 1e-5, "K2 t rtol > 1e-5 at 1080p")
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(mws, mhit)):
         kv, kr = walk.shadow_walk_bvh2(mws, so, sd, sm, sa)
-        pv, pms = timed(lambda: walk.shadow_walk_reference(mws, so, sd, sm, sa), torch)
+        pv, pms, work = counted(
+            lambda w: walk.shadow_walk_reference(mws, so, sd, sm, sa, work=w), torch,
+            walk)
         kms = cuda_ms(lambda: walk.shadow_walk_bvh2(mws, so, sd, sm, sa), 10, torch)
         err = (kv - pv).abs().max().item()
         k3_err = max(k3_err, err)
         if i == 0:  # the point light: the one whose rays end at max_dist
-            k3_ms, p3_ms = kms, pms
+            k3_ms, p3_ms, k3_work = kms, pms, work
         say(f"[7 kernels] K3 vs plain, 1080p light {i}: vis max abs err {err:.3e}, "
             f"{int(kr)} rays, {int((kv < 1).sum())} shadowed; {kms:.3f} ms vs plain "
             f"{pms:.2f} ms")
@@ -424,11 +489,11 @@ def main() -> int:
     for rng in ("threefry", "reference"):
         c7 = mcfg.replace(rng=rng)
         k = megakernel.sample_wave(mws, c7, muv, mact, mcam, 0, 0, 5, 64)
-        p, pms = timed(lambda: megakernel.sample_wave_reference(
-            mws, c7, muv, mact, mcam, 0, 0, 5, 64), torch)
+        p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
+            mws, c7, muv, mact, mcam, 0, 0, 5, 64, work=w), torch, walk)
         k1_err = max(k1_err, k1_compare("7 kernels", rng, k, p, 1920, 1080, 64))
         if rng == mcfg.rng:
-            p1_ms = pms
+            p1_ms, k1_work = pms, work
     k1_ms = cuda_ms(lambda: megakernel.sample_wave(
         mws, mcfg, muv, mact, mcam, 0, 0, 5, 64), 3, torch)
     refit_ms = cuda_ms(lambda: world_geometry(marrays), 10, torch)
@@ -479,8 +544,9 @@ def main() -> int:
     fo, fd = primary_rays(1920, 1080, fcam)
     fact = torch.ones(fo.shape[0], dtype=torch.bool, device=dev)
     fhit = walk.closest_hit_tiered(fws, fo, fd, fact)
-    (pt, ptri, _pc, _pm), p8_ms = timed(
-        lambda: walk.tiered_closest_walk_reference(fws, fo, fd, fact), torch)
+    (pt, ptri, _pc, _pm), p8_ms, k8_work = counted(
+        lambda w: walk.tiered_closest_walk_reference(fws, fo, fd, fact, work=w),
+        torch, walk)
     same, t_rel, k8_err = hits_agree(fhit.t, fhit.tri, pt, ptri)
     k8_ms = cuda_ms(lambda: walk.closest_walk_tiered(fws, fo, fd, fact), 10, torch)
     whit = walk.closest_hit_bvh2(fws, fo, fd, fact)
@@ -497,15 +563,16 @@ def main() -> int:
     k8s_err = 0.0
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(fws, fhit)):
         kv, kr = walk.shadow_walk_tiered(fws, so, sd, sm, sa)
-        pv, pms = timed(
-            lambda: walk.tiered_shadow_walk_reference(fws, so, sd, sm, sa), torch)
+        pv, pms, work = counted(
+            lambda w: walk.tiered_shadow_walk_reference(fws, so, sd, sm, sa, work=w),
+            torch, walk)
         kms = cuda_ms(lambda: walk.shadow_walk_tiered(fws, so, sd, sm, sa), 10, torch)
         wv, _ = walk.shadow_walk_bvh2(fws, so, sd, sm, sa)
         k3f_ms = cuda_ms(lambda: walk.shadow_walk_bvh2(fws, so, sd, sm, sa), 10, torch)
         err, err3 = (kv - pv).abs().max().item(), (kv - wv).abs().max().item()
         k8s_err = max(k8s_err, err)
         if i == 0:
-            k8s_ms, p8s_ms = kms, pms
+            k8s_ms, p8s_ms, k8s_work = kms, pms, work
         say(f"[10 K8] shadow vs plain, field 1080p light {i}: vis max abs err "
             f"{err:.3e} (vs K3 on the whole tree {err3:.3e}), {int(kr)} rays, "
             f"{int((kv < 1).sum())} shadowed; {kms:.3f} ms vs plain {pms:.2f} ms, "
@@ -523,11 +590,11 @@ def main() -> int:
     for rng in ("threefry", "reference"):
         gcfg = fcfg.replace(width=320, height=180, spp=1, rng=rng)
         k = megakernel.sample_wave(fws, gcfg, guv, gact, fcam, 0, 0, 5, 1)
-        p, pms = timed(lambda: megakernel.sample_wave_reference(
-            fws, gcfg, guv, gact, fcam, 0, 0, 5, 1), torch)
+        p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
+            fws, gcfg, guv, gact, fcam, 0, 0, 5, 1, work=w), torch, walk)
         k1t_err = max(k1t_err, k1_compare("11 tiered K1", rng, k, p, 320, 180, 1))
         if rng == fcfg.rng:
-            p1t_ms = pms
+            p1t_ms, k1t_work = pms, work
             k1t_ms = cuda_ms(lambda: megakernel.sample_wave(
                 fws, gcfg, guv, gact, fcam, 0, 0, 5, 1), 5, torch)
     _, fuv = pixel_grid(1920, 1080, dev)
@@ -563,6 +630,7 @@ def main() -> int:
         ftimes.append(ms)
         fray_counts.append(int(rays))
     flaunches = dict(ext.LAUNCHES)
+    fimg = img
     require(img.shape == (1080, 1920, 3), "field frame shape")
     require(bool(torch.isfinite(img).all()), "field frame has non-finite values")
     require(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, "field frame range")
@@ -604,45 +672,323 @@ def main() -> int:
         f"{name} median {statistics.median(ts):.2f} ms ({', '.join(f'{t:.2f}' for t in ts)}), "
         f"rays {sorted(ab_rays[name])}" for name, ts in ab.items()))
 
+    def split_kernels(ws, cfg, uv, act, cam, tag):
+        """K4's phase 1, the compaction and the continuation of one sample,
+        each alone, against the plain versions on the same inputs: errors,
+        times and the plain walks' work."""
+        n, sb = uv.shape[0], cfg.split_bounce
+        c1, r1, st = megakernel.sample_wave_phase1(ws, cfg, uv, act, cam, 0, 0, 5)
+        (pc1, pr1, pst), p_ph1, w_ph1 = counted(
+            lambda w: megakernel.sample_wave_phase1_reference(
+                ws, cfg, uv, act, cam, 0, 0, 5, work=w), torch, walk)
+        k_ph1 = cuda_ms(lambda: megakernel.sample_wave_phase1(
+            ws, cfg, uv, act, cam, 0, 0, 5), 5, torch)
+
+        def compact():
+            _dest, order = megakernel._compaction_permutation(
+                st[10] > 0.5, st[3], st[4], st[5], cfg.split_rebin,
+                origins=(st[0], st[1], st[2]))
+            return st[:, order.long()]
+
+        cst, comp_ms = compact(), cuda_ms(compact, 5, torch)
+        c2, r2, _ = megakernel.continuation(ws, cfg, cst, 0, 0, 5, sb, 5, False)
+        (pc2, pr2, _), p_cont, w_cont = counted(
+            lambda w: megakernel.continuation_reference(
+                ws, cfg, cst, 0, 0, 5, sb, 5, False, work=w), torch, walk)
+        k_cont = cuda_ms(lambda: megakernel.continuation(
+            ws, cfg, cst, 0, 0, 5, sb, 5, False), 5, torch)
+        # one sample's raw colour exceeds 1 where the lights are strong, so
+        # each element is held relative to max(1, |plain|), and the largest
+        # error to 4 ulps of the largest |plain|: ulps, at any magnitude
+        e1, e2 = (c1 - pc1).abs().max().item(), (c2 - pc2).abs().max().item()
+        r1_, r2_ = (((k - p).abs() / p.abs().clamp_min(1.0)).max().item()
+                    for k, p in ((c1, pc1), (c2, pc2)))
+        m1, m2 = pc1.abs().max().item(), pc2.abs().max().item()
+        u1, u2 = (float(np.spacing(np.float32(m))) for m in (m1, m2))
+        st_err = (st - pst).abs().max().item()
+        live = int((st[10] > 0.5).sum())
+        say(f"[{tag}] phase 1 alone, {n} rays, split_bounce {sb}, octant walks "
+            f"{cfg.octant_bounce_walks}: vs plain max abs {e1:.3e} ({e1 / u1:.1f} ulps "
+            f"of max |plain| {m1:.4g}; relative to max(1, |plain|) {r1_:.3e}), rays "
+            f"{int(r1)} vs {int(pr1)}, state rows max abs {st_err:.3e}; "
+            f"{k_ph1:.3f} ms vs plain {p_ph1:.2f} ms; {live} live rays after it "
+            f"({live / n * 100:.2f}%); compaction ({cfg.split_rebin}) {comp_ms:.3f} ms")
+        say(f"[{tag}] continuation alone: vs plain max abs {e2:.3e} ({e2 / u2:.1f} "
+            f"ulps of max |plain| {m2:.4g}; relative {r2_:.3e}), rays {int(r2)} vs "
+            f"{int(pr2)}; {k_cont:.3f} ms vs plain {p_cont:.2f} ms")
+        require(r1_ <= 1e-6 and e1 <= 4 * u1 and int(r1) == int(pr1),
+                f"phase 1 vs plain ({tag})")
+        require(st_err == 0.0, f"phase 1 state rows differ from plain ({tag})")
+        require(r2_ <= 1e-6 and e2 <= 4 * u2 and int(r2) == int(pr2),
+                f"continuation vs plain ({tag})")
+        return dict(ph1=(k_ph1, p_ph1, w_ph1, e1), cont=(k_cont, p_cont, w_cont, e2),
+                    comp_ms=comp_ms, live=live)
+
+    def frame_diff(a, b):
+        d = (a - b).abs()
+        return d.max().item(), d.mean().item()
+
+    # ---- 13 split: K4 (phase 1 + compaction + continuation) vs plain ----
+    ext.reset_launches()
+    scfg, _sscene, sarrays, scam = scene_setup(256, 192)
+    sws = world_geometry(sarrays)
+    _, suv = pixel_grid(256, 192, dev)
+    sact = torch.ones(suv.shape[0], dtype=torch.bool, device=dev)
+    sk1 = megakernel.sample_wave(sws, scfg, suv, sact, scam, 0, 0, 5, 1)
+    k4_err = 0.0
+    for knobs in (dict(split_rebin="rank"), dict(split_rebin="octant"),
+                  dict(split_rebin="octcell"),
+                  dict(split_rebin="octant", split_every=True)):
+        c13 = scfg.replace(split_bounce=2, **knobs)
+        kc, kr = megakernel.sample_wave_split(sws, c13, suv, sact, scam, 0, 0, 5)
+        pc, pr = megakernel.sample_wave_split_reference(sws, c13, suv, sact, scam,
+                                                        0, 0, 5)
+        err, ferr = (kc - pc).abs().max().item(), (kc - sk1[0]).abs().max().item()
+        k4_err = max(k4_err, err)
+        say(f"[13 split] 256x192, 1 spp, split_bounce 2, {knobs}: vs plain max abs "
+            f"{err:.3e}, rays {int(kr)} vs {int(pr)}; vs K1 max abs {ferr:.3e}, rays "
+            f"{int(sk1[1])}")
+        require(err <= 1e-6 and int(kr) == int(pr), f"split vs plain ({knobs})")
+    split_standalone = dict(ext.LAUNCHES)
+    require(split_standalone["sample_wave_phase1"] == 4
+            and split_standalone["continuation"] == 6,
+            "phase 13 launched phase 1 / the continuation a wrong number of times")
+
+    # ---- 14 split path: the 1080p/64 spp frame through K4 ----
+    xcfg = mcfg.replace(split_bounce=2, split_rebin="octant")
+    kimg, krays = render_radiance_with_stats(marrays, mcam, mcfg)
+    render_radiance_with_stats(marrays, mcam, xcfg)  # warm-up
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    (ximg, xrays), x_ms = timed(
+        lambda: render_radiance_with_stats(marrays, mcam, xcfg), torch)
+    xlaunches = dict(ext.LAUNCHES)
+    xmax, xmean = frame_diff(ximg, kimg)
+    say(f"[14 split path] 1920x1080 spp 64, split_bounce 2, octant rebin: vs K1's frame "
+        f"max abs {xmax:.3e}, mean abs {xmean:.3e}, rays {int(xrays)} vs K1 "
+        f"{int(krays)}; launches {xlaunches}")
+    require(ximg.shape == (1080, 1920, 3) and bool(torch.isfinite(ximg).all()),
+            "split frame shape or values")
+    require(xmax <= 1e-5 and xmean <= 1e-6, "split frame vs K1")
+    require(int(xrays) == int(krays), "split rays vs K1")
+    require(xlaunches["sample_wave_phase1"] == 64 and xlaunches["continuation"] == 64
+            and xlaunches["sample_wave"] == 0, "split main-path launches")
+    runs = {"split": xcfg, "K1": mcfg}
+    ab = {k: [] for k in runs}
+    ab_rays = {k: set() for k in runs}
+    for order in (("split", "K1"), ("K1", "split")) * 3:
+        for name in order:
+            (_, r), ms = timed(lambda: render_radiance_with_stats(
+                marrays, mcam, runs[name]), torch)
+            ab[name].append(ms)
+            ab_rays[name].add(int(r))
+    say(f"[14 split path] in turns on {kind} ({smi}): " + "; ".join(
+        f"{name} median {statistics.median(ts):.2f} ms, best {min(ts):.2f} ms, "
+        f"{int(xrays) / statistics.median(ts) / 1e3:.1f} Mrays/s median "
+        f"({', '.join(f'{t:.2f}' for t in ts)}), rays {sorted(ab_rays[name])}"
+        for name, ts in ab.items()))
+    require(ab_rays["split"] == ab_rays["K1"] == {int(krays)}, "rays in turns")
+    wall, busy, top = profile_dispatch(
+        lambda: render_radiance_with_stats(marrays, mcam, xcfg), torch,
+        out_dir and os.path.join(out_dir, "split_path_trace.json"))
+    say(f"[14 split path] one dispatch under torch.profiler: wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%); top: "
+        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
+    ext.reset_launches()
+    k4 = split_kernels(mws, xcfg, muv, mact, mcam, "14 split path")
+    c4 = mcfg.replace(spp=4)
+    k1_4, k1_4rays = render_radiance_with_stats(marrays, mcam, c4)
+    for knobs in (dict(split_bounce=3),
+                  dict(split_bounce=2, split_rebin="octant", split_every=True)):
+        a, ar_ = render_radiance_with_stats(marrays, mcam, c4.replace(**knobs))
+        amax, amean = frame_diff(a, k1_4)
+        say(f"[14 split path] 1080p/4 spp {knobs} vs K1: max abs {amax:.3e}, mean abs "
+            f"{amean:.3e}, rays {int(ar_)} vs {int(k1_4rays)}")
+        require(amax <= 1e-5 and amean <= 1e-6 and int(ar_) == int(k1_4rays),
+                f"split {knobs} vs K1 at 4 spp")
+    k4_err = max(k4_err, k4["ph1"][3], k4["cont"][3], xmax)
+
+    # ---- 15 K9: octant-masked bounce walks ----
+    ocfg = mcfg.replace(octant_bounce_walks=True)
+    render_radiance_with_stats(marrays, mcam, ocfg)  # warm-up
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    (oimg, orays), _ = timed(
+        lambda: render_radiance_with_stats(marrays, mcam, ocfg), torch)
+    olaunches = dict(ext.LAUNCHES)
+    omax, omean = frame_diff(oimg, kimg)
+    say(f"[15 K9] 1920x1080 spp 64, octant bounce walks: vs K1's frame max abs "
+        f"{omax:.3e}, mean abs {omean:.3e}, rays {int(orays)} vs {int(krays)}; "
+        f"launches {olaunches}")
+    require(omax <= 1e-6 and int(orays) == int(krays), "K9 frame vs K1")
+    require(olaunches["sample_wave_octant"] >= 1 and olaunches["sample_wave"] == 0,
+            "K9 was not launched on its main path")
+    runs = {"K9": ocfg, "K1": mcfg}
+    ab = {k: [] for k in runs}
+    for order in (("K9", "K1"), ("K1", "K9")) * 3:
+        for name in order:
+            _, ms = timed(lambda: render_radiance_with_stats(
+                marrays, mcam, runs[name]), torch)
+            ab[name].append(ms)
+    say(f"[15 K9] in turns on {kind} ({smi}): " + "; ".join(
+        f"{name} median {statistics.median(ts):.2f} ms, best {min(ts):.2f} ms, "
+        f"{int(orays) / statistics.median(ts) / 1e3:.1f} Mrays/s median "
+        f"({', '.join(f'{t:.2f}' for t in ts)})" for name, ts in ab.items()))
+    ext.reset_launches()
+    k9_err = 0.0
+    for rng in ("threefry", "reference"):
+        c15 = scfg.replace(rng=rng, octant_bounce_walks=True)
+        k = megakernel.sample_wave(sws, c15, suv, sact, scam, 0, 0, 5, 1)
+        p = megakernel.sample_wave_reference(sws, c15, suv, sact, scam, 0, 0, 5, 1)
+        k9_err = max(k9_err, k1_compare("15 K9", rng, k, p, 256, 192, 1, "K9"))
+    o1 = mcfg.replace(octant_bounce_walks=True)
+    k = megakernel.sample_wave(mws, o1, muv, mact, mcam, 0, 0, 5, 1)
+    p, p9_ms, k9_work = counted(lambda w: megakernel.sample_wave_reference(
+        mws, o1, muv, mact, mcam, 0, 0, 5, 1, work=w), torch, walk)
+    k9_err = max(k9_err, k1_compare("15 K9", o1.rng, k, p, 1920, 1080, 1, "K9"))
+    k9_ms = cuda_ms(lambda: megakernel.sample_wave(
+        mws, o1, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
+    k1_1spp_ms = cuda_ms(lambda: megakernel.sample_wave(
+        mws, mcfg, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
+    say(f"[15 K9] 1080p/1 spp alone: K9 {k9_ms:.3f} ms vs plain {p9_ms:.2f} ms, K1 "
+        f"{k1_1spp_ms:.3f} ms")
+    # K9's phase 1 and continuation alone: at 256x192 and at the split
+    # path's 1080p shapes
+    split_kernels(sws, scfg.replace(split_bounce=2, octant_bounce_walks=True),
+                  suv, sact, scam, "15 K9")
+    k9x = split_kernels(mws, xcfg.replace(octant_bounce_walks=True), muv, mact,
+                        mcam, "15 K9")
+    # the tiered K9 at phase 11's 320x180 (guv, gact)
+    t9 = fcfg.replace(width=320, height=180, spp=1, octant_bounce_walks=True)
+    k = megakernel.sample_wave(fws, t9, guv, gact, fcam, 0, 0, 5, 1)
+    p, p9t_ms, k9t_work = counted(lambda w: megakernel.sample_wave_reference(
+        fws, t9, guv, gact, fcam, 0, 0, 5, 1, work=w), torch, walk)
+    k9t_err = k1_compare("15 K9", t9.rng, k, p, 320, 180, 1, "tiered K9")
+    k9t_ms = cuda_ms(lambda: megakernel.sample_wave(
+        fws, t9, guv, gact, fcam, 0, 0, 5, 1), 5, torch)
+    say(f"[15 K9] tiered K9, field 320x180/1 spp: {k9t_ms:.3f} ms vs plain "
+        f"{p9t_ms:.2f} ms; the tiered K1 {k1t_ms:.3f} ms")
+    k9_standalone = dict(ext.LAUNCHES)
+    require(all(k9_standalone[k] >= 1 for k in (
+        "sample_wave_octant", "sample_wave_tiered_octant",
+        "sample_wave_phase1_octant", "continuation_octant")),
+        "a K9 instantiation was never launched in phase 15")
+    # K9's two other paths, each driven through the entry point with the
+    # counts at 0 just before: the split frame with octant walks (against
+    # K1's 4-spp frame) and the field frame (against the tiered K1's)
+    k9_paths = {}
+    for tag, arrs, cam_, c9, (ref, ref_rays), expect in (
+            ("split", marrays, mcam, c4.replace(split_bounce=2, split_rebin="octant",
+                                                octant_bounce_walks=True),
+             (k1_4, k1_4rays),
+             {"sample_wave_phase1_octant": 4, "continuation_octant": 4}),
+            ("field", farrays, fcam, fcfg.replace(octant_bounce_walks=True),
+             (fimg, frays), {"sample_wave_tiered_octant": 1})):
+        ext.reset_launches()
+        im, r = render_radiance_with_stats(arrs, cam_, c9)
+        k9_paths[tag] = got = dict(ext.LAUNCHES)
+        dmax, dmean = frame_diff(im, ref)
+        say(f"[15 K9] {tag} path, 1080p/4 spp with octant bounce walks: vs "
+            f"{'K1' if tag == 'split' else 'the tiered K1'} max abs {dmax:.3e}, mean "
+            f"abs {dmean:.3e}, rays {int(r)} vs {int(ref_rays)}; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        require(dmax <= 1e-5 and dmean <= 1e-6 and int(r) == int(ref_rays),
+                f"K9 {tag} frame")
+        require(all(got[k] == v for k, v in expect.items()), f"K9 {tag} path launches")
+
     inside_k1 = "device function inside K1 (csrc/walk.cuh, called by csrc/sample_kernel.cu)"
     inside_k1t = ("device function inside the tiered K1 (csrc/walk.cuh, called by "
                   "csrc/sample_kernel.cu)")
+    R, cam_b = 1920 * 1080, 36 * 4
+    mtab = nbytes(mws.inner_table, mws.leaf_table, mws.materials, mws.lights) + cam_b
+    ftab = nbytes(fws.top_table, fws.tre_inner, fws.tre_leaf, fws.materials,
+                  fws.lights) + cam_b
+    # bytes per ray: uv 8 + active 1 in, colour 12 + rays 4 out; the state 52
+    sample_b, state_b = 25, 52
+
+    def cont_bytes(live):
+        """The continuation's bytes: every slot's alive row in and colour +
+        rays out; the other 12 rows only for the live rays (a dead slot's
+        are not needed without a state output)."""
+        return mtab - cam_b + R * (4 + 16) + live * (state_b - 4)
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, work, nbytes_,
+            **extra):
+        b_ms, b_by = bound(work, nbytes_)
+        return dict(name=name, route="cuda", source=f"rayzen_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    walk_work=work, **extra)
+
+    ph1_ms, pph1_ms, ph1_work, _ = k4["ph1"]
+    cont_ms, pcont_ms, cont_work, _ = k4["cont"]
     kernels = [
-        dict(name="K1 sample_wave", route="cuda",
-             source="rayzen_tpu_torch/csrc/sample_kernel.cu",
-             replaces="rayzen_tpu/ops/megakernel.py:460",
-             launches=launches["sample_wave"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=p1_ms),
-        dict(name="K2 closest_hit_bvh2", route="cuda",
-             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
-             replaces="rayzen_tpu/ops/pallas_traverse.py:243",
-             launches=launches["closest_hit_bvh2"], on_main_path=inside_k1,
-             standalone_launches=standalone["closest_hit_bvh2"], max_abs_err=k2_err,
-             ms=k2_ms, plain_ms=p2_ms),
-        dict(name="K3 shadow_walk_bvh2", route="cuda",
-             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
-             replaces="rayzen_tpu/ops/pallas_traverse.py:454",
-             launches=launches["shadow_walk_bvh2"], on_main_path=inside_k1,
-             standalone_launches=standalone["shadow_walk_bvh2"], max_abs_err=k3_err,
-             ms=k3_ms, plain_ms=p3_ms),
-        dict(name="K1 sample_wave_tiered", route="cuda",
-             source="rayzen_tpu_torch/csrc/sample_kernel.cu",
-             replaces="rayzen_tpu/ops/megakernel.py:460",
-             launches=flaunches["sample_wave_tiered"], max_abs_err=k1t_err,
-             ms=k1t_ms, plain_ms=p1t_ms, shape="field 320x180, 1 spp",
-             field_1080p_4spp_ms=k1t_1080_ms, whole_tree_1080p_4spp_ms=k1w_1080_ms),
-        dict(name="K8 closest_hit_tiered", route="cuda",
-             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
-             replaces="rayzen_tpu/ops/pallas_traverse.py:796",
-             launches=flaunches["closest_hit_tiered"], on_main_path=inside_k1t,
-             standalone_launches=k8_standalone["closest_hit_tiered"],
-             max_abs_err=k8_err, ms=k8_ms, plain_ms=p8_ms, k2_whole_tree_ms=k2f_ms),
-        dict(name="K8 shadow_walk_tiered", route="cuda",
-             source="rayzen_tpu_torch/csrc/walk_kernels.cu",
-             replaces="rayzen_tpu/ops/pallas_traverse.py:879",
-             launches=flaunches["shadow_walk_tiered"], on_main_path=inside_k1t,
-             standalone_launches=k8_standalone["shadow_walk_tiered"],
-             max_abs_err=k8s_err, ms=k8s_ms, plain_ms=p8s_ms),
+        row("K1 sample_wave", "sample_kernel.cu", "rayzen_tpu/ops/megakernel.py:460",
+            launches["sample_wave"], k1_err, k1_ms, p1_ms, k1_work,
+            mtab + R * sample_b, shape="demo 1080p, 64 spp"),
+        row("K2 closest_hit_bvh2", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:243", launches["closest_hit_bvh2"],
+            k2_err, k2_ms, p2_ms, k2_work,
+            nbytes(mws.inner_table, mws.leaf_table) + R * 49,
+            on_main_path=inside_k1, standalone_launches=standalone["closest_hit_bvh2"],
+            shape="demo 1080p primary rays"),
+        row("K3 shadow_walk_bvh2", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:454", launches["shadow_walk_bvh2"],
+            k3_err, k3_ms, p3_ms, k3_work,
+            nbytes(mws.inner_table, mws.leaf_table) + R * 33,
+            on_main_path=inside_k1, standalone_launches=standalone["shadow_walk_bvh2"],
+            shape="demo 1080p shadow rays, point light"),
+        row("K1 sample_wave_tiered", "sample_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:460", flaunches["sample_wave_tiered"],
+            k1t_err, k1t_ms, p1t_ms, k1t_work, ftab + 320 * 180 * sample_b,
+            shape="field 320x180, 1 spp", field_1080p_4spp_ms=k1t_1080_ms,
+            whole_tree_1080p_4spp_ms=k1w_1080_ms),
+        row("K8 closest_hit_tiered", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:796", flaunches["closest_hit_tiered"],
+            k8_err, k8_ms, p8_ms, k8_work, ftab - cam_b + R * 49,
+            on_main_path=inside_k1t,
+            standalone_launches=k8_standalone["closest_hit_tiered"],
+            k2_whole_tree_ms=k2f_ms, shape="field 1080p primary rays"),
+        row("K8 shadow_walk_tiered", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:879", flaunches["shadow_walk_tiered"],
+            k8s_err, k8s_ms, p8s_ms, k8s_work, ftab - cam_b + R * 33,
+            on_main_path=inside_k1t,
+            standalone_launches=k8_standalone["shadow_walk_tiered"],
+            shape="field 1080p shadow rays, point light"),
+        row("K4 sample_wave_phase1", "sample_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:981", xlaunches["sample_wave_phase1"],
+            k4_err, ph1_ms, pph1_ms, ph1_work, mtab + R * (sample_b + state_b),
+            standalone_launches=split_standalone["sample_wave_phase1"],
+            shape="demo 1080p, 1 sample, split_bounce 2"),
+        row("K4 continuation", "continuation_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:743", xlaunches["continuation"], k4_err,
+            cont_ms, pcont_ms, cont_work, cont_bytes(k4["live"]),
+            standalone_launches=split_standalone["continuation"],
+            shape="demo 1080p, 1 sample, bounces 2-4 of the compacted wave",
+            live_rays=k4["live"], compaction_ms=k4["comp_ms"]),
+        row("K9 sample_wave_octant", "sample_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:215", olaunches["sample_wave_octant"],
+            k9_err, k9_ms, p9_ms, k9_work, mtab + R * sample_b,
+            shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms),
+        row("K9 sample_wave_tiered_octant", "sample_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:215",
+            k9_paths["field"]["sample_wave_tiered_octant"], k9t_err, k9t_ms, p9t_ms,
+            k9t_work, ftab + 320 * 180 * sample_b,
+            standalone_launches=k9_standalone["sample_wave_tiered_octant"],
+            shape="field 320x180, 1 spp"),
+        row("K9 sample_wave_phase1_octant", "sample_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:215",
+            k9_paths["split"]["sample_wave_phase1_octant"], k9x["ph1"][3], k9x["ph1"][0],
+            k9x["ph1"][1], k9x["ph1"][2], mtab + R * (sample_b + state_b),
+            standalone_launches=k9_standalone["sample_wave_phase1_octant"],
+            shape="demo 1080p, 1 sample, split_bounce 2"),
+        row("K9 continuation_octant", "continuation_kernel.cu",
+            "rayzen_tpu/ops/megakernel.py:215", k9_paths["split"]["continuation_octant"],
+            k9x["cont"][3], k9x["cont"][0], k9x["cont"][1], k9x["cont"][2],
+            cont_bytes(k9x["live"]),
+            standalone_launches=k9_standalone["continuation_octant"],
+            shape="demo 1080p, 1 sample, bounces 2-4 of the compacted wave",
+            live_rays=k9x["live"], compaction_ms=k9x["comp_ms"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,8 @@ kernels are held against.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper in
 ops/walk.py and ops/megakernel.py adds one where it launches its kernel.
+K1, its K9 forms and K4's phase 1 are instantiations of one kernel
+(sample_kernel.cu) behind separate entry points, so each has its own count.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ import subprocess
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "librayzen_kernels.so")
-SOURCES = ("walk_kernels.cu", "sample_kernel.cu")
-HEADERS = ("common.cuh", "walk.cuh")
+SOURCES = ("walk_kernels.cu", "sample_kernel.cu", "continuation_kernel.cu")
+HEADERS = ("common.cuh", "walk.cuh", "shade.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
@@ -39,9 +41,13 @@ NVCC_FLAGS = (
 # csrc/common.cuh STACK_DEPTH: the walks' per-thread stack (checked at load)
 STACK_DEPTH = 64
 
-# kernel -> launches made by its wrapper (reset with reset_launches())
+# kernel -> launches made by its wrapper (reset with reset_launches()); the
+# "_octant" entries are the instantiations with K9 bounce walks
 LAUNCHES = {
     "sample_wave": 0, "sample_wave_tiered": 0,
+    "sample_wave_octant": 0, "sample_wave_tiered_octant": 0,
+    "sample_wave_phase1": 0, "sample_wave_phase1_octant": 0,
+    "continuation": 0, "continuation_octant": 0,
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
 }
@@ -118,6 +124,8 @@ class SampleParams(ctypes.Structure):
         ("key", ctypes.c_int32),
         ("n_mats", ctypes.c_int32),
         ("n_lights", ctypes.c_int32),
+        ("b_start", ctypes.c_int32),
+        ("b_stop", ctypes.c_int32),
         ("samp0", ctypes.c_float),
         ("min_vis", ctypes.c_float),
         ("shadow_eps", ctypes.c_float),
@@ -138,23 +146,29 @@ def lib() -> ctypes.CDLL:
         L.rz_error_string.restype = ctypes.c_char_p
         L.rz_stack_depth.restype = i
         L.rz_sample_params_size.restype = i
-        L.rz_closest_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, p, p, p, p, p]
-        L.rz_closest_bvh2.restype = i
-        L.rz_shadow_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, f, f, p, p]
-        L.rz_shadow_bvh2.restype = i
-        L.rz_sample_wave.argtypes = [
-            p, p, i, i, p, p, p, p, p, i, ctypes.POINTER(SampleParams), p, p, p,
-        ]
-        L.rz_sample_wave.restype = i
-        L.rz_closest_tiered.argtypes = [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]
-        L.rz_closest_tiered.restype = i
-        L.rz_shadow_tiered.argtypes = [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]
-        L.rz_shadow_tiered.restype = i
-        L.rz_sample_wave_tiered.argtypes = [
-            p, p, p, i, i, i, i, p, p, p, p, p, i, ctypes.POINTER(SampleParams),
-            p, p, p,
-        ]
-        L.rz_sample_wave_tiered.restype = i
+        sp = ctypes.POINTER(SampleParams)
+        # tables, mats, lights, cam, uv, act, n, params, color, rays
+        bvh2 = [p, p, i, i, p, p, p, p, p, i, sp, p, p]
+        tiered = [p, p, p, i, i, i, i, p, p, p, p, p, i, sp, p, p]
+        # tables, mats, state_in, n, params, color, rays, state_out, stream
+        cont = [p, p, i, i, p, p, i, sp, p, p, p, p]
+        for name, args in (
+            ("rz_closest_bvh2", [p, p, i, i, p, p, p, p, i, p, p, p, p, p]),
+            ("rz_shadow_bvh2", [p, p, i, i, p, p, p, p, i, f, f, p, p]),
+            ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]),
+            ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]),
+            ("rz_sample_wave", bvh2 + [p]),
+            ("rz_sample_wave_octant", bvh2 + [p]),
+            ("rz_sample_wave_tiered", tiered + [p]),
+            ("rz_sample_wave_tiered_octant", tiered + [p]),
+            ("rz_sample_wave_phase1", bvh2 + [p, p]),
+            ("rz_sample_wave_phase1_octant", bvh2 + [p, p]),
+            ("rz_continuation", cont),
+            ("rz_continuation_octant", cont),
+        ):
+            fn = getattr(L, name)
+            fn.argtypes = args
+            fn.restype = i
         if L.rz_sample_params_size() != ctypes.sizeof(SampleParams):
             raise RuntimeError("SampleParams layout differs from the CUDA source")
         if L.rz_stack_depth() != STACK_DEPTH:

@@ -1,9 +1,19 @@
-"""Path-tracing entry points on the full-sample kernel (K1).
+"""Path-tracing entry points on the full-sample kernel (K1) and the
+split-bounce wavefront (K4).
 
 Port of the megakernel path of rayzen_tpu/integrator.py (render_rays
 :346-431, render_radiance :506, render_radiance_with_stats :526): one refit
 per frame (packing.world_geometry), then one K1 launch that sums all
 ``cfg.spp`` samples per pixel, then the /spp clip (glsl:772-773).
+
+Split bounce: under JAX's own condition (:400-404) — ``0 < split_bounce <
+max_bounces``, the reference (sin-hash) RNG, a single-tree scene and no
+wide nodes — the samples are looped on the host instead, one
+megakernel.sample_wave_split per sample (phase 1, a compaction, one or,
+with ``split_every``, several continuation launches). Other configs with
+``split_bounce`` run the fused K1, as in JAX. ``octant_bounce_walks`` runs
+the bounce walks of K1 and of the continuation as K9 (8 octant-masked
+sub-walks), over either view.
 
 Ray counts are int64 throughout (the JAX package keeps them in int32, which
 overflows past 2^31 rays per call).
@@ -19,7 +29,9 @@ path, ROADMAP queue 1) and runs the whole-tree K1 there, which the H100
 holds in device memory at any size the pack reaches.
 
 Configuration knobs of the JAX package that this port does not implement
-raise NotImplementedError. The packet-only knobs ``packet_tile``,
+(``wide_nodes``, ``frustum_primary``, ``kernels`` other than "auto",
+``walk_pop`` > 1, ``sample_fuse`` > 1, tracers other than "bvh") raise
+NotImplementedError. The packet-only knobs ``packet_tile``,
 ``dense_leaves`` and ``dual_pop`` shape how a 4096-ray packet walks the
 tree; a per-thread walk has no such choice, so they are accepted and
 ignored, as are ``compact_rays`` and ``bounce_rebin``, which the JAX
@@ -42,10 +54,8 @@ def check_config(cfg: RenderConfig, tracer: str = "bvh") -> None:
     unsupported = {
         "tracer": tracer != "bvh",
         "kernels": cfg.kernels != "auto",
-        "split_bounce": cfg.split_bounce > 0,
         "wide_nodes": cfg.wide_nodes,
         "frustum_primary": cfg.frustum_primary,
-        "octant_bounce_walks": cfg.octant_bounce_walks,
         "walk_pop": cfg.walk_pop > 1,
         "sample_fuse": cfg.sample_fuse > 1,
     }
@@ -78,10 +88,25 @@ def render_rays(
         torch.ones((uv.shape[0],), dtype=torch.bool, device=uv.device)
         if active is None else active.to(torch.bool)
     )
-    total, rays = megakernel.sample_wave(
-        ws, cfg, uv, act, camera_params, 0, rng_key, max_bounces,
-        n_samples=cfg.spp,
+    split = (
+        0 < cfg.split_bounce < max_bounces
+        and cfg.rng == "reference" and not ws.tiered
+        and not cfg.wide_nodes
     )
+    if split:
+        # the continuation state is per (ray, sample): one split per sample
+        total = torch.zeros((uv.shape[0], 3), dtype=torch.float32,
+                            device=uv.device)
+        rays = torch.zeros((), dtype=torch.int64, device=uv.device)
+        for s in range(cfg.spp):
+            c, r = megakernel.sample_wave_split(
+                ws, cfg, uv, act, camera_params, s, rng_key, max_bounces)
+            total, rays = total + c, rays + r
+    else:  # all spp accumulate inside K1 (one launch per frame)
+        total, rays = megakernel.sample_wave(
+            ws, cfg, uv, act, camera_params, 0, rng_key, max_bounces,
+            n_samples=cfg.spp,
+        )
     color = torch.clamp(total / float(cfg.spp), 0.0, 1.0)  # glsl:772-773
     if with_stats:
         return color, rays

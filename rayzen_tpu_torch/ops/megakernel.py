@@ -305,9 +305,10 @@ def _raygen_tiles(u, v, jx, jy, cam):
 
 def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
                            nz, vx, vy, vz, ar, ag, ab, metallic, roughness,
-                           transp, mat_ior):
+                           transp, mat_ior, work=None):
     """calculateLighting (glsl:569-663) with transmission shadow walks, for
-    live rays only. Returns radiance rgb."""
+    live rays only (``work``: the walks' walk.Work, if counted). Returns
+    radiance rgb."""
     is_transparent = transp > 0.0
     q = (1.0 - mat_ior) / (1.0 + mat_ior)
     f0t = q * q
@@ -339,6 +340,7 @@ def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
             ws,
             torch.stack([px + ldx * 0.001, py + ldy * 0.001, pz + ldz * 0.001], 1),
             torch.stack([ldx, ldy, ldz], 1), max_dist, live, min_vis, 1e-3,
+            work=work,
         )
         attenuation = attenuation * vis
         lit = vis > min_vis
@@ -428,6 +430,7 @@ class _Consts:
     sky_h: tuple
     sky_d: tuple  # zenith - horizon, in double then rounded (as JAX does)
     ambient: tuple
+    octant: bool  # bounce walks as K9 (cfg.octant_bounce_walks)
 
 
 def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples) -> _Consts:
@@ -445,6 +448,7 @@ def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples) -> _Consts
         sky_h=tuple(_f32(h) for h in cfg.sky_horizon),
         sky_d=tuple(_f32(z - h) for h, z in zip(cfg.sky_horizon, cfg.sky_zenith)),
         ambient=tuple(_f32(a) for a in cfg.ambient),
+        octant=bool(cfg.octant_bounce_walks),
     )
 
 
@@ -459,10 +463,40 @@ def _hit_normal(cross, menc):
     return cnx / nn * sgn, cny / nn * sgn, cnz / nn * sgn
 
 
-def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
-    """One sample for rays with uv (u, v), all active. Returns (color (n, 3),
-    rays (n,) int64)."""
-    n, dev = u.shape[0], u.device
+def octant_walk_reference(ws: WorldArrays, origin, direction, active,
+                          work: walk.Work | None = None):
+    """K9's plain version (megakernel._octant_masked_walk :215): the closest
+    hit as 8 sub-walks of the plain closest walk of the view, one per
+    direction octant, each over the active rays of that octant, merged
+    disjointly. Returns (t, tri, cross (R, 3), menc), the walk's own."""
+    closest = walk.plain_walks(ws)[0]
+    d = direction
+    octv = ((d[:, 0] > 0.0).int() + 2 * (d[:, 1] > 0.0).int()
+            + 4 * (d[:, 2] > 0.0).int())
+    out = list(walk._closest_state(origin.shape[0], origin.device, None))
+    for k in range(8):
+        sel = active & (octv == k)
+        if not sel.any():  # an empty octant's walk stops at the root
+            continue
+        for acc, x in zip(out, closest(ws, origin, direction, sel, work=work)):
+            acc[sel] = x[sel]
+    return tuple(out)
+
+
+def _ref_draws(s0, s1, samp_f):
+    """Per-bounce sin-hash draws of the rays ``sel`` (indices into s0/s1)."""
+
+    def draws(b, sel):
+        b_f = torch.tensor(float(b), dtype=torch.float32, device=s0.device)
+        return _bounce_draws_reference(s0[sel], s1[sel], samp_f, b_f)
+
+    return draws
+
+
+def _sampler(c: _Consts, u, v, h_pix, s: int):
+    """Sample ``s``'s jitter and per-bounce draws for rays (u, v): (jx, jy,
+    draws(b, sel), the sin-hash seeds (s0, s1) or None)."""
+    dev = u.device
     samp_f = torch.tensor(c.samp0, dtype=torch.float32, device=dev) + float(s)
     if not c.hash_rng:
         # seed = uv * (fragX + fragY + samp + 1) (glsl:688); frag =
@@ -472,31 +506,36 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
         s0, s1 = u * scale, v * scale
         jx = _ref_rand(s0, s1) * 0.00002
         jy = _ref_rand(s0 + 1.0, s1 + 1.0) * 0.00002
+        return jx, jy, _ref_draws(s0, s1, samp_f), (s0, s1)
+    samp_u = int(c.samp0) + s
+    jbase = (h_pix + ((samp_u * 7919) & _M32)) & _M32
+    jx = (_u32_to_unit_float(_hash_u32(jbase)) - 0.5) / c.width
+    jy = (_u32_to_unit_float(_hash_u32(jbase + 1)) - 0.5) / c.height
 
-        def draws(b, sel):
-            b_f = torch.tensor(float(b), dtype=torch.float32, device=dev)
-            return _bounce_draws_reference(s0[sel], s1[sel], samp_f, b_f)
-    else:
-        samp_u = int(c.samp0) + s
-        jbase = (h_pix + ((samp_u * 7919) & _M32)) & _M32
-        jx = (_u32_to_unit_float(_hash_u32(jbase)) - 0.5) / c.width
-        jy = (_u32_to_unit_float(_hash_u32(jbase + 1)) - 0.5) / c.height
+    def draws(b, sel):
+        return _bounce_draws_hash(h_pix[sel], samp_u, b)
 
-        def draws(b, sel):
-            return _bounce_draws_hash(h_pix[sel], samp_u, b)
+    return jx, jy, draws, None
 
+
+def _bounce0(ws, c: _Consts, cam, u, v, jx, jy, draws, work):
+    """Raygen, the primary hit (sky on a miss), direct lighting and the
+    bounce-0 scatter of rays (u, v), all active. Returns (color (n, 3), rays
+    (n,) int64, the rays that hit, their paths (o xyz, d xyz, throughput
+    rgb, ior))."""
+    n, dev = u.shape[0], u.device
     ox, oy, oz, dx, dy, dz = _raygen_tiles(u, v, jx, jy, cam)
     rays = torch.ones((n,), dtype=torch.int64, device=dev)
     act = torch.ones((n,), dtype=torch.bool, device=dev)
     t, _tri, cross, menc = walk.plain_walks(ws)[0](
-        ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1), act
+        ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1), act,
+        work=work,
     )
     found = menc != 0.0
     color = torch.stack(
         [torch.where(found, 0.0, _sky(c, dy, ch)) for ch in range(3)], 1
     )
 
-    # ---- bounce 0 on the rays that hit: direct lighting + scatter ----
     sel = found.nonzero()[:, 0]
     rays[sel] += ws.lights.shape[0]
     nx, ny, nz = _hit_normal(cross[sel], menc[sel])
@@ -509,7 +548,7 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
     vx, vy, vz = _normalize(cam[8, 0] - px, cam[8, 1] - py, cam[8, 2] - pz, 1e-20)
     direct = _direct_lighting_tiles(
         ws, ws.lights, c.min_vis, c.ambient, px, py, pz, nx, ny, nz, vx, vy,
-        vz, ar, ag, ab, metal, rough, transp, mat_ior,
+        vz, ar, ag, ab, metal, rough, transp, mat_ior, work,
     )
     color[sel] = color[sel] + torch.stack(direct, 1)
 
@@ -519,18 +558,28 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
         ar, ag, ab, refl, transp, mat_ior,
     )
     push = torch.where(ndx * nx + ndy * ny + ndz * nz > 0.0, 0.003, -0.003)
-    ox, oy, oz = px + nx * push, py + ny * push, pz + nz * push
-    dx, dy, dz = ndx, ndy, ndz
+    path = (px + nx * push, py + ny * push, pz + nz * push, ndx, ndy, ndz,
+            tx, ty, tz, ior)
+    return color, rays, sel, path
 
-    # ---- bounces 1..max_bounces-1 on the rays still alive ----
+
+def _bounces(ws, c: _Consts, sel, path, color, rays, draws, b_start: int,
+             b_stop: int, work):
+    """Bounces b_start..b_stop-1 of the paths of the rays ``sel`` (indices
+    into color / rays, which take the sky radiance and the traced rays in
+    place): the plain form of shade.cuh trace_bounces, each bounce on the
+    rays still alive. Returns the rays alive after b_stop - 1 and their
+    paths."""
+    closest = octant_walk_reference if c.octant else walk.plain_walks(ws)[0]
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, ior = path
     rr_on = c.rr_start < c.max_bounces - 1
-    for b in range(1, c.max_bounces):
+    for b in range(b_start, b_stop):
         if not sel.numel():
             break
         rays[sel] += 1
-        t, _tri, cross, menc = walk.plain_walks(ws)[0](
+        t, _tri, cross, menc = closest(
             ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),
-            torch.ones_like(ox, dtype=torch.bool),
+            torch.ones_like(ox, dtype=torch.bool), work=work,
         )
         found = menc != 0.0
         miss = ~found
@@ -569,14 +618,25 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int):
             ox, oy, oz, dx, dy, dz, tx, ty, tz, ior = (
                 x[keep] for x in (ox, oy, oz, dx, dy, dz, tx, ty, tz, ior)
             )
-    return color, rays
+    return sel, (ox, oy, oz, dx, dy, dz, tx, ty, tz, ior)
+
+
+def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int, b_stop: int, work):
+    """One sample for rays with uv (u, v), all active, through bounce
+    b_stop - 1. Returns (color (n, 3), rays (n,) int64, the rays alive at the
+    end, their paths, the sin-hash seeds or None)."""
+    jx, jy, draws, seeds = _sampler(c, u, v, h_pix, s)
+    color, rays, sel, path = _bounce0(ws, c, cam, u, v, jx, jy, draws, work)
+    sel, path = _bounces(ws, c, sel, path, color, rays, draws, 1, b_stop, work)
+    return color, rays, sel, path, seeds
 
 
 def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
                           camera_params: dict, samp, rng_key, max_bounces: int,
-                          n_samples: int = 1):
-    """Plain version of K1 on uv's device. Returns (color sum over samples
-    (R, 3) f32, rays () int64)."""
+                          n_samples: int = 1, work: walk.Work | None = None):
+    """Plain version of K1 on uv's device (with K9's plain walk for the
+    bounces under cfg.octant_bounce_walks). Returns (color sum over samples
+    (R, 3) f32, rays () int64). ``work`` counts the walks' steps."""
     walk.check_walks(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
     n, dev = uv.shape[0], uv.device
@@ -594,25 +654,35 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
         key_h = int(_hash_u32(torch.tensor((c.key + 0x9E3779B9) & _M32)))
         h_pix = _hash_u32(pixel_id ^ key_h)
     for s in range(n_samples):
-        col_s, rays_s = _one_sample(ws, c, cam, u, v, h_pix, s)
+        col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix, s, max_bounces,
+                                        work)
         color[idx] = color[idx] + col_s
         rays[idx] = rays[idx] + rays_s
     return color, rays.sum()
 
 
-def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
-                camera_params: dict, samp, rng_key, max_bounces: int,
-                n_samples: int = 1):
-    """Trace ``n_samples`` full samples per pixel (uv (R, 2) in [0, 1],
-    active (R,) bool). Returns (color sum over samples (R, 3) f32, rays ()
-    int64). K1 on CUDA tensors (its tiered instantiation when ``ws.tiered``),
-    the plain version on CPU tensors."""
-    if uv.device.type == "cpu":
-        return sample_wave_reference(ws, cfg, uv, active, camera_params, samp,
-                                     rng_key, max_bounces, n_samples)
-    if not uv.is_cuda:
-        raise ValueError(f"no K1 for device {uv.device}")
-    c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
+def _sample_params(c: _Consts, ws: WorldArrays, b_start: int,
+                   b_stop: int) -> ext.SampleParams:
+    return ext.SampleParams(
+        c.width, c.height, c.n_samples, c.max_bounces, c.rr_start,
+        int(c.hash_rng), c.key, ws.materials.shape[0], ws.lights.shape[0],
+        b_start, b_stop, c.samp0, c.min_vis, 1e-3,
+        (ctypes.c_float * 3)(*c.sky_h), (ctypes.c_float * 3)(*c.sky_d),
+        (ctypes.c_float * 3)(*c.ambient),
+    )
+
+
+def _check_tables(ws: WorldArrays) -> None:
+    for t in (ws.materials, ws.lights):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 8:
+            raise ValueError("materials and lights must be (n, 8) float32")
+
+
+def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
+                   camera_params: dict, b_stop: int, phase1: bool):
+    """Launch K1 (or, with ``phase1``, K4's phase 1: K1 with a state output)
+    in the instantiation the view and c.octant ask for. Returns (color (R,
+    3), rays (R,) int32, state (13, R) or None)."""
     dev = uv.device
     uvc = uv.to(torch.float32).contiguous()
     act = active.to(torch.uint8).contiguous()
@@ -621,28 +691,279 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
     cam = _pack_camera(camera_params, dev)
     walk.check_cuda_inputs(ws, uvc, act, cam, ws.materials, ws.lights,
                            tiered=ws.tiered)
-    for t in (ws.materials, ws.lights):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 8:
-            raise ValueError("materials and lights must be (n, 8) float32")
+    _check_tables(ws)
     n = uvc.shape[0]
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
     rays = torch.empty((n,), dtype=torch.int32, device=dev)
-    params = ext.SampleParams(
-        c.width, c.height, c.n_samples, c.max_bounces, c.rr_start,
-        int(c.hash_rng), c.key, ws.materials.shape[0], ws.lights.shape[0],
-        c.samp0, c.min_vis, 1e-3,
-        (ctypes.c_float * 3)(*c.sky_h), (ctypes.c_float * 3)(*c.sky_d),
-        (ctypes.c_float * 3)(*c.ambient),
-    )
-    L = ext.lib()
-    entry, name = ((L.rz_sample_wave_tiered, "sample_wave_tiered") if ws.tiered
-                   else (L.rz_sample_wave, "sample_wave"))
-    err = entry(
+    state = (torch.empty((STATE_ROWS, n), dtype=torch.float32, device=dev)
+             if phase1 else None)
+    name = ("sample_wave" + ("_tiered" if ws.tiered else "")
+            + ("_phase1" if phase1 else "") + ("_octant" if c.octant else ""))
+    params = _sample_params(c, ws, 1, b_stop)
+    err = getattr(ext.lib(), "rz_" + name)(
         *walk.table_args(ws, ws.tiered), ws.materials.data_ptr(),
         ws.lights.data_ptr(), cam.data_ptr(), uvc.data_ptr(), act.data_ptr(),
         n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
+        *((state.data_ptr(),) if phase1 else ()),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     ext.check(err, name)
     ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
+    return color, rays, state
+
+
+def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
+                camera_params: dict, samp, rng_key, max_bounces: int,
+                n_samples: int = 1):
+    """Trace ``n_samples`` full samples per pixel (uv (R, 2) in [0, 1],
+    active (R,) bool). Returns (color sum over samples (R, 3) f32, rays ()
+    int64). K1 on CUDA tensors (its tiered instantiation when ``ws.tiered``,
+    with K9 bounce walks under cfg.octant_bounce_walks), the plain version
+    on CPU tensors."""
+    if uv.device.type == "cpu":
+        return sample_wave_reference(ws, cfg, uv, active, camera_params, samp,
+                                     rng_key, max_bounces, n_samples)
+    if not uv.is_cuda:
+        raise ValueError(f"no K1 for device {uv.device}")
+    c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
+    color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
+                                    max_bounces, phase1=False)
     return color, rays.sum(dtype=torch.int64)
+
+
+# ---- K4: the split-bounce wavefront -----------------------------------------
+
+STATE_ROWS = 13  # o xyz, d xyz, throughput rgb, ior, alive, s0, s1
+
+
+def _state_rows(n: int, sel, path, s0, s1):
+    """(13, n) continuation rows (csrc/shade.cuh StateRow): the paths of the
+    live rays ``sel``, zeros with alive 0 for the others, the seeds of all."""
+    state = torch.zeros((STATE_ROWS, n), dtype=torch.float32, device=s0.device)
+    if sel.numel():
+        state[:10, sel] = torch.stack(path)
+        state[10, sel] = 1.0
+    state[11], state[12] = s0, s1
+    return state
+
+
+def _split_point(ws: WorldArrays, cfg: RenderConfig, max_bounces: int) -> int:
+    """cfg.split_bounce, checked as sample_wave_split (:937-943) checks it."""
+    split_b = int(cfg.split_bounce)
+    if not (0 < split_b < max_bounces):
+        raise ValueError("split_bounce must be in (0, max_bounces)")
+    if cfg.rng != "reference" or ws.tiered or cfg.wide_nodes:
+        raise ValueError(
+            "split_bounce supports the reference-RNG single-tree BVH2 path"
+        )
+    return split_b
+
+
+def sample_wave_phase1_reference(ws: WorldArrays, cfg: RenderConfig, uv,
+                                 active, camera_params: dict, samp, rng_key,
+                                 max_bounces: int,
+                                 work: walk.Work | None = None):
+    """Plain version of K4's phase 1: one sample through bounce
+    cfg.split_bounce - 1. Returns (color (R, 3), rays () int64, state (13,
+    R)). ``work`` counts the walks' steps."""
+    split_b = _split_point(ws, cfg, max_bounces)
+    walk.check_walks(ws)
+    c = _consts(cfg, samp, rng_key, max_bounces, 1)
+    n, dev = uv.shape[0], uv.device
+    idx = active.nonzero()[:, 0]
+    u, v = uv[idx, 0], uv[idx, 1]
+    col, rays, sel, path, (s0, s1) = _one_sample(
+        ws, c, _pack_camera(camera_params, dev), u, v, None, 0, split_b, work)
+    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    color[idx] = color[idx] + col
+    state = torch.zeros((STATE_ROWS, n), dtype=torch.float32, device=dev)
+    state[:, idx] = _state_rows(idx.numel(), sel, path, s0, s1)
+    return color, rays.sum(), state
+
+
+def sample_wave_phase1(ws: WorldArrays, cfg: RenderConfig, uv, active,
+                       camera_params: dict, samp, rng_key, max_bounces: int):
+    """K4's phase 1 (megakernel.py:976-992): one sample of K1 through bounce
+    cfg.split_bounce - 1 that also writes the 13 continuation rows. Returns
+    (color (R, 3), rays () int64, state (13, R) f32). The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if uv.device.type == "cpu":
+        return sample_wave_phase1_reference(ws, cfg, uv, active, camera_params,
+                                            samp, rng_key, max_bounces)
+    if not uv.is_cuda:
+        raise ValueError(f"no K4 phase 1 for device {uv.device}")
+    split_b = _split_point(ws, cfg, max_bounces)
+    c = _consts(cfg, samp, rng_key, max_bounces, 1)
+    color, rays, state = _launch_sample(ws, c, uv, active, camera_params,
+                                        split_b, phase1=True)
+    return color, rays.sum(dtype=torch.int64), state
+
+
+def continuation_reference(ws: WorldArrays, cfg: RenderConfig, state, samp,
+                           rng_key, max_bounces: int, b_start: int,
+                           b_stop: int, emit: bool,
+                           work: walk.Work | None = None):
+    """Plain version of K4's continuation kernel. Returns (color (R, 3) in
+    the state's order, rays () int64, the state after b_stop - 1 (13, R) if
+    ``emit`` else None). ``work`` counts the walks' steps."""
+    walk.check_depth(ws)
+    c = _consts(cfg, samp, rng_key, max_bounces, 1)
+    n, dev = state.shape[1], state.device
+    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((n,), dtype=torch.int64, device=dev)
+    sel = (state[10] > 0.5).nonzero()[:, 0]
+    s0, s1 = state[11], state[12]
+    samp_f = torch.tensor(c.samp0, dtype=torch.float32, device=dev)
+    sel, path = _bounces(ws, c, sel, tuple(state[k, sel] for k in range(10)),
+                         color, rays, _ref_draws(s0, s1, samp_f), b_start,
+                         b_stop, work)
+    return color, rays.sum(), (_state_rows(n, sel, path, s0, s1) if emit
+                               else None)
+
+
+def continuation(ws: WorldArrays, cfg: RenderConfig, state, samp, rng_key,
+                 max_bounces: int, b_start: int, b_stop: int, emit: bool):
+    """K4's continuation kernel (megakernel._make_continuation_kernel
+    :743): resume the rays of ``state`` (13, R) at bounce b_start and trace
+    them to b_stop, with K9 bounce walks under cfg.octant_bounce_walks.
+    Returns (color (R, 3) from 0, in the state's order; rays () int64; with
+    ``emit`` the state after b_stop - 1, else None). The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if state.device.type == "cpu":
+        return continuation_reference(ws, cfg, state, samp, rng_key,
+                                      max_bounces, b_start, b_stop, emit)
+    if not state.is_cuda:
+        raise ValueError(f"no K4 continuation for device {state.device}")
+    if ws.tiered or cfg.rng != "reference":
+        raise ValueError("the continuation runs the reference-RNG single-tree walks")
+    if (state.dtype != torch.float32 or state.dim() != 2
+            or state.shape[0] != STATE_ROWS or not state.is_contiguous()):
+        raise ValueError("state must be a contiguous (13, R) float32 tensor")
+    walk.check_cuda_inputs(ws, state, ws.materials)
+    _check_tables(ws)
+    c = _consts(cfg, samp, rng_key, max_bounces, 1)
+    n, dev = state.shape[1], state.device
+    color = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    out = torch.empty_like(state) if emit else None
+    name = "continuation" + ("_octant" if c.octant else "")
+    params = _sample_params(c, ws, b_start, b_stop)
+    err = getattr(ext.lib(), "rz_" + name)(
+        *walk.table_args(ws, False), ws.materials.data_ptr(), state.data_ptr(),
+        n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
+        None if out is None else out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    ext.check(err, name)
+    ext.LAUNCHES[name] += n > 0
+    return color, rays.sum(dtype=torch.int64), out
+
+
+def _stable_partition(bucket, n_buckets: int):
+    """dest[i] = slot of ray i under a stable partition by bucket id
+    (megakernel.py:847), without argsort: one 1-D cumsum over the
+    bucket-major one-hot (n_buckets, R), flattened, counts for ray i in
+    bucket k the rays of the buckets before k plus those of bucket k up to
+    i. (A cumsum along dim 0 of an (R, n_buckets) one-hot runs as PyTorch's
+    outer-dimension scan on the card: ~0.5 s at R = 2M.)"""
+    n = bucket.shape[0]
+    ids = torch.arange(n_buckets, dtype=bucket.dtype, device=bucket.device)
+    onehot = (ids[:, None] == bucket[None, :]).to(torch.int32).reshape(-1)
+    csum = torch.cumsum(onehot, 0, dtype=torch.int32)
+    at = bucket.long() * n + torch.arange(n, device=bucket.device)
+    return csum[at] - 1
+
+
+def _compaction_permutation(a, dxf, dyf, dzf, mode: str, origins=None):
+    """megakernel._compaction_permutation (:861): a stable partition of the
+    wave, alive rays first, dead rays last. Returns int32 (dest, order): ray
+    i moves to slot dest[i]; slot j holds ray order[j]. "rank" keeps pixel
+    order among the survivors; "octant" buckets them by direction octant (9
+    buckets, dead last); "octcell" first sub-orders by a 2x2x2 origin cell
+    (split at the live rays' box centre), as two composed partitions. Any
+    other mode is "rank"."""
+    n, dev = a.shape[0], a.device
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    if mode in ("octant", "octcell"):
+        octv = ((dxf > 0.0).int() + 2 * (dyf > 0.0).int()
+                + 4 * (dzf > 0.0).int())
+        bucket = torch.where(a, octv, 8)  # dead rays -> bucket 8 (the back)
+        if mode == "octcell":
+
+            def mid(v):
+                lo = torch.where(a, v, 1e30).min()
+                hi = torch.where(a, v, -1e30).max()
+                return 0.5 * (lo + hi)
+
+            ox, oy, oz = origins
+            cell = ((ox > mid(ox)).int() + 2 * (oy > mid(oy)).int()
+                    + 4 * (oz > mid(oz)).int())
+            dest1 = _stable_partition(cell, 8)
+            order1 = torch.empty_like(iota)
+            order1[dest1.long()] = iota
+            dest2 = _stable_partition(bucket[order1.long()], 9)
+            dest = dest2[dest1.long()]
+        else:
+            dest = _stable_partition(bucket, 9)
+    else:
+        ia = a.int()
+        rank_alive = torch.cumsum(ia, 0, dtype=torch.int32) - ia
+        da = 1 - ia
+        rank_dead = ia.sum(dtype=torch.int32) + torch.cumsum(
+            da, 0, dtype=torch.int32) - da
+        dest = torch.where(a, rank_alive, rank_dead)
+    order = torch.empty_like(iota)
+    order[dest.long()] = iota
+    return dest, order
+
+
+def _split(phase1, cont, ws: WorldArrays, cfg: RenderConfig, uv, active,
+           camera_params: dict, samp, rng_key, max_bounces: int):
+    """sample_wave_split's flow (megakernel.py:1000-1041) over the given
+    phase 1 and continuation."""
+    split_b = _split_point(ws, cfg, max_bounces)
+    color, rays, state = phase1(ws, cfg, uv, active, camera_params, samp,
+                                rng_key, max_bounces)
+    # split_every re-compacts before every late bounce; pix2slot tracks
+    # where each pixel's ray lives (the permutations compose on it)
+    starts = (list(range(split_b, max_bounces)) if cfg.split_every
+              else [split_b])
+    pix2slot = None
+    for i, b_start in enumerate(starts):
+        b_stop = starts[i + 1] if i + 1 < len(starts) else max_bounces
+        dest, order = _compaction_permutation(
+            state[10] > 0.5, state[3], state[4], state[5], cfg.split_rebin,
+            origins=(state[0], state[1], state[2]),
+        )
+        dest = dest.long()
+        pix2slot = dest if pix2slot is None else dest[pix2slot]
+        col, r, state = cont(ws, cfg, state[:, order.long()], samp, rng_key,
+                             max_bounces, b_start, b_stop,
+                             emit=b_stop < max_bounces)
+        # the phase's colour comes back in its compacted order
+        color = color + col[pix2slot]
+        rays = rays + r
+    return color, rays
+
+
+def sample_wave_split(ws: WorldArrays, cfg: RenderConfig, uv, active,
+                      camera_params: dict, samp, rng_key, max_bounces: int):
+    """One sample through the split-bounce wavefront (K4,
+    megakernel.sample_wave_split :911): phase 1 traces bounces
+    0..split_bounce-1 and writes the continuation rows; a sort-free
+    permutation (cfg.split_rebin) moves the live rays to the front; the
+    continuation kernel resumes them, and with cfg.split_every each later
+    bounce gets its own compaction and continuation. Image-identical to
+    K1's sample: rays are only permuted between kernels. Returns (color (R,
+    3), rays () int64). The kernels on CUDA tensors, the plain versions on
+    CPU tensors."""
+    return _split(sample_wave_phase1, continuation, ws, cfg, uv, active,
+                  camera_params, samp, rng_key, max_bounces)
+
+
+def sample_wave_split_reference(ws: WorldArrays, cfg: RenderConfig, uv,
+                                active, camera_params: dict, samp, rng_key,
+                                max_bounces: int):
+    """Plain version of sample_wave_split on uv's device."""
+    return _split(sample_wave_phase1_reference, continuation_reference, ws,
+                  cfg, uv, active, camera_params, samp, rng_key, max_bounces)

@@ -34,6 +34,20 @@ T_EPS = 1e-4
 T_FAR = 1e30
 STACK_DEPTH = ext.STACK_DEPTH  # the plain versions use the kernels' stack
 
+@dataclasses.dataclass
+class Work:
+    """Instrumentation: pass one as ``work=`` to a plain walk (or a plain
+    sample) and it counts the inner (and top-tree) node visits, one per
+    popped node, and the triangle tests, one per triangle of each leaf
+    walked (min(count, K), as the kernels loop): the data-dependent work of
+    the same walks in the kernels."""
+
+    nodes: int = 0
+    tris: int | torch.Tensor = 0  # summed on the walk's device
+
+    def counts(self) -> dict:
+        return {"nodes": int(self.nodes), "tris": int(self.tris)}
+
 
 @dataclasses.dataclass
 class Hit:
@@ -213,15 +227,16 @@ class _Walk:
     """What a walk keeps per ray and does at a leaf (all indexed by ray id):
     ``bound(ids)`` prunes the box tests, ``leaves(leaf, K, li, r, ids)`` runs
     leaf rows ``li``, ``stop(ids)`` ends a ray early, ``poison(ids)`` marks a
-    stack overflow."""
+    stack overflow; ``work`` counts the steps, if given."""
 
     bound: Callable
     leaves: Callable
     stop: Callable
     poison: Callable
+    work: Work | None = None
 
 
-def _closest_ops(state) -> _Walk:
+def _closest_ops(state, work=None) -> _Walk:
     """The closest-hit walk on state = (t_best, tri, cross, menc)."""
     t_best, _tri, _cross, menc = state
 
@@ -233,10 +248,11 @@ def _closest_ops(state) -> _Walk:
         menc[ids] = float("nan")
 
     return _Walk(lambda ids: t_best[ids], leaves,
-                 lambda ids: torch.zeros_like(ids, dtype=torch.bool), poison)
+                 lambda ids: torch.zeros_like(ids, dtype=torch.bool), poison,
+                 work)
 
 
-def _shadow_ops(vis, maxd, min_visibility, t_eps) -> _Walk:
+def _shadow_ops(vis, maxd, min_visibility, t_eps, work=None) -> _Walk:
     """The transmission walk multiplying into ``vis``; a ray stops once its
     vis drops to min_visibility."""
 
@@ -247,7 +263,7 @@ def _shadow_ops(vis, maxd, min_visibility, t_eps) -> _Walk:
         vis[ids] = float("nan")
 
     return _Walk(lambda ids: maxd[ids], leaves,
-                 lambda ids: ~(vis[ids] > min_visibility), poison)
+                 lambda ids: ~(vis[ids] > min_visibility), poison, work)
 
 
 def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
@@ -263,6 +279,8 @@ def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
     row = inner[node if ibase is None else node + ibase[ids]]
     r = r_all[ids]
     hitl, hitr = _boxes(r, row, w.bound(ids))
+    if w.work is not None:
+        w.work.nodes += ids.numel()
     for hit, ref, cnt in ((hitl, row[:, 12], row[:, 14]),
                           (hitr, row[:, 13], row[:, 15])):
         m = hit & (cnt >= 0)
@@ -270,6 +288,9 @@ def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
             li = ref[m].long()
             if lbase is not None:
                 li = li + lbase[ids[m]]
+            if w.work is not None:
+                w.work.tris = w.work.tris + leaf[li, 10 * K + 1].clamp(
+                    max=K).sum(dtype=torch.int64)
             w.leaves(leaf, K, li, r[m], ids[m])
     stop = w.stop(ids)
     ovf = _push(stack, sp, ids, sp_l, row, hitl & ~stop, hitr & ~stop)
@@ -322,6 +343,8 @@ def _walk_tiered(w: _Walk, ws: WorldArrays, r_all, rays):
             top_sp[go] = sp_l
             row = ws.top_table[top[go, sp_l]]
             hitl, hitr = _boxes(r_all[go], row, w.bound(go))
+            if w.work is not None:
+                w.work.nodes += go.numel()
             pend[go] = torch.stack([
                 torch.where(hitl & (row[:, 14] == -2), row[:, 12].long(), -1),
                 torch.where(hitr & (row[:, 15] == -2), row[:, 13].long(), -1),
@@ -364,11 +387,11 @@ def _max_dist(max_dist, n, dev):
 
 
 def closest_walk_reference(ws: WorldArrays, origin, direction, active,
-                           t_init=None):
+                           t_init=None, work: Work | None = None):
     """Plain closest-hit walk (K2). Returns (t, tri, cross (R, 3), menc)."""
     check_depth(ws)
     state = _closest_state(origin.shape[0], origin.device, t_init)
-    _walk(_closest_ops(state), ws.inner_table, ws.leaf_table, ws.leaf_k,
+    _walk(_closest_ops(state, work), ws.inner_table, ws.leaf_table, ws.leaf_k,
           _rays9(origin, direction), active.nonzero()[:, 0])
     return state
 
@@ -383,11 +406,11 @@ def _shadow_setup(origin, max_dist, active, min_visibility):
 
 def shadow_walk_reference(ws: WorldArrays, origin, direction, max_dist,
                           active, min_visibility: float = 0.05,
-                          t_eps: float = 1e-3):
+                          t_eps: float = 1e-3, work: Work | None = None):
     """Plain transmission walk (K3). Returns vis (R,), 1 for inactive rays."""
     check_depth(ws)
     vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
-    _walk(_shadow_ops(vis, maxd, min_visibility, t_eps), ws.inner_table,
+    _walk(_shadow_ops(vis, maxd, min_visibility, t_eps, work), ws.inner_table,
           ws.leaf_table, ws.leaf_k, _rays9(origin, direction), rays)
     return vis
 
@@ -400,13 +423,14 @@ def _treelet_rows(ws):
             ws.tre_leaf.reshape(-1, ws.tre_leaf.shape[2]), si, sl)
 
 
-def tiered_closest_walk_reference(ws: WorldArrays, origin, direction, active):
+def tiered_closest_walk_reference(ws: WorldArrays, origin, direction, active,
+                                  work: Work | None = None):
     """Plain K8 closest-hit walk over the treelet view: the top tree walk,
     with each treelet child a ray's box test hits walked by the K2 walk on
     that treelet's rows. Returns (t, tri, cross (R, 3), menc)."""
     check_tiered(ws)
     state = _closest_state(origin.shape[0], origin.device, None)
-    _walk_tiered(_closest_ops(state), ws, _rays9(origin, direction),
+    _walk_tiered(_closest_ops(state, work), ws, _rays9(origin, direction),
                  active.nonzero()[:, 0])
     return state
 
@@ -414,13 +438,14 @@ def tiered_closest_walk_reference(ws: WorldArrays, origin, direction, active):
 def tiered_shadow_walk_reference(ws: WorldArrays, origin, direction,
                                  max_dist, active,
                                  min_visibility: float = 0.05,
-                                 t_eps: float = 1e-3):
+                                 t_eps: float = 1e-3,
+                                 work: Work | None = None):
     """Plain K8 transmission walk over the treelet view: the treelets' K3
     walks multiply into the carried visibility, left treelet first. Returns
     vis (R,), 1 for inactive rays."""
     check_tiered(ws)
     vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
-    _walk_tiered(_shadow_ops(vis, maxd, min_visibility, t_eps), ws,
+    _walk_tiered(_shadow_ops(vis, maxd, min_visibility, t_eps, work), ws,
                  _rays9(origin, direction), rays)
     return vis
 

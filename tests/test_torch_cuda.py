@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K3, K8 and the tiered K1) against their plain PyTorch versions on
-the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
+"""The port's CUDA kernels (K1-K3, K8, the tiered K1, K4's phase 1 and
+continuation, and the K9 instantiations) against their plain PyTorch
+versions on the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
 run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -143,3 +144,48 @@ def test_mixed_devices_raise(setup):
     ws, o, d = setup["ws"], setup["o"], setup["d"]
     with pytest.raises(ValueError):
         walk.closest_walk(ws, o, d.cpu(), torch.ones(o.shape[0], dtype=torch.bool))
+
+
+def _split_pair(setup, **knobs):
+    """(kernel, plain) split sample of the 48x32 wave, and K1's."""
+    cfg = setup["cfg"].replace(**knobs)
+    uv, ws, cam = setup["uv"], setup["ws"], setup["cam"]
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    args = (ws, cfg, uv, act, cam, 1, 2, 5)
+    return (megakernel.sample_wave_split(*args),
+            megakernel.sample_wave_split_reference(*args),
+            megakernel.sample_wave(ws, cfg, uv, act, cam, 1, 2, 5))
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(split_bounce=2), dict(split_bounce=2, split_rebin="octant"),
+    dict(split_bounce=2, split_rebin="octcell"),
+    dict(split_bounce=2, split_rebin="octant", split_every=True),
+    dict(split_bounce=1, split_every=True, octant_bounce_walks=True),
+], ids=["rank", "octant", "octcell", "every", "every_k9"])
+def test_split_matches_plain(setup, knobs):
+    octant = "_octant" if knobs.get("octant_bounce_walks") else ""
+    before = dict(ext.LAUNCHES)
+    (kc, kr), (pc, pr), (fc, fr) = _split_pair(setup, **knobs)
+    n_cont = 5 - knobs["split_bounce"] if knobs.get("split_every") else 1
+    assert ext.LAUNCHES["sample_wave_phase1" + octant] == before["sample_wave_phase1" + octant] + 1
+    assert ext.LAUNCHES["continuation" + octant] == before["continuation" + octant] + n_cont
+    assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
+    assert (kc - fc).abs().max().item() <= 1e-6 and int(kr) == int(fr)
+
+
+@pytest.mark.parametrize("tiered", [False, True])
+def test_octant_k1_matches_plain_and_k1(setup, tiered):
+    ws = setup["tws"] if tiered else setup["ws"]
+    cfg = setup["cfg"].replace(octant_bounce_walks=True)
+    uv, cam = setup["uv"], setup["cam"]
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    name = "sample_wave" + ("_tiered" if tiered else "") + "_octant"
+    before = ext.LAUNCHES[name]
+    kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+    assert ext.LAUNCHES[name] == before + 1
+    pc, pr = megakernel.sample_wave_reference(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+    fc, fr = megakernel.sample_wave(ws, setup["cfg"], uv, act, cam, 0, 0, 5, 2)
+    assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
+    torch.testing.assert_close(kc, fc, rtol=0, atol=0)  # the same hits as K1
+    assert int(kr) == int(fr)

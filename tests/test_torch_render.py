@@ -71,13 +71,21 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(split_bounce=2), dict(wide_nodes=True), dict(frustum_primary=True),
-    dict(octant_bounce_walks=True), dict(walk_pop=2), dict(sample_fuse=2),
-    dict(kernels="xla"),
+    dict(wide_nodes=True), dict(frustum_primary=True), dict(walk_pop=2),
+    dict(sample_fuse=2), dict(kernels="xla"),
 ])
 def test_unimplemented_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         check_config(RenderConfig(**knob))
+
+
+@pytest.mark.parametrize("knob", [
+    dict(split_bounce=2), dict(octant_bounce_walks=True),
+    dict(split_bounce=2, split_rebin="octcell", split_every=True,
+         octant_bounce_walks=True),
+])
+def test_check_config_accepts_split_and_octant(knob):
+    check_config(RenderConfig(**knob))
 
 
 @pytest.mark.parametrize("tiered", ["on", "auto", "off"])

@@ -147,6 +147,23 @@ def test_all_inactive(setup):
     assert (vis == 1.0).all() and int(rays) == 0
 
 
+def test_work_counts_the_steps_and_changes_no_hit(setup):
+    _, tws, o, d = setup
+    act = torch.ones(o.shape[0], dtype=torch.bool)
+    plain = walk.closest_walk_reference(tws, _t(o), _t(d), act)
+    work = walk.Work()
+    counted = walk.closest_walk_reference(tws, _t(o), _t(d), act, work=work)
+    for a, b in zip(plain, counted):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    n = work.counts()
+    # every ray pops the root; a node runs at most two leaves of K triangles
+    assert n["nodes"] >= o.shape[0]
+    assert 0 < n["tris"] <= 2 * tws.leaf_k * n["nodes"]
+    idle = walk.Work()
+    walk.shadow_walk_reference(tws, _t(o), _t(d), 50.0, ~act, work=idle)
+    assert idle.counts() == {"nodes": 0, "tris": 0}
+
+
 def test_100_rays_padding(setup):
     # 100 rays: the JAX side pads to a whole packet, the port does not
     jws, tws, o, d = setup
