@@ -4,7 +4,9 @@ then drive the main path (a 1920x1080, 64 spp, 5-bounce frame of the demo
 scene), the large-scene path (a 1920x1080, 4 spp, 5-bounce frame of the
 503k-triangle field of scripts/bench_large.py, walked through the treelet
 view by the tiered K1), the split-bounce wavefront (K4) and the
-octant-masked bounce walks (K9) on the demo frame, and time them.
+octant-masked bounce walks (K9) on the demo frame, the wide-node walks (K5,
+wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and time
+them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out-dir DIR]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
@@ -58,6 +60,16 @@ Phases (each prints its own lines and stops the run when it fails):
                   plain; then the split path
                   and the field path with octant walks at 1080p/4 spp, each
                   driven with its own launch counts, vs K1 / the tiered K1
+ 16 K5            wide_nodes: K5 closest/shadow vs plain and vs K2/K3 at the
+                  demo's 1080p primary and light rays; the wide K1 vs plain
+                  at 256x192 (both RNG flows) and 1080p/1 spp; the golden
+                  gates with wide_nodes; the 1080p/64 spp wide frame vs K1's
+                  frame, its launch counts, timed in turns with K1; the wide
+                  + octant K1 once; the wide K1 on the field (tiered="off")
+                  at 1080p/4 spp vs the whole-tree K1, in turns
+ 17 K6            frustum_primary: the same set for K6 and the frustum K1,
+                  plus the frustum phase 1 (split_bounce 2) vs plain at
+                  256x192 and the frustum + octant K1 once
 """
 
 from __future__ import annotations
@@ -86,6 +98,15 @@ FP32_OPS_S = 67e12
 # five bounds tests): 54. Shading is left out: the bound stays a lower one.
 OPS_PER_NODE = 50
 OPS_PER_TRI = 54
+# A wide node visit (K5, walk.cuh wide_node): 8 slab tests and their 8
+# pruning compares, 8 x (24 + 1) = 200 (the push sort, which runs only when
+# two or more children are pushed, is left out). A frustum node visit (K6,
+# frustum.cuh), counted once per packet: two interval box tests, each 3 axes
+# x (4 subtracts, two interval products of 4 multiplies and 6 min/max, 4
+# min/max for the axis and the running entry/exit) + 3 for the final tests
+# = 87, so 174 (the frustum set-up and the t_max reductions are left out).
+OPS_PER_NODE8 = 200
+OPS_PER_PACKET_NODE = 174
 
 
 class PhaseFailed(Exception):
@@ -169,17 +190,25 @@ def build_field_scene(width: int, height: int, n_instances: int = 520):
 
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
-    -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms)."""
+    -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
+    ",frustum" for those with the K6 primary walk)."""
+    import re
+
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             kernel = next((k for k in ("continuation_kernel", "sample_kernel",
+                                       "closest_frustum_kernel",
+                                       "shadow_frustum_kernel",
                                        "closest_kernel", "shadow_kernel")
                            if k in mangled), mangled)
-            walk = "TieredWalk" if "TieredWalk" in mangled else "Bvh2Walk"
-            octant = ",octant" if "Lb1E" in mangled else ""
-            cur = f"{kernel}<{walk}{octant}>"
+            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk")
+                         if w in mangled), "Bvh2Walk")
+            flags = re.findall(r"Lb([01])E", mangled)
+            octant = ",octant" if flags[:1] == ["1"] else ""
+            frustum = ",frustum" if flags[1:2] == ["1"] else ""
+            cur = f"{kernel}<{walk}{octant}{frustum}>"
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
@@ -228,7 +257,8 @@ def bound(work, nbytes):
     """(bound_ms, bound_by): the least time for a call that moves ``nbytes``
     and whose walks do ``work`` (walk.Work's node visits and triangle
     tests), at the published H100 peaks."""
-    ops = OPS_PER_NODE * work["nodes"] + OPS_PER_TRI * work["tris"]
+    ops = (OPS_PER_NODE * work["nodes"] + OPS_PER_NODE8 * work["nodes8"]
+           + OPS_PER_PACKET_NODE * work["packet_nodes"] + OPS_PER_TRI * work["tris"])
     t_ops, t_bytes = ops / FP32_OPS_S, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -896,6 +926,210 @@ def main() -> int:
                 f"K9 {tag} frame")
         require(all(got[k] == v for k, v in expect.items()), f"K9 {tag} path launches")
 
+    def frame_gate(tag, what, a, ar_, b, br_):
+        """Hold a frame to a reference frame with the golden bars (SSIM >=
+        0.995, mean abs < 2e-3) and ray counts within 0.1% (k1_compare's bar:
+        another walk order may resolve a box-rounding edge case on another
+        triangle and send a path elsewhere); report the max abs and the
+        pixels that differ."""
+        d = (a - b).abs()
+        s_ = ssim(a.cpu().numpy(), b.cpu().numpy())
+        ndiff = int((d.amax(-1) > 0).sum())
+        say(f"[{tag}] {what}: SSIM {s_:.6f}, mean abs {d.mean().item():.3e}, max abs "
+            f"{d.max().item():.3e}, pixels that differ {ndiff} "
+            f"({ndiff / d[..., 0].numel() * 100:.4f}%), rays {int(ar_)} vs {int(br_)}")
+        require(s_ >= 0.995 and d.mean().item() < 2e-3, f"{tag}: {what}")
+        require(abs(int(ar_) - int(br_)) <= 0.001 * int(br_), f"{tag}: {what} rays")
+        return d.max().item()
+
+    def in_turns(tag, runs, arrays_, cam_):
+        """Dispatches of each config in turns (a, b, b, a, and so for more
+        configs) x 3; the medians."""
+        ab_ = {k: [] for k in runs}
+        names = list(runs)
+        render_radiance_with_stats(arrays_, cam_, runs[names[0]])  # warm-up
+        for order in (tuple(names), tuple(reversed(names))) * 3:
+            for name in order:
+                (_, r), ms = timed(lambda: render_radiance_with_stats(
+                    arrays_, cam_, runs[name]), torch)
+                ab_[name].append(ms)
+        say(f"[{tag}] in turns on {kind} ({smi}): " + "; ".join(
+            f"{name} median {statistics.median(ts):.2f} ms, best {min(ts):.2f} ms "
+            f"({', '.join(f'{t:.2f}' for t in ts)})" for name, ts in ab_.items()))
+        return {k: statistics.median(v) for k, v in ab_.items()}
+
+    def knob_phase(tag, knobs, kernel, closest, plain_closest, shadow,
+                   plain_shadow, k1_name):
+        # k1_name: the launch count of the knob's K1 instantiation
+        """Phases 16 (K5) and 17 (K6): the standalone walks against their
+        plain versions and against K2/K3 at the demo's 1080p rays, the K1
+        instantiation against its plain version, the golden gates, the
+        1080p/64 spp frame and the field frame (tiered="off") against K1's,
+        timed in turns. Returns the numbers of the kernel rows."""
+        out = {}
+        ext.reset_launches()
+        # the closest walk at the 1080p primary rays
+        kt, ktri, _kc, _km = closest(mws, mo, md_, mact)
+        (pt_, ptri_, _pc, _pm), p_ms, c_work = counted(
+            lambda w: plain_closest(mws, mo, md_, mact, work=w), torch, walk)
+        c_ms = cuda_ms(lambda: closest(mws, mo, md_, mact), 10, torch)
+        same, t_rel, t_abs = hits_agree(kt, ktri, pt_, ptri_)
+        exact = bool(torch.equal(kt, pt_) and torch.equal(ktri, ptri_))
+        h2 = mhit.tri >= 0
+        t_eq = bool(torch.equal(kt[h2], mhit.t[h2]))
+        other = (ktri != mhit.tri) & h2
+        ties = int((other & (kt == mhit.t)).sum())
+        extra, lost = int(((ktri >= 0) & ~h2).sum()), int(((ktri < 0) & h2).sum())
+        say(f"[{tag}] {kernel} closest vs plain, 1080p primary: same tri "
+            f"{same * 100:.4f}%, t max rel err {t_rel:.3e}, bit-equal {exact}; "
+            f"{c_ms:.3f} ms vs plain {p_ms:.2f} ms, K2 {k2_ms:.3f} ms")
+        say(f"[{tag}] {kernel} closest vs K2: t bit-equal on all {int(h2.sum())} rays "
+            f"K2 hits {t_eq}; other triangle on {int(other.sum())} rays ({ties} exact-t "
+            f"ties); hits K2 lacks {extra}, K2 hits it lacks {lost}")
+        require(same >= 0.9999 and t_rel <= 1e-5, f"{kernel} closest vs plain")
+        require(t_eq and ties == int(other.sum()) and lost == 0,
+                f"{kernel} closest vs K2: t not bit-equal, or a non-tie triangle")
+        # incoherent rays, as a bounce's: from the primary hits in seeded
+        # random directions, K2 and this walk in turns
+        g = torch.Generator(device=dev).manual_seed(5)
+        rd = torch.randn(mo.shape, generator=g, device=dev)
+        rd = rd / rd.norm(dim=1, keepdim=True)
+        ro = mhit.point + rd * 1e-3
+        i2 = walk.closest_walk(mws, ro, rd, mhit.found)
+        ik = closest(mws, ro, rd, mhit.found)
+        ih = i2[1] >= 0
+        i_ms = [cuda_ms(lambda: fn(mws, ro, rd, mhit.found), 10, torch)
+                for fn in (walk.closest_walk, closest, closest, walk.closest_walk)]
+        say(f"[{tag}] {kernel} closest on incoherent rays ({int(mhit.found.sum())} rays "
+            f"from the primary hits, random directions): {kernel} "
+            f"{(i_ms[1] + i_ms[2]) / 2:.3f} ms, K2 {(i_ms[0] + i_ms[3]) / 2:.3f} ms "
+            f"(in turns: {', '.join(f'{t:.3f}' for t in i_ms)}); t bit-equal on the rays "
+            f"K2 hits {bool(torch.equal(ik[0][ih], i2[0][ih]))}, other triangle on "
+            f"{int(((ik[1] != i2[1]) & ih).sum())}")
+        out["closest"] = dict(ms=c_ms, plain_ms=p_ms, work=c_work, err=t_abs,
+                              ties=ties, extra=extra,
+                              incoherent_ms=(i_ms[1] + i_ms[2]) / 2,
+                              k2_incoherent_ms=(i_ms[0] + i_ms[3]) / 2)
+        # the shadow walk at the rays toward each light
+        s_err = 0.0
+        for i, (so, sd, sm, sa) in enumerate(shadow_rays(mws, mhit)):
+            kv, kr = shadow(mws, so, sd, sm, sa)
+            pv, pms, work = counted(
+                lambda w: plain_shadow(mws, so, sd, sm, sa, work=w), torch, walk)
+            kms = cuda_ms(lambda: shadow(mws, so, sd, sm, sa), 10, torch)
+            v3, _ = walk.shadow_walk_bvh2(mws, so, sd, sm, sa)
+            lit = kv > 0.05
+            # vs plain on every ray; vs K3 where vis ends above min_vis (a
+            # K6 packet stops only when all its rays are at or below it)
+            e_p = (kv - pv).abs().max().item()
+            e_3 = (kv - v3).abs()[lit].max().item() if lit.any() else 0.0
+            m_3 = bool(torch.equal(lit, v3 > 0.05))
+            s_err = max(s_err, e_p)
+            if i == 0:  # the point light
+                out["shadow"] = dict(ms=kms, plain_ms=pms, work=work)
+            say(f"[{tag}] {kernel} shadow, 1080p light {i}: vis max abs err vs plain "
+                f"{e_p:.3e}; vis > 0.05 mask equal to K3's {m_3}, max abs err vs K3 "
+                f"where > 0.05 {e_3:.3e}; {int(kr)} rays, {int(lit.sum())} lit; "
+                f"{kms:.3f} ms vs plain {pms:.2f} ms, K3 {k3_ms:.3f} ms (light 0)")
+            require(e_p <= 1e-6 and m_3 and e_3 <= 1e-6,
+                    f"{kernel} shadow vs plain / K3 (light {i})")
+        out["shadow"]["err"] = s_err
+        # the K1 instantiation vs plain: 256x192 (both flows), 1080p/1 spp
+        k1e = 0.0
+        for rng in ("threefry", "reference"):
+            c = cfg.replace(rng=rng, **knobs)
+            k = megakernel.sample_wave(ws, c, uv, act, camp, 0, 0, 5, 1)
+            p = megakernel.sample_wave_reference(ws, c, uv, act, camp, 0, 0, 5, 1)
+            k1e = max(k1e, k1_compare(tag, rng, k, p, 256, 192, 1, k1_name))
+        c1 = mcfg.replace(**knobs)
+        k = megakernel.sample_wave(mws, c1, muv, mact, mcam, 0, 0, 5, 1)
+        p, p1_ms_, w1 = counted(lambda w: megakernel.sample_wave_reference(
+            mws, c1, muv, mact, mcam, 0, 0, 5, 1, work=w), torch, walk)
+        k1e = max(k1e, k1_compare(tag, c1.rng, k, p, 1920, 1080, 1, k1_name))
+        k1_ms_ = cuda_ms(lambda: megakernel.sample_wave(
+            mws, c1, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
+        say(f"[{tag}] 1080p/1 spp alone: {k1_name} {k1_ms_:.3f} ms vs plain "
+            f"{p1_ms_:.2f} ms, K1 {k1_1spp_ms:.3f} ms")
+        out["k1"] = dict(ms=k1_ms_, plain_ms=p1_ms_, work=w1, err=k1e)
+        out["standalone"] = dict(ext.LAUNCHES)
+        # the golden gates
+        for w_, h_, name in ((256, 192, "demo_256x192.npz"),
+                             (800, 600, "demo_reference_800x600.npz")):
+            gcfg_, _gs, garr, gcam_ = scene_setup(w_, h_, **knobs)
+            img_, _ = render_radiance_with_stats(garr, gcam_, gcfg_)
+            img_ = img_.cpu().numpy()
+            golden = np.load(os.path.join(HERE, "tests", "golden", name))["image"]
+            golden = golden.astype(np.float32)
+            s_, mabs = ssim(img_, golden), float(np.abs(img_ - golden).mean())
+            say(f"[{tag}] gate {w_}x{h_} vs {name} with {knobs}: SSIM {s_:.4f}, "
+                f"mean abs {mabs:.3e}")
+            require(s_ >= 0.995 and mabs < 2e-3, f"{tag} golden gate {w_}x{h_}")
+        # the main path with the knob: one dispatch with its launch counts,
+        # its frame against K1's, then timed in turns with K1
+        kcfg = mcfg.replace(**knobs)
+        render_radiance_with_stats(marrays, mcam, kcfg)  # warm-up
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        (img_, rays_), _ = timed(lambda: render_radiance_with_stats(
+            marrays, mcam, kcfg), torch)
+        out["launches"] = got = dict(ext.LAUNCHES)
+        say(f"[{tag}] 1920x1080 spp 64 with {knobs}: launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        require(img_.shape == (1080, 1920, 3) and bool(torch.isfinite(img_).all()),
+                f"{tag} frame shape or values")
+        require(got[k1_name] == 1 and sum(got.values()) == 1,
+                f"{tag} main-path launches")
+        out["frame_err"] = frame_gate(tag, "1080p/64 spp frame vs K1's", img_, rays_,
+                                      kimg, krays)
+        # with octant bounce walks, once with its launch counts
+        ocfg_ = kcfg.replace(octant_bounce_walks=True)
+        ext.reset_launches()
+        oi, orr = render_radiance_with_stats(marrays, mcam, ocfg_)
+        got = {k: v for k, v in ext.LAUNCHES.items() if v}
+        say(f"[{tag}] 1080p/64 spp with {knobs} and octant bounce walks: launches {got}")
+        require(got == {k1_name + "_octant": 1}, f"{tag} octant launches")
+        frame_gate(tag, "1080p/64 spp octant frame vs K1's", oi, orr, kimg, krays)
+        out["turns"] = in_turns(tag, {k1_name: kcfg, k1_name + "_octant": ocfg_,
+                                      "K1": mcfg}, marrays, mcam)
+        # the field, whole tree (tiered="off"), 1080p/4 spp
+        fk = wcfg.replace(**knobs)
+        ext.reset_launches()
+        fi, fr_ = render_radiance_with_stats(warrays, fcam, fk)
+        out["field_launches"] = got = {k: v for k, v in ext.LAUNCHES.items() if v}
+        fwi, fwr = render_radiance_with_stats(warrays, fcam, wcfg)
+        say(f"[{tag}] field 1080p/4 spp (tiered='off') with {knobs}: launches {got}")
+        require(got == {k1_name: 1}, f"{tag} field launches")
+        frame_gate(tag, "field frame vs the whole-tree K1's", fi, fr_, fwi, fwr)
+        out["field_turns"] = in_turns(tag + " field", {k1_name: fk, "K1": wcfg},
+                                      warrays, fcam)
+        return out
+
+    # ---- 16 K5: wide nodes ----
+    k5 = knob_phase("16 K5", dict(wide_nodes=True), "K5", walk.closest_walk_bvh8,
+                    walk.wide_closest_walk_reference, walk.shadow_walk_bvh8,
+                    walk.wide_shadow_walk_reference, "sample_wave_wide")
+    # ---- 17 K6: the frustum primary walk ----
+    k6 = knob_phase("17 K6", dict(frustum_primary=True), "K6",
+                    walk.closest_walk_frustum, walk.frustum_closest_walk_reference,
+                    walk.shadow_walk_frustum, walk.frustum_shadow_walk_reference,
+                    "sample_wave_frustum")
+    # the frustum phase 1 of the split path, vs plain at 256x192 and driven
+    # once through the entry point at 1080p/4 spp against K1's frame
+    ext.reset_launches()
+    k6x = split_kernels(sws, scfg.replace(split_bounce=2, frustum_primary=True),
+                        suv, sact, scam, "17 K6")
+    k6x_standalone = dict(ext.LAUNCHES)
+    require(k6x_standalone["sample_wave_phase1_frustum"] >= 1,
+            "the frustum phase 1 was never launched")
+    ext.reset_launches()
+    xi, xr = render_radiance_with_stats(marrays, mcam, c4.replace(
+        split_bounce=2, split_rebin="octant", frustum_primary=True))
+    k6x_path = {k: v for k, v in ext.LAUNCHES.items() if v}
+    say(f"[17 K6] split path, 1080p/4 spp with the frustum primary: launches {k6x_path}")
+    require(k6x_path == {"sample_wave_phase1_frustum": 4, "continuation": 4},
+            "frustum split path launches")
+    frame_gate("17 K6", "split frame vs K1's (4 spp)", xi, xr, k1_4, k1_4rays)
+
     inside_k1 = "device function inside K1 (csrc/walk.cuh, called by csrc/sample_kernel.cu)"
     inside_k1t = ("device function inside the tiered K1 (csrc/walk.cuh, called by "
                   "csrc/sample_kernel.cu)")
@@ -919,6 +1153,44 @@ def main() -> int:
                     replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     walk_work=work, **extra)
+
+    mtab8 = nbytes(mws.inner8_table, mws.leaf8_table, mws.materials,
+                   mws.lights) + cam_b
+    walk8_b = nbytes(mws.inner8_table, mws.leaf8_table)
+    walk2_b = nbytes(mws.inner_table, mws.leaf_table)
+
+    def knob_rows(kn, out, source_cuh, names, replaces, tables_b, k1_tab, extra):
+        """The closest, shadow and K1 rows of phase 16 (K5) or 17 (K6)."""
+        closest_name, shadow_name, k1_name = names
+        inside = (f"device function inside the {k1_name} instantiation of K1 "
+                  f"(csrc/{source_cuh}, called by csrc/sample_kernel.cu)")
+        c, sh, k1 = out["closest"], out["shadow"], out["k1"]
+        return [
+            row(f"{kn} {closest_name}", "walk_kernels.cu", replaces[0],
+                out["launches"][closest_name], c["err"], c["ms"], c["plain_ms"],
+                c["work"], tables_b + R * 49, on_main_path=inside,
+                standalone_launches=out["standalone"][closest_name],
+                k2_same_rays_ms=k2_ms, exact_t_ties=c["ties"],
+                hits_k2_lacks=c["extra"], incoherent_rays_ms=c["incoherent_ms"],
+                k2_incoherent_rays_ms=c["k2_incoherent_ms"],
+                shape="demo 1080p primary rays"),
+            row(f"{kn} {shadow_name}", "walk_kernels.cu", replaces[1],
+                out["launches"][shadow_name], sh["err"], sh["ms"], sh["plain_ms"],
+                sh["work"], tables_b + R * 33, on_main_path=inside,
+                standalone_launches=out["standalone"][shadow_name],
+                k3_same_rays_ms=k3_ms, shape="demo 1080p shadow rays, point light"),
+            row(f"{kn} {k1_name}", "sample_kernel.cu", replaces[2],
+                out["launches"][k1_name], k1["err"], k1["ms"], k1["plain_ms"],
+                k1["work"], k1_tab + R * sample_b,
+                standalone_launches=out["standalone"][k1_name],
+                frame_vs_k1_max_abs=out["frame_err"],
+                shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms,
+                dispatch_1080p_64spp_median_ms=out["turns"][k1_name],
+                octant_form_dispatch_median_ms=out["turns"][k1_name + "_octant"],
+                k1_dispatch_1080p_64spp_median_ms=out["turns"]["K1"],
+                field_1080p_4spp_median_ms=out["field_turns"][k1_name],
+                field_whole_tree_k1_median_ms=out["field_turns"]["K1"], **extra),
+        ]
 
     ph1_ms, pph1_ms, ph1_work, _ = k4["ph1"]
     cont_ms, pcont_ms, cont_work, _ = k4["cont"]
@@ -990,6 +1262,22 @@ def main() -> int:
             shape="demo 1080p, 1 sample, bounces 2-4 of the compacted wave",
             live_rays=k9x["live"], compaction_ms=k9x["comp_ms"]),
     ]
+    kernels += knob_rows(
+        "K5", k5, "walk.cuh",
+        ("closest_hit_bvh8", "shadow_walk_bvh8", "sample_wave_wide"),
+        ("rayzen_tpu/ops/pallas_traverse.py:617",
+         "rayzen_tpu/ops/pallas_traverse.py:728",
+         "rayzen_tpu/ops/megakernel.py:503"), walk8_b, mtab8, {})
+    kernels += knob_rows(
+        "K6", k6, "frustum.cuh",
+        ("closest_hit_frustum", "shadow_walk_frustum", "sample_wave_frustum"),
+        ("rayzen_tpu/ops/pallas_traverse.py:1002",
+         "rayzen_tpu/ops/pallas_traverse.py:1115",
+         "rayzen_tpu/ops/megakernel.py:519"), walk2_b, mtab,
+        dict(phase1_256x192_ms=k6x["ph1"][0], phase1_256x192_plain_ms=k6x["ph1"][1],
+             phase1_256x192_err=k6x["ph1"][3],
+             phase1_standalone_launches=k6x_standalone["sample_wave_phase1_frustum"],
+             phase1_split_path_launches=k6x_path.get("sample_wave_phase1_frustum", 0)))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

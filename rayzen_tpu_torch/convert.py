@@ -4,12 +4,14 @@
 rayzen_tpu ``SceneArrays`` / ``WorldArrays`` with its leaves given as numpy
 arrays — ``{f.name: np.asarray(getattr(x, f.name)) for f in
 dataclasses.fields(x)}`` — and return the port's dataclass with tensors on
-``device``. Fields the port does not use (the BVH8 and record views) are
-dropped; the static fields (``instance_meta``, ``tree_depth``, ``leaf_k``,
-``tiered``) are carried. The treelet tables lose JAX's 128-lane padding
+``device``. Fields the port does not use (the record view) are dropped; the
+static fields (``instance_meta``, ``tree_depth``, ``leaf_k``, ``tiered``) are
+carried, and so are the wide view's ``bvh8_*`` arrays and ``inner8_table`` /
+``leaf8_table``. The treelet tables lose JAX's 128-lane padding
 (``tre_inner`` keeps its 16 columns, ``tre_leaf`` the leaf-table width), and
-the tiered walks' depth bounds, which JAX does not keep, are computed from the
-tables. Tests use this to feed the port exactly the JAX tables.
+the tiered and wide walks' depth bounds, which JAX does not keep, are
+computed from the tables. Tests use this to feed the port exactly the JAX
+tables.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .packing import InstanceMeta, SceneArrays, WorldArrays, tiered_depths
+from .packing import (
+    InstanceMeta, SceneArrays, WorldArrays, tiered_depths, wide_stack_bound,
+)
 
 
 def _tensor(x, device):
@@ -39,12 +43,15 @@ def scene_arrays_from_numpy(d: dict, device) -> SceneArrays:
             )
         elif f.name == "tree_depth":
             arrays[f.name] = int(d.get(f.name, 0))
-        elif f.name not in ("top_depth", "treelet_depth"):
+        elif f.name not in ("top_depth", "treelet_depth", "wide_depth",
+                            "wide_stack"):
             arrays[f.name] = np.array(d[f.name])
     arrays["top_depth"], arrays["treelet_depth"] = tiered_depths(
         arrays["top_child_ref"], arrays["top_child_count"],
         arrays["tre_child_ref"], arrays["tre_child_count"],
     )
+    arrays["wide_depth"], arrays["wide_stack"] = wide_stack_bound(
+        arrays["bvh8_child_ref"], arrays["bvh8_child_count"])
     return SceneArrays(**arrays).to(device)
 
 
@@ -59,9 +66,13 @@ def world_arrays_from_numpy(d: dict, device) -> WorldArrays:
         top[:, 12:14].astype(np.int32), top[:, 14:16].astype(np.int32),
         tre[..., 12:14].astype(np.int32), tre[..., 14:16].astype(np.int32),
     )
+    i8 = np.asarray(d["inner8_table"])
+    d["wide_depth"], d["wide_stack"] = wide_stack_bound(
+        i8[:, 48:56].astype(np.int32), i8[:, 56:64].astype(np.int32))
     kw = {}
     for f in dataclasses.fields(WorldArrays):
-        if f.name in ("leaf_k", "tree_depth", "top_depth", "treelet_depth"):
+        if f.name in ("leaf_k", "tree_depth", "top_depth", "treelet_depth",
+                      "wide_depth", "wide_stack"):
             kw[f.name] = int(d[f.name])
         elif f.name == "tiered":
             kw[f.name] = bool(d[f.name])

@@ -27,6 +27,8 @@ constexpr float PI_REF = 3.14159f;
 // the walks NaN-poison their result if a tree of unknown depth overflows it
 constexpr int STACK_DEPTH = 64;
 
+constexpr unsigned kFullMask = 0xffffffffu;  // every lane of a warp
+
 RZ_DEV float nan_f() { return __int_as_float(0x7fc00000); }
 
 RZ_DEV float dot3(float ax, float ay, float az, float bx, float by, float bz) {

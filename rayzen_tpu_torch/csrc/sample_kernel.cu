@@ -11,12 +11,16 @@
 // order of the JAX code and of the plain version in ops/megakernel.py.
 //
 // The walk is a template policy (walk.cuh): rz::Bvh2Walk over the whole tree
-// (K2/K3), or rz::TieredWalk over the treelet view (K8) — the kernel's
+// (K2/K3), rz::TieredWalk over the treelet view (K8) — the kernel's
 // ``tiered=True`` instantiation (megakernel.py:531-552), which the JAX
-// package runs for scenes past the single-tree budget. kOctant runs the
-// bounce walks (b >= 1) as K9 (cfg.octant_bounce_walks, megakernel.py
-// :694-698; shade.cuh). All instantiations share every line of shading, RNG
-// and bounce code (shade.cuh).
+// package runs for scenes past the single-tree budget — or rz::Bvh8Walk
+// over the wide tables (K5, cfg.wide_nodes, megakernel.py:503-510). kOctant
+// runs the bounce walks (b >= 1) as K9 (cfg.octant_bounce_walks,
+// megakernel.py:694-698; shade.cuh). kFrustum runs the primary closest hit
+// as K6, the warp-packet frustum walk (cfg.frustum_primary,
+// megakernel.py:519-525, over the BVH2 tables only), with the shadows and
+// bounces on K2/K3. All instantiations share every line of shading, RNG and
+// bounce code (shade.cuh).
 //
 // Phase 1 of the split-bounce wavefront (K4, megakernel.py:976-992) is this
 // kernel with one sample, b_stop = split_bounce and a state output: it also
@@ -33,6 +37,7 @@
 // camera are tiny tables read through the read-only cache. Divergence between
 // the rays of a warp (different bounce counts, different walks) is the known
 // cost of this simple form.
+#include "frustum.cuh"
 #include "shade.cuh"
 
 namespace {
@@ -41,7 +46,7 @@ using rz::Path;
 using rz::SampleParams;
 constexpr int kBlock = 128;
 
-template <class Walk, bool kOctant>
+template <class Walk, bool kOctant, bool kFrustum>
 __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
                               const float* __restrict__ lights,
                               const float* __restrict__ cam,
@@ -51,14 +56,16 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
                               int* __restrict__ rays_out,
                               float* __restrict__ state_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // K9's votes name the whole warp: with kOctant every lane stays to the end
-  if (!kOctant && i >= n) return;
+  // K9's votes and K6's shuffles name the whole warp: with kOctant or
+  // kFrustum every lane stays to the end
+  constexpr bool kWarp = kOctant || kFrustum;
+  if (!kWarp && i >= n) return;
   const bool on = i < n && act[i] != 0;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   int rays = 0;
   Path path{};
   rz::Sampler smp{};
-  if (on || kOctant) {
+  if (on || kWarp) {
     const float u = on ? uv[2 * i] : 0.0f, v = on ? uv[2 * i + 1] : 0.0f;
     const float W = (float)p.width, H = (float)p.height;
     float P[8], V[12];
@@ -84,6 +91,7 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
       smp.samp_f = samp_f;
       path = Path{};
       bool hit0 = false;
+      float dx = 0.0f, dy = 0.0f, dz = 0.0f;
       if (on) {
         float jx, jy;
         if (!smp.hash) {
@@ -106,15 +114,22 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
         const float ndy = (v + jy) * 2.0f - 1.0f;
         const float eye0 = ((P[0] * ndx + P[1] * ndy) - P[2]) + P[3];
         const float eye1 = ((P[4] * ndx + P[5] * ndy) - P[6]) + P[7];
-        float dx = (V[0] * eye0 + V[1] * eye1) - V[2];
-        float dy = (V[4] * eye0 + V[5] * eye1) - V[6];
-        float dz = (V[8] * eye0 + V[9] * eye1) - V[10];
+        dx = (V[0] * eye0 + V[1] * eye1) - V[2];
+        dy = (V[4] * eye0 + V[5] * eye1) - V[6];
+        dz = (V[8] * eye0 + V[9] * eye1) - V[10];
         rz::normalize3(dx, dy, dz, 0.0f);
+      }
 
-        // ---- bounce 0: primary hit, the only bounce with direct lighting
+      // ---- bounce 0: primary hit, the only bounce with direct lighting
+      rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+      const rz::Ray pr = rz::make_ray(cpx, cpy, cpz, dx, dy, dz);
+      if constexpr (kFrustum) {
+        rz::frustum_closest(w.tb, pr, on, h);  // every lane of the warp
+      } else if (on) {
+        w.closest(pr, h);
+      }
+      if (on) {
         rays += 1;
-        rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-        w.closest(rz::make_ray(cpx, cpy, cpz, dx, dy, dz), h);
         if (h.menc == 0.0f) {  // sky (glsl:706-709)
           const float sky_t = 0.5f * (dy + 1.0f);
 #pragma unroll
@@ -178,14 +193,15 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
   }
 }
 
-template <bool kOctant, class Walk>
+template <bool kOctant, bool kFrustum = false, class Walk>
 int launch_sample(Walk w, const float* mats, const float* lights,
                   const float* cam, const float* uv, const uint8_t* act, int n,
                   const SampleParams* params, float* color_out, int* rays_out,
                   float* state_out, void* stream) {
   if (n > 0) {
-    sample_kernel<Walk, kOctant><<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+    sample_kernel<Walk, kOctant, kFrustum>
+        <<<(n + kBlock - 1) / kBlock, kBlock, 0,
+           static_cast<cudaStream_t>(stream)>>>(
         w, mats, lights, cam, uv, act, n, *params, color_out, rays_out,
         state_out);
   }
@@ -194,9 +210,12 @@ int launch_sample(Walk w, const float* mats, const float* lights,
 
 }  // namespace
 
-// The entry points: K1 (whole tree or tiered, each plain or with K9 bounce
-// walks) and K4's phase 1 (whole tree, plain or K9). K1 passes
-// params->b_stop = max_bounces; phase 1 passes n_samples = 1 and the split.
+// The entry points: K1 (whole tree, tiered or wide, each plain or with K9
+// bounce walks; whole tree with the K6 primary, plain or K9) and K4's phase
+// 1 (whole tree, plain or K9, each with or without the K6 primary). K1
+// passes params->b_stop = max_bounces; phase 1 passes n_samples = 1 and the
+// split. The wide forms take the wide tables (inner8, leaf8) in the places
+// of (inner, leaf).
 #define RZ_BVH2_ARGS                                                       \
   const float *inner, const float *leaf, int leaf_w, int leaf_k,           \
       const float *mats, const float *lights, const float *cam,            \
@@ -209,6 +228,7 @@ int launch_sample(Walk w, const float* mats, const float* lights,
       const uint8_t *act, int n, const rz::SampleParams *params,           \
       float *color_out, int *rays_out
 #define RZ_BVH2_WALK rz::Bvh2Walk{{inner, leaf, leaf_w, leaf_k}}
+#define RZ_BVH8_WALK rz::Bvh8Walk{{inner, leaf, leaf_w, leaf_k}}
 #define RZ_TIERED_WALK \
   rz::TieredWalk{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}}
 #define RZ_REST mats, lights, cam, uv, act, n, params, color_out, rays_out
@@ -240,6 +260,32 @@ int rz_sample_wave_phase1(RZ_BVH2_ARGS, float* state_out, void* stream) {
 int rz_sample_wave_phase1_octant(RZ_BVH2_ARGS, float* state_out,
                                  void* stream) {
   return launch_sample<true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<false>(RZ_BVH8_WALK, RZ_REST, nullptr, stream);
+}
+
+int rz_sample_wave_wide_octant(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<true>(RZ_BVH8_WALK, RZ_REST, nullptr, stream);
+}
+
+int rz_sample_wave_frustum(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+}
+
+int rz_sample_wave_frustum_octant(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+}
+
+int rz_sample_wave_phase1_frustum(RZ_BVH2_ARGS, float* state_out,
+                                  void* stream) {
+  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+int rz_sample_wave_phase1_frustum_octant(RZ_BVH2_ARGS, float* state_out,
+                                         void* stream) {
+  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
 }
 
 }  // extern "C"

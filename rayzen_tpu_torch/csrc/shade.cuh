@@ -34,8 +34,6 @@ enum StateRow {
   kStateRows
 };
 
-constexpr unsigned kFullMask = 0xffffffffu;
-
 struct Material {
   float ar, ag, ab, metal, rough, refl, transp, ior;
 };

@@ -1,8 +1,10 @@
 // Per-thread BVH2 walks over WorldArrays.inner_table / leaf_table: the device
-// functions behind K2 (closest hit) and K3 (shadow transmission), and the
-// tiered walks of K8 over top_table / tre_inner / tre_leaf, shared by the
-// standalone kernels (walk_kernels.cu) and the sample kernel
-// (sample_kernel.cu) through the walk policies at the end of this file.
+// functions behind K2 (closest hit) and K3 (shadow transmission), the
+// tiered walks of K8 over top_table / tre_inner / tre_leaf, and the wide
+// walks of K5 over inner8_table / leaf8_table, shared by the standalone
+// kernels (walk_kernels.cu) and the sample kernel (sample_kernel.cu)
+// through the walk policies at the end of this file. (K6, the warp-packet
+// frustum walk, is in frustum.cuh.)
 //
 // Replaces rayzen_tpu/ops/pallas_traverse.py::bvh2_walk_closest (:243) and
 // ::bvh2_walk_shadow (:454), single-pop form, and ::tiered_walk_closest
@@ -264,6 +266,189 @@ RZ_DEV float walk_shadow_tiered(const TieredTables& tt, const Ray& r,
   return vis;
 }
 
+// ---- K5: the wide-node (BVH8) walks ----
+//
+// Replaces pallas_traverse.py::bvh8_walk_closest (:617), ::bvh8_walk_shadow
+// (:728) and ::_wide_consensus (:597). A wide row (72 floats, 18 float4s)
+// holds 8 child boxes, 8 refs, 8 counts, leaf_start and leaf_n; slot ch is a
+// leaf child when ch < leaf_n (leaf8 row leaf_start + ch), internal when its
+// count is -1, padding otherwise. A padding slot's inverted box passes the
+// slab test, so padding is never tested: it is neither hit nor a leaf.
+//
+// Per popped node, as the packet walk: all 8 boxes against the bound of the
+// node's start (t_best, or maxd), then the hit leaf children, then the
+// pushes. The packet walk tests all of a node's leaf rows under the union of
+// the leaf children its rays hit; this walk tests only the rows of the leaf
+// children this ray hit, in slot order (= row order), so a ray tests exactly
+// the leaves whose boxes it hits, as the BVH2 walk does, and finds its t.
+// The closest walk pushes the hit internal children sorted by the ray's own
+// entry distance with the packet walk's 19-comparator descending network
+// (there the sort key is the packet's consensus minimum), so the nearest is
+// popped first; the shadow walk pushes them in slot order and stops when
+// vis drops to min_vis after a node's leaf work. A pop pushes up to 8, so the
+// host checks the wide tree's exact need (WorldArrays.wide_stack) and the
+// walks NaN-poison a result whose stack would overflow.
+//
+// What bounds it on an H100: as the BVH2 walk, latency and divergence, with
+// a 4-level tree for the demo scene (13 BVH2 levels) but 8 slab tests and
+// 18 dependent-free 16-byte loads per node.
+
+constexpr int kInner8W = 72;  // inner8_table row width (66 used)
+
+struct Tables8 {
+  const float* inner8;  // (N8, 72)
+  const float* leaf8;   // (L8, leaf_w): leaf rows, contiguous per wide node
+  int leaf_w;
+  int leaf_k;
+
+  RZ_DEV Tables leaves() const { return Tables{nullptr, leaf8, leaf_w, leaf_k}; }
+};
+
+// One wide node against one ray: each real slot's box against ``bound``.
+// Out: tmin per slot, refs, the hit leaf children and the hit internal
+// children as slot bit masks, and the node's first leaf row.
+RZ_DEV void wide_node(const float* inner8, int node, const Ray& r, float bound,
+                      float tmin[8], int ref[8], unsigned& leaf_hits,
+                      unsigned& push, int& leaf_start) {
+  const float4* p =
+      reinterpret_cast<const float4*>(inner8 + (size_t)node * kInner8W);
+  const float4 r0 = __ldg(p + 12), r1 = __ldg(p + 13);
+  const float4 c0 = __ldg(p + 14), c1 = __ldg(p + 15);
+  const float4 ln = __ldg(p + 16);
+  const float refs[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+  const float cnt[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  leaf_start = (int)ln.x;
+  const int leaf_n = (int)ln.y;
+  leaf_hits = 0u;
+  push = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // slots 2k, 2k + 1: floats 12k .. 12k + 11
+    const float4 a = __ldg(p + 3 * k), b = __ldg(p + 3 * k + 1),
+                 c = __ldg(p + 3 * k + 2);
+    const float box[2][6] = {{a.x, a.y, a.z, a.w, b.x, b.y},
+                             {b.z, b.w, c.x, c.y, c.z, c.w}};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 2 * k + e;
+      ref[ch] = (int)refs[ch];
+      tmin[ch] = 0.0f;
+      const bool is_leaf = ch < leaf_n, internal = cnt[ch] < 0.0f;
+      if ((is_leaf || internal) && slab(r, box[e], tmin[ch]) &&
+          tmin[ch] <= bound) {
+        if (is_leaf) leaf_hits |= 1u << ch;
+        if (internal) push |= 1u << ch;
+      }
+    }
+  }
+}
+
+// compare-exchange of the push sort: the larger key first
+RZ_DEV void cswap8(float* key, int* ref, bool* on, int i, int j) {
+  if (key[i] < key[j]) {
+    const float k = key[i];
+    key[i] = key[j];
+    key[j] = k;
+    const int f = ref[i];
+    ref[i] = ref[j];
+    ref[j] = f;
+    const bool o = on[i];
+    on[i] = on[j];
+    on[j] = o;
+  }
+}
+
+// Push the slots of ``push``: ``ordered`` sorted by entry distance (the
+// nearest on top), else in slot order (the last slot on top). Returns
+// false, pushing nothing, when they do not fit the stack.
+RZ_DEV bool push_wide(int* stack, int& sp, unsigned push, const float tmin[8],
+                      const int ref[8], bool ordered) {
+  const int npush = __popc(push);
+  if (sp + npush > STACK_DEPTH) return false;  // never write past the stack
+  if (!ordered || npush < 2) {
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) {
+      if (push & (1u << ch)) stack[sp++] = ref[ch];
+    }
+    return true;
+  }
+  float key[8];
+  int rf[8];
+  bool on[8];
+#pragma unroll
+  for (int ch = 0; ch < 8; ++ch) {
+    on[ch] = (push >> ch) & 1u;
+    key[ch] = on[ch] ? tmin[ch] : -INFINITY;
+    rf[ch] = ref[ch];
+  }
+  // pallas_traverse.py:681-683 (ops/walk.py SORT8)
+  cswap8(key, rf, on, 0, 1); cswap8(key, rf, on, 2, 3);
+  cswap8(key, rf, on, 4, 5); cswap8(key, rf, on, 6, 7);
+  cswap8(key, rf, on, 0, 2); cswap8(key, rf, on, 1, 3);
+  cswap8(key, rf, on, 4, 6); cswap8(key, rf, on, 5, 7);
+  cswap8(key, rf, on, 1, 2); cswap8(key, rf, on, 5, 6);
+  cswap8(key, rf, on, 0, 4); cswap8(key, rf, on, 3, 7);
+  cswap8(key, rf, on, 1, 5); cswap8(key, rf, on, 2, 6);
+  cswap8(key, rf, on, 1, 4); cswap8(key, rf, on, 3, 6);
+  cswap8(key, rf, on, 2, 4); cswap8(key, rf, on, 3, 5);
+  cswap8(key, rf, on, 3, 4);
+#pragma unroll
+  for (int ch = 0; ch < 8; ++ch) {
+    if (on[ch]) stack[sp++] = rf[ch];
+  }
+  return true;
+}
+
+// K5 closest hit from T_FAR (h enters as the no-hit state). On stack
+// overflow t and menc become NaN.
+RZ_DEV void walk_closest_bvh8(const Tables8& tb, const Ray& r, HitRec& h) {
+  const Tables lt = tb.leaves();
+  int stack[STACK_DEPTH];
+  stack[0] = 0;  // root wide node
+  int sp = 1;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    float tmin[8];
+    int ref[8];
+    unsigned leaf_hits, push;
+    int leaf_start;
+    wide_node(tb.inner8, node, r, h.t, tmin, ref, leaf_hits, push, leaf_start);
+    for (unsigned m = leaf_hits; m; m &= m - 1) {  // slot order
+      leaf_closest(lt, leaf_start + __ffs(m) - 1, r, h);
+    }
+    if (!push_wide(stack, sp, push, tmin, ref, true)) {
+      h.t = nan_f();
+      h.menc = nan_f();
+      return;
+    }
+  }
+}
+
+// K5 transmission visibility (walk_shadow's contract). NaN on overflow.
+RZ_DEV float walk_shadow_bvh8(const Tables8& tb, const Ray& r, float maxd,
+                              float min_vis, float t_eps) {
+  float vis = 1.0f;
+  if (!(vis > min_vis)) return vis;
+  const Tables lt = tb.leaves();
+  int stack[STACK_DEPTH];
+  stack[0] = 0;
+  int sp = 1;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    float tmin[8];
+    int ref[8];
+    unsigned leaf_hits, push;
+    int leaf_start;
+    wide_node(tb.inner8, node, r, maxd, tmin, ref, leaf_hits, push,
+              leaf_start);
+    for (unsigned m = leaf_hits; m; m &= m - 1) {
+      vis = leaf_shadow(lt, leaf_start + __ffs(m) - 1, r, maxd, t_eps, vis);
+    }
+    if (!(vis > min_vis)) return vis;
+    if (!push_wide(stack, sp, push, tmin, ref, false)) return nan_f();
+  }
+  return vis;
+}
+
 // Walk policies: the tables a kernel walks and how. The standalone kernels
 // and sample_kernel are templates over them, so the tiered K1 shares every
 // line of shading, RNG and bounce code with the whole-tree K1.
@@ -284,6 +469,17 @@ struct TieredWalk {
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
     return walk_shadow_tiered(tt, r, maxd, min_vis, t_eps);
+  }
+};
+
+struct Bvh8Walk {
+  Tables8 tb;
+  RZ_DEV void closest(const Ray& r, HitRec& h) const {
+    walk_closest_bvh8(tb, r, h);
+  }
+  RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
+                      float t_eps) const {
+    return walk_shadow_bvh8(tb, r, maxd, min_vis, t_eps);
   }
 };
 

@@ -14,8 +14,9 @@ kernels are held against.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper in
 ops/walk.py and ops/megakernel.py adds one where it launches its kernel.
-K1, its K9 forms and K4's phase 1 are instantiations of one kernel
-(sample_kernel.cu) behind separate entry points, so each has its own count.
+K1, its K9, wide (K5) and frustum (K6) forms and K4's phase 1 are
+instantiations of one kernel (sample_kernel.cu) behind separate entry
+points, so each has its own count.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "librayzen_kernels.so")
 SOURCES = ("walk_kernels.cu", "sample_kernel.cu", "continuation_kernel.cu")
-HEADERS = ("common.cuh", "walk.cuh", "shade.cuh")
+HEADERS = ("common.cuh", "walk.cuh", "frustum.cuh", "shade.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
@@ -42,14 +43,20 @@ NVCC_FLAGS = (
 STACK_DEPTH = 64
 
 # kernel -> launches made by its wrapper (reset with reset_launches()); the
-# "_octant" entries are the instantiations with K9 bounce walks
+# "_octant" entries are the instantiations with K9 bounce walks, "_wide" the
+# K5 ones and "_frustum" those with the K6 primary walk
 LAUNCHES = {
     "sample_wave": 0, "sample_wave_tiered": 0,
     "sample_wave_octant": 0, "sample_wave_tiered_octant": 0,
+    "sample_wave_wide": 0, "sample_wave_wide_octant": 0,
+    "sample_wave_frustum": 0, "sample_wave_frustum_octant": 0,
     "sample_wave_phase1": 0, "sample_wave_phase1_octant": 0,
+    "sample_wave_phase1_frustum": 0, "sample_wave_phase1_frustum_octant": 0,
     "continuation": 0, "continuation_octant": 0,
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
+    "closest_hit_bvh8": 0, "shadow_walk_bvh8": 0,
+    "closest_hit_frustum": 0, "shadow_walk_frustum": 0,
 }
 
 _lib = None
@@ -152,17 +159,31 @@ def lib() -> ctypes.CDLL:
         tiered = [p, p, p, i, i, i, i, p, p, p, p, p, i, sp, p, p]
         # tables, mats, state_in, n, params, color, rays, state_out, stream
         cont = [p, p, i, i, p, p, i, sp, p, p, p, p]
+        # tables, orig, dir, act, n, t, tri, cross, menc, stream
+        closest = [p, p, i, i, p, p, p, i, p, p, p, p, p]
+        # tables, orig, dir, maxd, act, n, min_vis, t_eps, vis, stream
+        shadow = [p, p, i, i, p, p, p, p, i, f, f, p, p]
         for name, args in (
             ("rz_closest_bvh2", [p, p, i, i, p, p, p, p, i, p, p, p, p, p]),
-            ("rz_shadow_bvh2", [p, p, i, i, p, p, p, p, i, f, f, p, p]),
+            ("rz_shadow_bvh2", shadow),
+            ("rz_closest_bvh8", closest),
+            ("rz_shadow_bvh8", shadow),
+            ("rz_closest_frustum", closest),
+            ("rz_shadow_frustum", shadow),
             ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]),
             ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]),
             ("rz_sample_wave", bvh2 + [p]),
             ("rz_sample_wave_octant", bvh2 + [p]),
             ("rz_sample_wave_tiered", tiered + [p]),
             ("rz_sample_wave_tiered_octant", tiered + [p]),
+            ("rz_sample_wave_wide", bvh2 + [p]),
+            ("rz_sample_wave_wide_octant", bvh2 + [p]),
+            ("rz_sample_wave_frustum", bvh2 + [p]),
+            ("rz_sample_wave_frustum_octant", bvh2 + [p]),
             ("rz_sample_wave_phase1", bvh2 + [p, p]),
             ("rz_sample_wave_phase1_octant", bvh2 + [p, p]),
+            ("rz_sample_wave_phase1_frustum", bvh2 + [p, p]),
+            ("rz_sample_wave_phase1_frustum_octant", bvh2 + [p, p]),
             ("rz_continuation", cont),
             ("rz_continuation_octant", cont),
         ):

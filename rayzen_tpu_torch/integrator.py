@@ -13,7 +13,14 @@ megakernel.sample_wave_split per sample (phase 1, a compaction, one or,
 with ``split_every``, several continuation launches). Other configs with
 ``split_bounce`` run the fused K1, as in JAX. ``octant_bounce_walks`` runs
 the bounce walks of K1 and of the continuation as K9 (8 octant-masked
-sub-walks), over either view.
+sub-walks), over any view.
+
+Walk knobs, selected as in JAX (megakernel.py:503-525): ``wide_nodes`` runs
+K1's wide instantiation (the K5 walks for the primary hit, the shadows and
+the bounces), and is ignored with an info log on a tiered scene;
+``frustum_primary`` runs the primary closest hit of each sample as K6, the
+warp-packet frustum walk (shadows and bounces keep K2/K3), on a single-tree
+scene without wide nodes, in K1 and in the split path's phase 1.
 
 Ray counts are int64 throughout (the JAX package keeps them in int32, which
 overflows past 2^31 rays per call).
@@ -29,13 +36,12 @@ path, ROADMAP queue 1) and runs the whole-tree K1 there, which the H100
 holds in device memory at any size the pack reaches.
 
 Configuration knobs of the JAX package that this port does not implement
-(``wide_nodes``, ``frustum_primary``, ``kernels`` other than "auto",
-``walk_pop`` > 1, ``sample_fuse`` > 1, tracers other than "bvh") raise
-NotImplementedError. The packet-only knobs ``packet_tile``,
-``dense_leaves`` and ``dual_pop`` shape how a 4096-ray packet walks the
-tree; a per-thread walk has no such choice, so they are accepted and
-ignored, as are ``compact_rays`` and ``bounce_rebin``, which the JAX
-megakernel path ignores too.
+(``kernels`` other than "auto", ``walk_pop`` > 1, ``sample_fuse`` > 1,
+tracers other than "bvh") raise NotImplementedError. The packet-only knobs
+``packet_tile``, ``dense_leaves`` and ``dual_pop`` shape how a 4096-ray
+packet walks the tree; a per-thread walk has no such choice, so they are
+accepted and ignored, as are ``compact_rays`` and ``bounce_rebin``, which
+the JAX megakernel path ignores too.
 """
 
 from __future__ import annotations
@@ -54,8 +60,6 @@ def check_config(cfg: RenderConfig, tracer: str = "bvh") -> None:
     unsupported = {
         "tracer": tracer != "bvh",
         "kernels": cfg.kernels != "auto",
-        "wide_nodes": cfg.wide_nodes,
-        "frustum_primary": cfg.frustum_primary,
         "walk_pop": cfg.walk_pop > 1,
         "sample_fuse": cfg.sample_fuse > 1,
     }

@@ -7,11 +7,15 @@ Counterpart of rayzen_tpu/ops/megakernel.py: ``sample_wave`` replaces its
 For CUDA tensors it launches csrc/sample_kernel.cu, one thread per pixel:
 over the whole tree (K2/K3 walks), or, when the pack built the treelet view
 (``ws.tiered``), its tiered instantiation (K8 walks), as the JAX package
-does (:1097-1135). For CPU tensors it runs ``sample_wave_reference``, the
-plain PyTorch version built from the helpers below, each ported 1:1 from the
-JAX tile helpers (megakernel.py:56-457) with the same operation order, on
-the plain walks of the same view. The plain version is vectorised over
-rays: each bounce runs on the rays still alive.
+does (:1097-1135). The walk knobs follow JAX's rules (:503-525, :1101-1105):
+``wide_nodes`` runs the wide instantiation (K5 walks everywhere) and is
+ignored, with an info log, on a tiered scene; ``frustum_primary`` runs the
+primary closest hit as the warp-packet frustum walk (K6) and applies only
+when the walk is neither wide nor tiered. For CPU tensors it runs
+``sample_wave_reference``, the plain PyTorch version built from the helpers
+below, each ported 1:1 from the JAX tile helpers (megakernel.py:56-457) with
+the same operation order, on the plain walks of the same view. The plain
+version is vectorised over rays: each bounce runs on the rays still alive.
 
 Kept reference quirks (as in the JAX module): direct lighting on bounce 0
 only, throughput trims 0.95 / 0.98 / albedo*0.4, the scatter draw reused for
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import ext
+from .. import logging_util as log
 from ..config import RenderConfig
 from ..packing import WorldArrays
 from . import walk
@@ -305,10 +310,10 @@ def _raygen_tiles(u, v, jx, jy, cam):
 
 def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
                            nz, vx, vy, vz, ar, ag, ab, metallic, roughness,
-                           transp, mat_ior, work=None):
-    """calculateLighting (glsl:569-663) with transmission shadow walks, for
-    live rays only (``work``: the walks' walk.Work, if counted). Returns
-    radiance rgb."""
+                           transp, mat_ior, work, shadow):
+    """calculateLighting (glsl:569-663) with transmission shadow walks (the
+    plain walk ``shadow``), for live rays only (``work``: the walks'
+    walk.Work, if counted). Returns radiance rgb."""
     is_transparent = transp > 0.0
     q = (1.0 - mat_ior) / (1.0 + mat_ior)
     f0t = q * q
@@ -336,7 +341,7 @@ def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
         attenuation = torch.where(is_point, g(7) / (dist * dist), g(7))
         max_dist = torch.where(is_point, dist, torch.full_like(dist, 1e30))
 
-        vis = walk.plain_walks(ws)[1](
+        vis = shadow(
             ws,
             torch.stack([px + ldx * 0.001, py + ldy * 0.001, pz + ldz * 0.001], 1),
             torch.stack([ldx, ldy, ldz], 1), max_dist, live, min_vis, 1e-3,
@@ -431,9 +436,12 @@ class _Consts:
     sky_d: tuple  # zenith - horizon, in double then rounded (as JAX does)
     ambient: tuple
     octant: bool  # bounce walks as K9 (cfg.octant_bounce_walks)
+    wide: bool = False  # K5 walks (cfg.wide_nodes, not on the treelet view)
+    frustum: bool = False  # K6 primary walk (cfg.frustum_primary, BVH2 only)
 
 
-def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples) -> _Consts:
+def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples,
+            tiered: bool = False) -> _Consts:
     hash_rng = cfg.rng != "reference"
     if hash_rng:
         samp0 = np.float32(samp)
@@ -449,6 +457,9 @@ def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples) -> _Consts
         sky_d=tuple(_f32(z - h) for h, z in zip(cfg.sky_horizon, cfg.sky_zenith)),
         ambient=tuple(_f32(a) for a in cfg.ambient),
         octant=bool(cfg.octant_bounce_walks),
+        # the walk knobs as megakernel.py:503-525 selects them
+        wide=bool(cfg.wide_nodes) and not tiered,
+        frustum=bool(cfg.frustum_primary) and not cfg.wide_nodes and not tiered,
     )
 
 
@@ -464,12 +475,13 @@ def _hit_normal(cross, menc):
 
 
 def octant_walk_reference(ws: WorldArrays, origin, direction, active,
-                          work: walk.Work | None = None):
+                          work: walk.Work | None = None, wide: bool = False):
     """K9's plain version (megakernel._octant_masked_walk :215): the closest
-    hit as 8 sub-walks of the plain closest walk of the view, one per
-    direction octant, each over the active rays of that octant, merged
-    disjointly. Returns (t, tri, cross (R, 3), menc), the walk's own."""
-    closest = walk.plain_walks(ws)[0]
+    hit as 8 sub-walks of the plain closest walk of the view (the wide one
+    with ``wide``), one per direction octant, each over the active rays of
+    that octant, merged disjointly. Returns (t, tri, cross (R, 3), menc), the
+    walk's own."""
+    closest = walk.plain_walks(ws, wide)[0]
     d = direction
     octv = ((d[:, 0] > 0.0).int() + 2 * (d[:, 1] > 0.0).int()
             + 4 * (d[:, 2] > 0.0).int())
@@ -518,16 +530,26 @@ def _sampler(c: _Consts, u, v, h_pix, s: int):
     return jx, jy, draws, None
 
 
-def _bounce0(ws, c: _Consts, cam, u, v, jx, jy, draws, work):
+def _primary_walk(ws, c: _Consts, packet_ids):
+    """The plain primary closest walk: K6's over packets of equal
+    ``packet_ids`` (the warps of K1: pixel id // 32) under c.frustum, else
+    the view's closest walk."""
+    if c.frustum:
+        return lambda ws, o, d, a, work: walk.frustum_closest_walk_reference(
+            ws, o, d, a, packet_ids=packet_ids, work=work)
+    return walk.plain_walks(ws, c.wide)[0]
+
+
+def _bounce0(ws, c: _Consts, cam, u, v, jx, jy, draws, work, packet_ids):
     """Raygen, the primary hit (sky on a miss), direct lighting and the
-    bounce-0 scatter of rays (u, v), all active. Returns (color (n, 3), rays
-    (n,) int64, the rays that hit, their paths (o xyz, d xyz, throughput
-    rgb, ior))."""
+    bounce-0 scatter of rays (u, v), all active (``packet_ids``: their
+    frustum packets). Returns (color (n, 3), rays (n,) int64, the rays that
+    hit, their paths (o xyz, d xyz, throughput rgb, ior))."""
     n, dev = u.shape[0], u.device
     ox, oy, oz, dx, dy, dz = _raygen_tiles(u, v, jx, jy, cam)
     rays = torch.ones((n,), dtype=torch.int64, device=dev)
     act = torch.ones((n,), dtype=torch.bool, device=dev)
-    t, _tri, cross, menc = walk.plain_walks(ws)[0](
+    t, _tri, cross, menc = _primary_walk(ws, c, packet_ids)(
         ws, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1), act,
         work=work,
     )
@@ -549,6 +571,7 @@ def _bounce0(ws, c: _Consts, cam, u, v, jx, jy, draws, work):
     direct = _direct_lighting_tiles(
         ws, ws.lights, c.min_vis, c.ambient, px, py, pz, nx, ny, nz, vx, vy,
         vz, ar, ag, ab, metal, rough, transp, mat_ior, work,
+        walk.plain_walks(ws, c.wide)[1],
     )
     color[sel] = color[sel] + torch.stack(direct, 1)
 
@@ -570,7 +593,11 @@ def _bounces(ws, c: _Consts, sel, path, color, rays, draws, b_start: int,
     place): the plain form of shade.cuh trace_bounces, each bounce on the
     rays still alive. Returns the rays alive after b_stop - 1 and their
     paths."""
-    closest = octant_walk_reference if c.octant else walk.plain_walks(ws)[0]
+    if c.octant:
+        closest = lambda *a, work: octant_walk_reference(  # noqa: E731
+            *a, work=work, wide=c.wide)
+    else:
+        closest = walk.plain_walks(ws, c.wide)[0]
     ox, oy, oz, dx, dy, dz, tx, ty, tz, ior = path
     rr_on = c.rr_start < c.max_bounces - 1
     for b in range(b_start, b_stop):
@@ -621,12 +648,14 @@ def _bounces(ws, c: _Consts, sel, path, color, rays, draws, b_start: int,
     return sel, (ox, oy, oz, dx, dy, dz, tx, ty, tz, ior)
 
 
-def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int, b_stop: int, work):
+def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int, b_stop: int, work,
+                packet_ids):
     """One sample for rays with uv (u, v), all active, through bounce
     b_stop - 1. Returns (color (n, 3), rays (n,) int64, the rays alive at the
     end, their paths, the sin-hash seeds or None)."""
     jx, jy, draws, seeds = _sampler(c, u, v, h_pix, s)
-    color, rays, sel, path = _bounce0(ws, c, cam, u, v, jx, jy, draws, work)
+    color, rays, sel, path = _bounce0(ws, c, cam, u, v, jx, jy, draws, work,
+                                      packet_ids)
     sel, path = _bounces(ws, c, sel, path, color, rays, draws, 1, b_stop, work)
     return color, rays, sel, path, seeds
 
@@ -634,11 +663,13 @@ def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int, b_stop: int, work):
 def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
                           camera_params: dict, samp, rng_key, max_bounces: int,
                           n_samples: int = 1, work: walk.Work | None = None):
-    """Plain version of K1 on uv's device (with K9's plain walk for the
-    bounces under cfg.octant_bounce_walks). Returns (color sum over samples
-    (R, 3) f32, rays () int64). ``work`` counts the walks' steps."""
-    walk.check_walks(ws)
-    c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
+    """Plain version of K1 on uv's device, on the plain walks the kernel's
+    instantiation runs (K5 under cfg.wide_nodes, K6 for the primary hit
+    under cfg.frustum_primary, K9 for the bounces under
+    cfg.octant_bounce_walks). Returns (color sum over samples (R, 3) f32,
+    rays () int64). ``work`` counts the walks' steps."""
+    c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
+    walk.check_walks(ws, c.wide)
     n, dev = uv.shape[0], uv.device
     cam = _pack_camera(camera_params, dev)
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -655,7 +686,7 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
         h_pix = _hash_u32(pixel_id ^ key_h)
     for s in range(n_samples):
         col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix, s, max_bounces,
-                                        work)
+                                        work, idx // walk.PACKET)
         color[idx] = color[idx] + col_s
         rays[idx] = rays[idx] + rays_s
     return color, rays.sum()
@@ -681,16 +712,17 @@ def _check_tables(ws: WorldArrays) -> None:
 def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
                    camera_params: dict, b_stop: int, phase1: bool):
     """Launch K1 (or, with ``phase1``, K4's phase 1: K1 with a state output)
-    in the instantiation the view and c.octant ask for. Returns (color (R,
-    3), rays (R,) int32, state (13, R) or None)."""
+    in the instantiation the view and c.wide, c.frustum and c.octant ask
+    for. Returns (color (R, 3), rays (R,) int32, state (13, R) or None)."""
     dev = uv.device
     uvc = uv.to(torch.float32).contiguous()
     act = active.to(torch.uint8).contiguous()
     if uvc.dim() != 2 or uvc.shape[1] != 2 or act.shape != (uvc.shape[0],):
         raise ValueError("uv must be (R, 2) and active (R,)")
     cam = _pack_camera(camera_params, dev)
+    view = "tiered" if ws.tiered else "bvh8" if c.wide else "bvh2"
     walk.check_cuda_inputs(ws, uvc, act, cam, ws.materials, ws.lights,
-                           tiered=ws.tiered)
+                           view=view)
     _check_tables(ws)
     n = uvc.shape[0]
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -698,10 +730,11 @@ def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
     state = (torch.empty((STATE_ROWS, n), dtype=torch.float32, device=dev)
              if phase1 else None)
     name = ("sample_wave" + ("_tiered" if ws.tiered else "")
-            + ("_phase1" if phase1 else "") + ("_octant" if c.octant else ""))
+            + ("_wide" if c.wide else "") + ("_phase1" if phase1 else "")
+            + ("_frustum" if c.frustum else "") + ("_octant" if c.octant else ""))
     params = _sample_params(c, ws, 1, b_stop)
     err = getattr(ext.lib(), "rz_" + name)(
-        *walk.table_args(ws, ws.tiered), ws.materials.data_ptr(),
+        *walk.table_args(ws, view), ws.materials.data_ptr(),
         ws.lights.data_ptr(), cam.data_ptr(), uvc.data_ptr(), act.data_ptr(),
         n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
         *((state.data_ptr(),) if phase1 else ()),
@@ -718,14 +751,18 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
     """Trace ``n_samples`` full samples per pixel (uv (R, 2) in [0, 1],
     active (R,) bool). Returns (color sum over samples (R, 3) f32, rays ()
     int64). K1 on CUDA tensors (its tiered instantiation when ``ws.tiered``,
-    with K9 bounce walks under cfg.octant_bounce_walks), the plain version
-    on CPU tensors."""
+    its wide one under cfg.wide_nodes, the K6 primary walk under
+    cfg.frustum_primary, K9 bounce walks under cfg.octant_bounce_walks), the
+    plain version on CPU tensors."""
+    if ws.tiered and cfg.wide_nodes:  # megakernel.py:1101-1105
+        log.info("wide_nodes ignored: the scene packed the treelet view; "
+                 "using the tiered walks")
     if uv.device.type == "cpu":
         return sample_wave_reference(ws, cfg, uv, active, camera_params, samp,
                                      rng_key, max_bounces, n_samples)
     if not uv.is_cuda:
         raise ValueError(f"no K1 for device {uv.device}")
-    c = _consts(cfg, samp, rng_key, max_bounces, n_samples)
+    c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
     color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
                                     max_bounces, phase1=False)
     return color, rays.sum(dtype=torch.int64)
@@ -764,8 +801,9 @@ def sample_wave_phase1_reference(ws: WorldArrays, cfg: RenderConfig, uv,
                                  max_bounces: int,
                                  work: walk.Work | None = None):
     """Plain version of K4's phase 1: one sample through bounce
-    cfg.split_bounce - 1. Returns (color (R, 3), rays () int64, state (13,
-    R)). ``work`` counts the walks' steps."""
+    cfg.split_bounce - 1 (the primary hit on K6 under cfg.frustum_primary).
+    Returns (color (R, 3), rays () int64, state (13, R)). ``work`` counts
+    the walks' steps."""
     split_b = _split_point(ws, cfg, max_bounces)
     walk.check_walks(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, 1)
@@ -773,7 +811,8 @@ def sample_wave_phase1_reference(ws: WorldArrays, cfg: RenderConfig, uv,
     idx = active.nonzero()[:, 0]
     u, v = uv[idx, 0], uv[idx, 1]
     col, rays, sel, path, (s0, s1) = _one_sample(
-        ws, c, _pack_camera(camera_params, dev), u, v, None, 0, split_b, work)
+        ws, c, _pack_camera(camera_params, dev), u, v, None, 0, split_b, work,
+        idx // walk.PACKET)
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     color[idx] = color[idx] + col
     state = torch.zeros((STATE_ROWS, n), dtype=torch.float32, device=dev)
@@ -784,9 +823,10 @@ def sample_wave_phase1_reference(ws: WorldArrays, cfg: RenderConfig, uv,
 def sample_wave_phase1(ws: WorldArrays, cfg: RenderConfig, uv, active,
                        camera_params: dict, samp, rng_key, max_bounces: int):
     """K4's phase 1 (megakernel.py:976-992): one sample of K1 through bounce
-    cfg.split_bounce - 1 that also writes the 13 continuation rows. Returns
-    (color (R, 3), rays () int64, state (13, R) f32). The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    cfg.split_bounce - 1 that also writes the 13 continuation rows, with the
+    K6 primary walk under cfg.frustum_primary. Returns (color (R, 3), rays
+    () int64, state (13, R) f32). The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if uv.device.type == "cpu":
         return sample_wave_phase1_reference(ws, cfg, uv, active, camera_params,
                                             samp, rng_key, max_bounces)
@@ -849,7 +889,7 @@ def continuation(ws: WorldArrays, cfg: RenderConfig, state, samp, rng_key,
     name = "continuation" + ("_octant" if c.octant else "")
     params = _sample_params(c, ws, b_start, b_stop)
     err = getattr(ext.lib(), "rz_" + name)(
-        *walk.table_args(ws, False), ws.materials.data_ptr(), state.data_ptr(),
+        *walk.table_args(ws, "bvh2"), ws.materials.data_ptr(), state.data_ptr(),
         n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
         None if out is None else out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

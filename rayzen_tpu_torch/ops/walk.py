@@ -1,22 +1,30 @@
-"""BVH2 closest-hit (K2) and shadow-transmission (K3) walks, and their
-tiered form over the treelet view (K8).
+"""BVH2 closest-hit (K2) and shadow-transmission (K3) walks, their tiered
+form over the treelet view (K8), the wide-node walks (K5) and the
+packet-frustum walks (K6).
 
 Counterpart of rayzen_tpu/ops/pallas_traverse.py: ``closest_hit_bvh2`` /
 ``shadow_walk_bvh2`` replace ``pallas_closest_hit_bvh2`` (:1338) and
-``pallas_shadow_walk_bvh2`` (:1350); ``closest_hit_tiered`` /
+``pallas_shadow_walk_bvh2`` (:1350); ``closest_hit_frustum`` /
+``shadow_walk_frustum`` replace ``pallas_closest_hit_frustum`` (:1361) and
+``pallas_shadow_walk_frustum`` (:1370); ``closest_hit_tiered`` /
 ``shadow_walk_tiered`` launch ``tiered_walk_closest`` (:796) /
-``tiered_walk_shadow`` (:879), which the JAX package runs only inside its
-sample kernel. For CUDA tensors each wrapper launches its kernel
-(csrc/walk_kernels.cu); for CPU tensors it runs the plain PyTorch version
-below. The plain versions run on any device, so the kernels can be held
-against them on the card.
+``tiered_walk_shadow`` (:879) and ``closest_hit_bvh8`` / ``shadow_walk_bvh8``
+launch ``bvh8_walk_closest`` (:617) / ``bvh8_walk_shadow`` (:728), which the
+JAX package runs only inside its sample kernel. For CUDA tensors each
+wrapper launches its kernel (csrc/walk_kernels.cu); for CPU tensors it runs
+the plain PyTorch version below. The plain versions run on any device, so
+the kernels can be held against them on the card.
 
-Both forms walk each ray's own depth-first, left-first path through the
+The BVH2 forms walk each ray's own depth-first, left-first path through the
 tables with t pruning, exactly as csrc/walk.cuh does; see there why that
 reproduces the Pallas packet walk's hits. The plain versions carry one stack
 per ray and advance all unfinished rays one node per step; the tiered ones
 walk the flattened treelet tables with each ray's refs offset by its
-treelet's first row, so rays in different treelets share one loop.
+treelet's first row, so rays in different treelets share one loop. The wide
+walk does the same over the 8-wide nodes (csrc/walk.cuh says in which
+order). The frustum walk is a packet walk, as csrc/frustum.cuh: one stack
+per packet of ``packet`` consecutive ray ids (a warp on the card), all
+packets advancing one node per step.
 """
 
 from __future__ import annotations
@@ -37,16 +45,21 @@ STACK_DEPTH = ext.STACK_DEPTH  # the plain versions use the kernels' stack
 @dataclasses.dataclass
 class Work:
     """Instrumentation: pass one as ``work=`` to a plain walk (or a plain
-    sample) and it counts the inner (and top-tree) node visits, one per
-    popped node, and the triangle tests, one per triangle of each leaf
-    walked (min(count, K), as the kernels loop): the data-dependent work of
-    the same walks in the kernels."""
+    sample) and it counts the data-dependent work of the same walks in the
+    kernels: the BVH2 inner (and top-tree) node visits of a ray, one per
+    popped node; the wide-node visits of a ray (K5: 8 child boxes each);
+    the frustum node visits of a packet (K6: two interval box tests each,
+    done once per packet); and the triangle tests, one per triangle of each
+    leaf a ray walks (min(count, K), as the kernels loop)."""
 
     nodes: int = 0
+    nodes8: int = 0
+    packet_nodes: int = 0
     tris: int | torch.Tensor = 0  # summed on the walk's device
 
     def counts(self) -> dict:
-        return {"nodes": int(self.nodes), "tris": int(self.tris)}
+        return {"nodes": int(self.nodes), "nodes8": int(self.nodes8),
+                "packet_nodes": int(self.packet_nodes), "tris": int(self.tris)}
 
 
 @dataclasses.dataclass
@@ -92,9 +105,27 @@ def check_tiered(ws: WorldArrays) -> None:
     _check_stack("treelet", ws.treelet_depth)
 
 
-def check_walks(ws: WorldArrays) -> None:
+def check_wide(ws: WorldArrays) -> None:
+    """The wide walks (K5) push up to 8 children per pop: they need
+    ws.wide_stack slots (packing.wide_stack_bound; 0 = unknown: the walks
+    then NaN-poison a result whose stack would overflow)."""
+    if ws.inner8_table is None or ws.leaf8_table is None:
+        raise ValueError("the scene has no wide tables (inner8_table, leaf8_table)")
+    if ws.wide_stack > STACK_DEPTH:
+        raise ValueError(
+            f"the wide tree ({ws.wide_depth} levels) needs {ws.wide_stack} "
+            f"stack entries; the walks hold {STACK_DEPTH}"
+        )
+
+
+def check_walks(ws: WorldArrays, wide: bool = False) -> None:
     """The depth check of the view the kernels walk (see plain_walks)."""
-    (check_tiered if ws.tiered else check_depth)(ws)
+    if ws.tiered:
+        check_tiered(ws)
+    elif wide:
+        check_wide(ws)
+    else:
+        check_depth(ws)
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -299,14 +330,98 @@ def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
     return stop | ovf
 
 
-def _walk(w: _Walk, inner, leaf, K, r_all, rays):
-    """Whole-tree walk (K2/K3) of the ray ids ``rays``. One stack per ray;
-    all unfinished rays advance one node per step."""
+def _walk(w: _Walk, inner, leaf, K, r_all, rays, step=_step):
+    """Whole-tree walk (K2/K3, or with step=_step8 K5) of the ray ids
+    ``rays``. One stack per ray; all unfinished rays advance one node per
+    step."""
     stack, sp = _stacks(r_all.shape[0], rays, r_all.device)
     live = rays
     while live.numel():
-        stop = _step(w, inner, leaf, K, r_all, live, stack, sp)
+        stop = step(w, inner, leaf, K, r_all, live, stack, sp)
         live = live[~stop & (sp[live] > 0)]
+
+
+# the descending 19-comparator network over 8 keys that orders a wide
+# node's pushes (pallas_traverse.py:681-683; csrc/walk.cuh sort8)
+SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+         (1, 2), (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6),
+         (2, 4), (3, 5), (3, 4))
+
+
+def _wide_children(r, row, bound):
+    """The 8 child slots of wide rows ``row`` (n, 72) for rays r (n, 9):
+    (tmin, hit, leaf, internal), each (n, 8). Slot ch is a leaf child when
+    ch < leaf_n, internal when its count is -1, padding otherwise; padding
+    (whose inverted box the slab test would pass) is never hit."""
+    n = row.shape[0]
+    boxes = row[:, :48].reshape(n * 8, 6)
+    rr = r[:, None, :].expand(n, 8, r.shape[1]).reshape(n * 8, -1)
+    tmin, box = _slab(rr, boxes)
+    tmin, box = tmin.reshape(n, 8), box.reshape(n, 8)
+    slot = torch.arange(8, device=row.device)
+    leaf = slot[None, :] < row[:, 65, None]
+    internal = row[:, 56:64] < 0
+    hit = box & (tmin <= bound[:, None]) & (leaf | internal)
+    return tmin, hit, leaf, internal
+
+
+def _sort8(keys, refs, push):
+    """SORT8 on the columns of (n, 8) keys, carrying refs and push: larger
+    key first, swapping only where keys[i] < keys[j]."""
+    keys, refs, push = keys.clone(), refs.clone(), push.clone()
+    for i, j in SORT8:
+        sw = keys[:, i] < keys[:, j]
+        for a in (keys, refs, push):
+            ai, aj = a[:, i].clone(), a[:, j]
+            a[:, i] = torch.where(sw, aj, ai)
+            a[:, j] = torch.where(sw, ai, aj)
+    return refs, push
+
+
+def _make_step8(ordered: bool):
+    """One wide node for each ray of ``ids``: pop it, test its 8 child
+    boxes against the bound of the node's start, run the hit leaf children
+    in slot order (leaf8 row leaf_start + slot), then push the hit internal
+    children: ``ordered`` (closest) sorted by the ray's own entry distance
+    so that the nearest is on top, else in slot order (the last on top).
+    Returns the rays that stop (w.stop after the leaves, or an overflow)."""
+
+    def step8(w: _Walk, inner8, leaf8, K, r_all, ids, stack, sp):
+        sp_l = sp[ids] - 1
+        row = inner8[stack[ids, sp_l]]
+        r = r_all[ids]
+        tmin, hit, leaf, internal = _wide_children(r, row, w.bound(ids))
+        if w.work is not None:
+            w.work.nodes8 += ids.numel()
+        lstart = row[:, 64].long()
+        for ch in range(8):
+            m = hit[:, ch] & leaf[:, ch]
+            if m.any():
+                li = lstart[m] + ch
+                if w.work is not None:
+                    w.work.tris = w.work.tris + leaf8[li, 10 * K + 1].clamp(
+                        max=K).sum(dtype=torch.int64)
+                w.leaves(leaf8, K, li, r[m], ids[m])
+        stop = w.stop(ids)
+        push = hit & internal & ~stop[:, None]
+        refs = row[:, 48:56].long()
+        if ordered:
+            keys = torch.where(push, tmin, float("-inf"))
+            refs, push = _sort8(keys, refs, push)
+        npush = push.sum(1)
+        ovf = sp_l + npush > STACK_DEPTH
+        pos = sp_l[:, None] + push.long().cumsum(1) - 1
+        wr = push & ~ovf[:, None]
+        stack[ids[:, None].expand_as(pos)[wr], pos[wr]] = refs[wr]
+        sp[ids] = sp_l + torch.where(ovf, 0, npush)
+        if ovf.any():  # never write past the stack: poison and stop
+            w.poison(ids[ovf])
+        return stop | ovf
+
+    return step8
+
+
+_step8_closest, _step8_shadow = _make_step8(True), _make_step8(False)
 
 
 def _walk_tiered(w: _Walk, ws: WorldArrays, r_all, rays):
@@ -415,6 +530,250 @@ def shadow_walk_reference(ws: WorldArrays, origin, direction, max_dist,
     return vis
 
 
+def wide_closest_walk_reference(ws: WorldArrays, origin, direction, active,
+                               work: Work | None = None):
+    """Plain K5 closest-hit walk over the wide tables (inner8_table,
+    leaf8_table). Returns (t, tri, cross (R, 3), menc)."""
+    check_wide(ws)
+    state = _closest_state(origin.shape[0], origin.device, None)
+    _walk(_closest_ops(state, work), ws.inner8_table, ws.leaf8_table,
+          ws.leaf_k, _rays9(origin, direction), active.nonzero()[:, 0],
+          step=_step8_closest)
+    return state
+
+
+def wide_shadow_walk_reference(ws: WorldArrays, origin, direction, max_dist,
+                               active, min_visibility: float = 0.05,
+                               t_eps: float = 1e-3, work: Work | None = None):
+    """Plain K5 transmission walk. Returns vis (R,), 1 for inactive rays."""
+    check_wide(ws)
+    vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
+    _walk(_shadow_ops(vis, maxd, min_visibility, t_eps, work),
+          ws.inner8_table, ws.leaf8_table, ws.leaf_k,
+          _rays9(origin, direction), rays, step=_step8_shadow)
+    return vis
+
+
+# ---- K6: the packet-frustum walks (pallas_traverse.py:948-1190) ----------
+
+PACKET = 32  # rays per frustum packet: one warp of consecutive ray ids
+
+
+def _interval_inv(dlo, dhi):
+    """pallas_traverse._interval_inv: [1/d] for d in [dlo, dhi]; an
+    interval spanning 0 gives (-1e30, 1e30)."""
+    pos, neg = dlo > 0.0, dhi < 0.0
+    lo = torch.where(pos, 1.0 / dhi, torch.where(neg, 1.0 / dlo, -1e30))
+    hi = torch.where(pos, 1.0 / dlo, torch.where(neg, 1.0 / dhi, 1e30))
+    return lo, hi
+
+
+def _interval_mul(alo, ahi, blo, bhi):
+    """pallas_traverse._interval_mul, with fmin/fmax (NaN-ignoring, as the
+    kernel's fminf/fmaxf)."""
+    p1, p2, p3, p4 = alo * blo, alo * bhi, ahi * blo, ahi * bhi
+    return (torch.fmin(torch.fmin(p1, p2), torch.fmin(p3, p4)),
+            torch.fmax(torch.fmax(p1, p2), torch.fmax(p3, p4)))
+
+
+def _frustum_box_test(fr, b, t_bound):
+    """pallas_traverse._frustum_box_test (with _frustum_slab_axis) for
+    packets with frustums fr = (olo, ohi, ilo, ihi), each (n, 3), against
+    boxes b (n, 6): (possible (n,), entry_lo (n,))."""
+    olo, ohi, ilo, ihi = fr
+    entry = torch.full_like(b[:, 0], -3.4e38)
+    exit_ = torch.full_like(b[:, 0], 3.4e38)
+    for ax in range(3):
+        t0lo, t0hi = _interval_mul(b[:, ax] - ohi[:, ax], b[:, ax] - olo[:, ax],
+                                   ilo[:, ax], ihi[:, ax])
+        t1lo, t1hi = _interval_mul(b[:, 3 + ax] - ohi[:, ax],
+                                   b[:, 3 + ax] - olo[:, ax],
+                                   ilo[:, ax], ihi[:, ax])
+        entry = torch.fmax(entry, torch.fmin(t0lo, t1lo))
+        exit_ = torch.fmin(exit_, torch.fmax(t0hi, t1hi))
+    return (exit_ >= torch.fmax(entry, torch.zeros_like(entry))) & (entry <= t_bound), entry
+
+
+def _packets(active, packet: int, packet_ids=None):
+    """The packets of the active rays: (members (P, M) ray ids, -1 padded;
+    valid (P, M)). A packet is the active rays with one packet id: by
+    default ``ray id // packet``; ``packet_ids`` (R,) gives it per ray."""
+    ids = active.nonzero()[:, 0]
+    key = ids // packet if packet_ids is None else packet_ids[ids]
+    key, order = torch.sort(key, stable=True)
+    ids = ids[order]
+    _, counts = torch.unique_consecutive(key, return_counts=True)
+    n_p = counts.numel()
+    m = int(counts.max()) if n_p else 0
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(ids.numel(), device=ids.device) - start.repeat_interleave(counts)
+    members = torch.full((n_p, m), -1, dtype=torch.long, device=ids.device)
+    members[torch.arange(n_p, device=ids.device).repeat_interleave(counts), pos] = ids
+    return members, members >= 0
+
+
+def _packet_frustum(origin, direction, members, valid):
+    """pallas_traverse._packet_frustum over each packet's active rays:
+    (olo, ohi, ilo, ihi), each (P, 3)."""
+    big = torch.tensor(float("inf"), device=origin.device)
+    at = members.clamp(min=0)
+    o, d = origin[at], direction[at]  # (P, M, 3)
+    v = valid[..., None]
+    lo = lambda x: torch.where(v, x, big).amin(1)  # noqa: E731
+    hi = lambda x: torch.where(v, x, -big).amax(1)  # noqa: E731
+    ilo, ihi = _interval_inv(lo(d), hi(d))
+    return lo(o), hi(o), ilo, ihi
+
+
+def _packet_max(x, members, valid, fill):
+    """Per packet, the max of x (R,) over its active rays."""
+    return torch.where(valid, x[members.clamp(min=0)], fill).amax(1)
+
+
+def _frustum_walk(ws: WorldArrays, origin, direction, active, packet,
+                  packet_ids, leaves, refresh, work):
+    """The K6 packet walk over the BVH2 tables: per packet one stack, one
+    bound (``refresh`` gives its new value after leaf work, or None to
+    stop the packet), interval box tests against the packet's frustum, the
+    hit leaf children (left, then right) tested for every active ray of
+    the packet without a box test of its own (``leaves(li, rays)``), and
+    the hit internal children pushed: closest (``refresh.closest``) the
+    nearer entry on top, shadow the left on top. Returns the overflowed
+    packets' rays (poisoned by the caller)."""
+    members, valid = _packets(active, packet, packet_ids)
+    n_p, dev = members.shape[0], origin.device
+    fr = _packet_frustum(origin, direction, members, valid)
+    stack = torch.zeros((n_p, STACK_DEPTH), dtype=torch.long, device=dev)
+    sp = torch.ones((n_p,), dtype=torch.long, device=dev)
+    bound = refresh.start(members, valid)
+    live = torch.arange(n_p, device=dev)
+    ovf_rays = []
+    while live.numel():
+        sp_l = sp[live] - 1
+        row = ws.inner_table[stack[live, sp_l]]
+        f = tuple(x[live] for x in fr)
+        ok_l, tl = _frustum_box_test(f, row[:, 0:6], bound[live])
+        ok_r, tr = _frustum_box_test(f, row[:, 6:12], bound[live])
+        if work is not None:
+            work.packet_nodes += live.numel()
+        l_leaf, r_leaf = row[:, 14] >= 0.0, row[:, 15] >= 0.0
+        hl, hr = ok_l & l_leaf, ok_r & r_leaf
+        for h, ref in ((hl, row[:, 12]), (hr, row[:, 13])):
+            if h.any():
+                mem, val = members[live[h]], valid[live[h]]
+                li = ref[h].long()[:, None].expand_as(mem)[val]
+                if work is not None:
+                    work.tris = work.tris + ws.leaf_table[li, 10 * ws.leaf_k + 1].clamp(
+                        max=ws.leaf_k).sum(dtype=torch.int64)
+                leaves(li, mem[val])
+        any_leaf = hl | hr
+        stop = torch.zeros_like(any_leaf)
+        if any_leaf.any():
+            pk = live[any_leaf]
+            nb, dead = refresh(pk, members[pk], valid[pk], bound[pk])
+            bound[pk] = nb
+            stop[any_leaf] = dead
+        lref, rref = row[:, 12].long(), row[:, 13].long()
+        push_l, push_r = ok_l & ~l_leaf & ~stop, ok_r & ~r_leaf & ~stop
+        both = push_l & push_r
+        if refresh.closest:  # nearer entry on top (tl <= tr: left)
+            near_left = tl <= tr
+            top = torch.where(near_left, lref, rref)
+            below = torch.where(near_left, rref, lref)
+        else:  # left on top
+            top, below = lref, rref
+        first = torch.where(both, below, torch.where(push_l, lref, rref))
+        npush = push_l.long() + push_r.long()
+        ovf = sp_l + npush > STACK_DEPTH
+        w1 = ~ovf & (npush >= 1)
+        stack[live[w1], sp_l[w1]] = first[w1]
+        w2 = ~ovf & both
+        stack[live[w2], sp_l[w2] + 1] = top[w2]
+        sp[live] = sp_l + torch.where(ovf, 0, npush)
+        if ovf.any():  # never write past the stack: poison and stop
+            ovf_rays.append(members[live[ovf]][valid[live[ovf]]])
+        live = live[~stop & ~ovf & (sp[live] > 0)]
+    return torch.cat(ovf_rays) if ovf_rays else members[:0, 0]
+
+
+class _ClosestBound:
+    """The closest walk's packet bound: T_FAR, then after leaf work the max
+    t_best of the packet's active rays."""
+
+    closest = True
+
+    def __init__(self, t_best):
+        self.t_best = t_best
+
+    def start(self, members, valid):
+        return torch.full((members.shape[0],), T_FAR, dtype=torch.float32,
+                          device=members.device)
+
+    def __call__(self, pk, mem, val, bound):
+        return (_packet_max(self.t_best, mem, val, float("-inf")),
+                torch.zeros_like(pk, dtype=torch.bool))
+
+
+class _ShadowBound:
+    """The shadow walk's packet state: the box bound is the packet's max
+    max_dist; after leaf work the packet stops once the max visibility of
+    its active rays is at or below min_visibility."""
+
+    closest = False
+
+    def __init__(self, vis, maxd, min_visibility):
+        self.vis, self.maxd, self.min_vis = vis, maxd, min_visibility
+
+    def start(self, members, valid):
+        return _packet_max(self.maxd, members, valid, 0.0)
+
+    def __call__(self, pk, mem, val, bound):
+        return bound, ~(_packet_max(self.vis, mem, val, 0.0) > self.min_vis)
+
+
+def frustum_closest_walk_reference(ws: WorldArrays, origin, direction, active,
+                                   packet: int = PACKET, packet_ids=None,
+                                   work: Work | None = None):
+    """Plain K6 closest-hit walk: packets of ``packet`` consecutive ray ids
+    (or of equal ``packet_ids``), each walked once with interval tests
+    against its active rays' frustum and the bound max t_best. Returns (t,
+    tri, cross (R, 3), menc)."""
+    check_depth(ws)
+    state = _closest_state(origin.shape[0], origin.device, None)
+    ops = _closest_ops(state)
+    r = _rays9(origin, direction)
+    ovf = _frustum_walk(
+        ws, origin, direction, active, packet, packet_ids,
+        lambda li, rays: ops.leaves(ws.leaf_table, ws.leaf_k, li, r[rays], rays),
+        _ClosestBound(state[0]), work)
+    ops.poison(ovf)
+    return state
+
+
+def frustum_shadow_walk_reference(ws: WorldArrays, origin, direction,
+                                  max_dist, active,
+                                  min_visibility: float = 0.05,
+                                  t_eps: float = 1e-3, packet: int = PACKET,
+                                  packet_ids=None, work: Work | None = None):
+    """Plain K6 transmission walk per packet (see
+    frustum_closest_walk_reference): a packet stops once the visibility of
+    all its active rays is at or below min_visibility, so a ray that is
+    already there may keep losing visibility until then. Returns vis (R,),
+    1 for inactive rays."""
+    check_depth(ws)
+    n, dev = origin.shape[0], origin.device
+    vis = torch.ones((n,), dtype=torch.float32, device=dev)
+    maxd = _max_dist(max_dist, n, dev)
+    ops = _shadow_ops(vis, maxd, min_visibility, t_eps)
+    r = _rays9(origin, direction)
+    ovf = _frustum_walk(
+        ws, origin, direction, active, packet, packet_ids,
+        lambda li, rays: ops.leaves(ws.leaf_table, ws.leaf_k, li, r[rays], rays),
+        _ShadowBound(vis, maxd, min_visibility), work)
+    ops.poison(ovf)
+    return vis
+
+
 def _treelet_rows(ws):
     """The treelet tables flattened to (Tt * SI, 16) / (Tt * SL, W2), and the
     row strides SI, SL of one treelet."""
@@ -450,29 +809,33 @@ def tiered_shadow_walk_reference(ws: WorldArrays, origin, direction,
     return vis
 
 
-def plain_walks(ws: WorldArrays):
+def plain_walks(ws: WorldArrays, wide: bool = False):
     """(closest, shadow) plain walks of the view the kernels walk: K8's over
-    the treelet view when ``ws.tiered``, K2/K3's over the whole tree
-    otherwise."""
+    the treelet view when ``ws.tiered``, else K5's over the wide tables when
+    ``wide``, else K2/K3's over the whole tree."""
     if ws.tiered:
         return tiered_closest_walk_reference, tiered_shadow_walk_reference
+    if wide:
+        return wide_closest_walk_reference, wide_shadow_walk_reference
     return closest_walk_reference, shadow_walk_reference
 
 
 # ---- kernel launches -------------------------------------------------------
 
+# the tables a kernel walks ("view"): "bvh2" (K2/K3, and K6 over the same
+# rows), "tiered" (K8) or "bvh8" (K5)
+def _table_tensors(ws: WorldArrays, view: str):
+    return {"bvh2": (ws.inner_table, ws.leaf_table),
+            "tiered": (ws.top_table, ws.tre_inner, ws.tre_leaf),
+            "bvh8": (ws.inner8_table, ws.leaf8_table)}[view]
 
-def _table_tensors(ws: WorldArrays, tiered: bool):
-    return ((ws.top_table, ws.tre_inner, ws.tre_leaf) if tiered
-            else (ws.inner_table, ws.leaf_table))
 
-
-def check_cuda_inputs(ws: WorldArrays, *tensors, tiered: bool = False):
+def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
     """Validate what a kernel launch reads: the depth bound, one CUDA device,
     contiguous, the table layouts the kernels index (None entries are
-    skipped). ``tiered``: the launch walks the treelet view."""
-    (check_tiered if tiered else check_depth)(ws)
-    tables = _table_tensors(ws, tiered)
+    skipped). ``view``: the tables the launch walks."""
+    {"bvh2": check_depth, "tiered": check_tiered, "bvh8": check_wide}[view](ws)
+    tables = _table_tensors(ws, view)
     for t in tables + tensors:
         if t is None:
             continue
@@ -481,25 +844,26 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, tiered: bool = False):
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     *inner, leaf = tables
+    width = 72 if view == "bvh8" else 16
     for t in inner:
-        if t.dtype != torch.float32 or t.shape[-1] != 16:
-            raise ValueError("inner and top tables must have 16 float32 columns")
+        if t.dtype != torch.float32 or t.shape[-1] != width:
+            raise ValueError(f"{view} inner tables must have {width} float32 columns")
     if leaf.dtype != torch.float32 or leaf.shape[-1] < 11 * ws.leaf_k + 2:
         raise ValueError(f"leaf tables must have >= {11 * ws.leaf_k + 2} float32 columns")
-    if tiered and not (ws.top_table.dim() == 2 and ws.tre_inner.dim() == 3
-                       and ws.tre_leaf.dim() == 3
-                       and ws.tre_inner.shape[0] == ws.tre_leaf.shape[0]):
+    if view == "tiered" and not (ws.top_table.dim() == 2 and ws.tre_inner.dim() == 3
+                                 and ws.tre_leaf.dim() == 3
+                                 and ws.tre_inner.shape[0] == ws.tre_leaf.shape[0]):
         raise ValueError("tiered tables must be (Nt, 16), (Tt, SI, 16), (Tt, SL, W2)")
-    if not tiered and (inner[0].dim() != 2 or leaf.dim() != 2):
-        raise ValueError("inner_table must be (Ni, 16) and leaf_table (L, W2)")
+    if view != "tiered" and (inner[0].dim() != 2 or leaf.dim() != 2):
+        raise ValueError("inner tables must be (N, W) and leaf tables (L, W2)")
 
 
-def table_args(ws: WorldArrays, tiered: bool) -> tuple:
-    """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k),
-    or for the tiered view (top, tre_inner, tre_leaf, si, sl, leaf_w,
-    leaf_k)."""
-    ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, tiered))
-    if tiered:
+def table_args(ws: WorldArrays, view: str) -> tuple:
+    """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k)
+    for "bvh2" and "bvh8", (top, tre_inner, tre_leaf, si, sl, leaf_w,
+    leaf_k) for "tiered"."""
+    ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, view))
+    if view == "tiered":
         return ptrs + (ws.tre_inner.shape[1], ws.tre_leaf.shape[1],
                        ws.tre_leaf.shape[2], ws.leaf_k)
     return ptrs + (ws.leaf_table.shape[1], ws.leaf_k)
@@ -516,43 +880,52 @@ def _ray_operands(origin, direction, active):
     return o, d, a
 
 
-def _closest_cuda(ws, origin, direction, active, t_init, tiered):
+# walk -> (tables, closest entry point, its launch count, shadow entry
+# point, its launch count); "frustum" is K6 over the BVH2 tables
+_KERNELS = {
+    "bvh2": ("bvh2", "rz_closest_bvh2", "closest_hit_bvh2",
+             "rz_shadow_bvh2", "shadow_walk_bvh2"),
+    "tiered": ("tiered", "rz_closest_tiered", "closest_hit_tiered",
+               "rz_shadow_tiered", "shadow_walk_tiered"),
+    "bvh8": ("bvh8", "rz_closest_bvh8", "closest_hit_bvh8",
+             "rz_shadow_bvh8", "shadow_walk_bvh8"),
+    "frustum": ("bvh2", "rz_closest_frustum", "closest_hit_frustum",
+                "rz_shadow_frustum", "shadow_walk_frustum"),
+}
+
+
+def _closest_cuda(ws, origin, direction, active, t_init, kind):
+    view, entry, name, _, _ = _KERNELS[kind]
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
     ti = None if t_init is None else t_init.to(torch.float32).contiguous()
-    check_cuda_inputs(ws, o, d, a, ti, tiered=tiered)
+    check_cuda_inputs(ws, o, d, a, ti, view=view)
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     cross = torch.empty((n, 3), dtype=torch.float32, device=o.device)
     menc = torch.empty((n,), dtype=torch.float32, device=o.device)
-    L = ext.lib()
     rays = (o.data_ptr(), d.data_ptr(), a.data_ptr())
-    outs = (t.data_ptr(), tri.data_ptr(), cross.data_ptr(), menc.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-    if tiered:  # K8 takes no t_init (nor does the JAX tiered walk)
-        err = L.rz_closest_tiered(*table_args(ws, True), *rays, n, *outs)
-        name = "closest_hit_tiered"
-    else:
-        err = L.rz_closest_bvh2(*table_args(ws, False), *rays,
-                                None if ti is None else ti.data_ptr(), n, *outs)
-        name = "closest_hit_bvh2"
+    # only K2 takes a t_init (as only the JAX BVH2 walk does)
+    ti_arg = (None if ti is None else ti.data_ptr(),) if kind == "bvh2" else ()
+    err = getattr(ext.lib(), entry)(
+        *table_args(ws, view), *rays, *ti_arg, n, t.data_ptr(), tri.data_ptr(),
+        cross.data_ptr(), menc.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
     ext.check(err, name)
     ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
     return t, tri, cross, menc
 
 
 def _shadow_cuda(ws, origin, direction, max_dist, active, min_visibility,
-                 t_eps, tiered):
+                 t_eps, kind):
+    view, _, _, entry, name = _KERNELS[kind]
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
     md = _max_dist(max_dist, n, o.device).contiguous()
-    check_cuda_inputs(ws, o, d, a, md, tiered=tiered)
+    check_cuda_inputs(ws, o, d, a, md, view=view)
     vis = torch.empty((n,), dtype=torch.float32, device=o.device)
-    L = ext.lib()
-    entry, name = ((L.rz_shadow_tiered, "shadow_walk_tiered") if tiered
-                   else (L.rz_shadow_bvh2, "shadow_walk_bvh2"))
-    err = entry(
-        *table_args(ws, tiered), o.data_ptr(), d.data_ptr(), md.data_ptr(),
+    err = getattr(ext.lib(), entry)(
+        *table_args(ws, view), o.data_ptr(), d.data_ptr(), md.data_ptr(),
         a.data_ptr(), n, float(min_visibility), float(t_eps), vis.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
@@ -561,24 +934,50 @@ def _shadow_cuda(ws, origin, direction, max_dist, active, min_visibility,
     return vis
 
 
+_PLAIN_CLOSEST = {
+    "bvh2": lambda ws, o, d, a, ti: closest_walk_reference(ws, o, d, a, ti),
+    "tiered": lambda ws, o, d, a, ti: tiered_closest_walk_reference(ws, o, d, a),
+    "bvh8": lambda ws, o, d, a, ti: wide_closest_walk_reference(ws, o, d, a),
+    "frustum": lambda ws, o, d, a, ti: frustum_closest_walk_reference(ws, o, d, a),
+}
+_PLAIN_SHADOW = {
+    "bvh2": shadow_walk_reference, "tiered": tiered_shadow_walk_reference,
+    "bvh8": wide_shadow_walk_reference, "frustum": frustum_shadow_walk_reference,
+}
+_NAMES = {"bvh2": ("K2", "K3"), "tiered": ("K8", "K8"), "bvh8": ("K5", "K5"),
+          "frustum": ("K6", "K6")}
+
+
+def _closest(ws, origin, direction, active, t_init, kind):
+    if origin.is_cuda:
+        return _closest_cuda(ws, origin, direction, active, t_init, kind)
+    if origin.device.type != "cpu":
+        raise ValueError(f"no {_NAMES[kind][0]} for device {origin.device}")
+    return _PLAIN_CLOSEST[kind](ws, origin, direction, active, t_init)
+
+
 def closest_walk(ws: WorldArrays, origin, direction, active, t_init=None):
     """Raw closest-hit walk (t, tri, cross, menc): K2 on CUDA tensors, the
     plain version on CPU tensors."""
-    if origin.is_cuda:
-        return _closest_cuda(ws, origin, direction, active, t_init, False)
-    if origin.device.type != "cpu":
-        raise ValueError(f"no K2 for device {origin.device}")
-    return closest_walk_reference(ws, origin, direction, active, t_init)
+    return _closest(ws, origin, direction, active, t_init, "bvh2")
 
 
 def closest_walk_tiered(ws: WorldArrays, origin, direction, active):
     """Raw closest-hit walk over the treelet view: K8 on CUDA tensors, the
     plain version on CPU tensors."""
-    if origin.is_cuda:
-        return _closest_cuda(ws, origin, direction, active, None, True)
-    if origin.device.type != "cpu":
-        raise ValueError(f"no K8 for device {origin.device}")
-    return tiered_closest_walk_reference(ws, origin, direction, active)
+    return _closest(ws, origin, direction, active, None, "tiered")
+
+
+def closest_walk_bvh8(ws: WorldArrays, origin, direction, active):
+    """Raw closest-hit walk over the wide tables: K5 on CUDA tensors, the
+    plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, None, "bvh8")
+
+
+def closest_walk_frustum(ws: WorldArrays, origin, direction, active):
+    """Raw packet-frustum closest-hit walk (packets of 32 consecutive ray
+    ids): K6 on CUDA tensors, the plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, None, "frustum")
 
 
 def decode_hit(ws: WorldArrays, origin, direction, t, tri, cross, menc) -> Hit:
@@ -615,17 +1014,30 @@ def closest_hit_tiered(ws: WorldArrays, origin, direction, active) -> Hit:
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
+def closest_hit_bvh8(ws: WorldArrays, origin, direction, active) -> Hit:
+    """Closest hit per ray over the wide tables (K5,
+    pallas_traverse.bvh8_walk_closest); the same t as closest_hit_bvh2."""
+    t, tri, cross, menc = closest_walk_bvh8(ws, origin, direction, active)
+    return decode_hit(ws, origin, direction, t, tri, cross, menc)
+
+
+def closest_hit_frustum(ws: WorldArrays, origin, direction, active) -> Hit:
+    """Closest hit per ray by the packet-frustum walk (K6,
+    pallas_closest_hit_frustum) over packets of 32 consecutive ray ids."""
+    t, tri, cross, menc = closest_walk_frustum(ws, origin, direction, active)
+    return decode_hit(ws, origin, direction, t, tri, cross, menc)
+
+
 def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
-            tiered):
+            kind):
     if origin.is_cuda:
         vis = _shadow_cuda(ws, origin, direction, max_dist, active,
-                           min_visibility, t_eps, tiered)
+                           min_visibility, t_eps, kind)
     elif origin.device.type == "cpu":
-        plain = tiered_shadow_walk_reference if tiered else shadow_walk_reference
-        vis = plain(ws, origin, direction, max_dist, active, min_visibility,
-                    t_eps)
+        vis = _PLAIN_SHADOW[kind](ws, origin, direction, max_dist, active,
+                                  min_visibility, t_eps)
     else:
-        raise ValueError(f"no {'K8' if tiered else 'K3'} for device {origin.device}")
+        raise ValueError(f"no {_NAMES[kind][1]} for device {origin.device}")
     return vis, active.sum(dtype=torch.int64)
 
 
@@ -635,7 +1047,7 @@ def shadow_walk_bvh2(ws: WorldArrays, origin, direction, max_dist, active,
     (pallas_shadow_walk_bvh2): (vis (R,), rays () int64). Inactive rays
     report vis 1. K3 on CUDA tensors, the plain version on CPU tensors."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
-                   t_eps, False)
+                   t_eps, "bvh2")
 
 
 def shadow_walk_tiered(ws: WorldArrays, origin, direction, max_dist, active,
@@ -643,4 +1055,22 @@ def shadow_walk_tiered(ws: WorldArrays, origin, direction, max_dist, active,
     """shadow_walk_bvh2 over the treelet view (K8,
     pallas_traverse.tiered_walk_shadow)."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
-                   t_eps, True)
+                   t_eps, "tiered")
+
+
+def shadow_walk_bvh8(ws: WorldArrays, origin, direction, max_dist, active,
+                     min_visibility: float = 0.05, t_eps: float = 1e-3):
+    """shadow_walk_bvh2 over the wide tables (K5,
+    pallas_traverse.bvh8_walk_shadow)."""
+    return _shadow(ws, origin, direction, max_dist, active, min_visibility,
+                   t_eps, "bvh8")
+
+
+def shadow_walk_frustum(ws: WorldArrays, origin, direction, max_dist, active,
+                        min_visibility: float = 0.05, t_eps: float = 1e-3):
+    """Transmission visibility by the packet-frustum walk (K6,
+    pallas_shadow_walk_frustum) over packets of 32 consecutive ray ids. A
+    packet stops once all its rays are at or below min_visibility, so a
+    ray's vis is exact only where it ends above it."""
+    return _shadow(ws, origin, direction, max_dist, active, min_visibility,
+                   t_eps, "frustum")

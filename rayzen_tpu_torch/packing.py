@@ -7,14 +7,16 @@ tests/test_torch_tiered.py hold them equal); ``world_geometry`` is the
 per-frame refit written as torch tensor glue, producing the
 ``inner_table``/``leaf_table`` and ``top_table``/``tre_inner``/``tre_leaf``
 column layouts the walks read (rayzen_tpu/packing.py:937-942, :1075-1086 and
-:1092-1121, without the 128-lane padding that only Mosaic's DMA blocks need).
+:1092-1121, without the 128-lane padding that only Mosaic's DMA blocks need),
+and the wide-node view: ``_collapse_bvh8`` (copied verbatim) collapses the
+BVH2 into 8-wide nodes at pack time and ``world_geometry`` builds
+``inner8_table``/``leaf8_table`` (:1057-1090), which the K5 walks read.
 
 The tiered decision keeps the JAX rule, budget and default (36 MB) so both
 packages walk the same view under the same config; on the H100 the treelet
 view is walked by K8 (csrc/walk.cuh) inside the tiered K1.
 
-Left out until the kernels that read them are ported (ROADMAP queue 2):
-the BVH8 collapse and ``inner8_table``/``leaf8_table`` (K5) and the
+Left out until the kernel that reads them is ported (ROADMAP queue 2): the
 miss-link ``records`` (K7). The BLAS disk cache is left out too: the port
 keeps only the in-process memo, so packing reads and writes no files.
 """
@@ -78,6 +80,15 @@ class SceneArrays:
     bvh2_child_ref: np.ndarray  # (Ni, 2) i32 inner index | leaf-table index
     bvh2_child_count: np.ndarray  # (Ni, 2) i32 -1 internal; >= 0 leaf count
     bvh2_leaf_node: np.ndarray  # (L,) i32 unified node id per leaf-table row
+    # BVH8 wide-node view (_collapse_bvh8): per wide node 8 child slots, leaf
+    # children first (refs leaf_start, leaf_start + 1, ... into the permuted
+    # leaf rows), then internal ones (refs = wide node rows), then padding
+    bvh8_child_node: np.ndarray  # (N8, 8) i32 unified node id, -1 = padding
+    bvh8_child_ref: np.ndarray  # (N8, 8) i32 wide node | permuted leaf row
+    bvh8_child_count: np.ndarray  # (N8, 8) i32 -1 internal; >= 0 leaf count, 0 pad
+    bvh8_leaf_start: np.ndarray  # (N8,) i32 first permuted leaf row
+    bvh8_leaf_n: np.ndarray  # (N8,) i32 leaf children (= slots 0..leaf_n-1)
+    bvh8_leaf_perm: np.ndarray  # (L8,) i32 leaf-table row of each permuted row
     # tiered treelet view (_build_treelets), 1-row dummies when not built
     top_child_node: np.ndarray  # (Nt, 2) i32 unified node id per child
     top_child_ref: np.ndarray  # (Nt, 2) i32 top index | treelet id
@@ -95,6 +106,10 @@ class SceneArrays:
     # tiered walks' two stacks (0 = unknown)
     top_depth: int = 0
     treelet_depth: int = 0
+    # levels of the wide tree, and the stack entries its walks can need
+    # (wide_stack_bound; 0 = unknown)
+    wide_depth: int = 0
+    wide_stack: int = 0
 
     @property
     def num_instances(self) -> int:
@@ -116,9 +131,11 @@ class SceneArrays:
 
 
 # SceneArrays fields that hold arrays (all but the static layout)
+_SCENE_STATIC_FIELDS = ("instance_meta", "tree_depth", "top_depth",
+                        "treelet_depth", "wide_depth", "wide_stack")
 _SCENE_ARRAY_FIELDS = tuple(
     f.name for f in dataclasses.fields(SceneArrays)
-    if f.name not in ("instance_meta", "tree_depth", "top_depth", "treelet_depth")
+    if f.name not in _SCENE_STATIC_FIELDS
 )
 
 # Raw traversal-table bytes one tree may keep VMEM-resident before the pack
@@ -169,6 +186,32 @@ def tiered_depths(top_ref, top_count, tre_ref, tre_count) -> Tuple[int, int]:
                      np.asarray(tre_count).reshape(-1, 2),
                      roots=np.arange(tt) * si)
     return top, tre
+
+
+def wide_stack_bound(child_ref8, child_count8) -> Tuple[int, int]:
+    """(levels of the wide tree, stack entries its walks can need), host,
+    from the BVH8 child refs and counts. A pop pushes the node's hit internal
+    children (at most 8) and the walk continues with one of them, leaving
+    the others below it, so with ic(v) internal children the walk of v's
+    subtree raises the stack by S(v) = ic(v) + max(0, max_c S(c) - 1) over
+    v's internal children c; the walk needs max(1, S(root)) entries, all
+    boxes hit being the worst case. Computed bottom-up over a level-BFS
+    order from the root."""
+    ref = np.asarray(child_ref8)
+    internal = np.asarray(child_count8) < 0
+    if ref.shape[0] == 0:
+        return 0, 0
+    levels, frontier = [], np.zeros((1,), np.int64)
+    while frontier.size and len(levels) <= ref.shape[0]:
+        levels.append(frontier)
+        frontier = np.unique(ref[frontier][internal[frontier]].astype(np.int64))
+    need = np.zeros((ref.shape[0],), np.int64)
+    for nodes in reversed(levels):
+        ic = internal[nodes].sum(axis=1)
+        kids = np.where(internal[nodes], ref[nodes], 0)
+        below = np.where(internal[nodes], need[kids], 0).max(axis=1)
+        need[nodes] = np.where(ic > 0, ic + np.maximum(below - 1, 0), 0)
+    return len(levels), max(1, int(need[0]))
 
 
 _blas_cache: dict = {}
@@ -292,6 +335,8 @@ def pack_scene_host(
         uni["top_child_ref"], uni["top_child_count"],
         uni["tre_child_ref"], uni["tre_child_count"],
     )
+    wide_depth, wide_stack = wide_stack_bound(uni["bvh8_child_ref"],
+                                              uni["bvh8_child_count"])
 
     total_tris = sum(m.num_triangles for m in instance_meta)
     log.info(
@@ -317,6 +362,8 @@ def pack_scene_host(
         tree_depth=tree_depth,
         top_depth=top_depth,
         treelet_depth=treelet_depth,
+        wide_depth=wide_depth,
+        wide_stack=wide_stack,
         **uni,
     )
 
@@ -510,12 +557,18 @@ def _build_bvh2(uni_meta: np.ndarray, n_tlas: int):
 
     if not leaf_node:
         leaf_node.append(0)
-    return dict(
+    out = dict(
         bvh2_child_node=np.asarray(inner_child_node, dtype=np.int32),
         bvh2_child_ref=np.asarray(inner_child_ref, dtype=np.int32),
         bvh2_child_count=np.asarray(inner_child_count, dtype=np.int32),
         bvh2_leaf_node=np.asarray(leaf_node, dtype=np.int32),
     )
+    out.update(
+        _collapse_bvh8(
+            out["bvh2_child_node"], out["bvh2_child_ref"], out["bvh2_child_count"]
+        )
+    )
+    return out
 
 
 def _build_treelets(child_node: np.ndarray, child_ref: np.ndarray,
@@ -685,6 +738,134 @@ def _empty_treelets():
     )
 
 
+def _collapse_bvh8(child_node: np.ndarray, child_ref: np.ndarray,
+                   child_count: np.ndarray):
+    """Collapse the BVH2 child table into 8-wide nodes.
+
+    Classic BVH2 -> BVH8 collapse: each wide node starts from a binary node's
+    two children and greedily expands the internal child with the largest
+    leaf-subtree until 8 slots are filled (largest-first keeps the tree
+    balanced, minimizing depth). Children that stay internal become new wide
+    nodes. Padding slots carry node id -1 (inverted box on device — never
+    hit).
+
+    Dedicated wide-leaf layout (round-3): every BVH2 leaf is a child of
+    exactly one wide node, so the leaf table can be PERMUTED so each wide
+    node's leaf children occupy a contiguous row range [leaf_start,
+    leaf_start + leaf_n). The wide walk then processes one node's leaf hits
+    as a single dense row loop under the union of the hit leaf children's
+    masks — no per-child leaf refs, no per-child conds (the round-2 BVH8
+    loss mode). Emits bvh8_leaf_perm (original leaf row per permuted row)
+    plus per-node start/count."""
+    ni = child_node.shape[0]
+
+    # leaf counts per inner node (iterative reverse-BFS accumulation)
+    sizes = np.ones(ni, dtype=np.int64)
+    order = []
+    stack = [0]
+    seen = set()
+    while stack:
+        n = stack.pop()
+        if n in seen:
+            continue
+        seen.add(n)
+        order.append(n)
+        for c in range(2):
+            if child_count[n, c] < 0:
+                stack.append(int(child_ref[n, c]))
+    for n in reversed(order):
+        s = 0
+        for c in range(2):
+            if child_node[n, c] < 0:
+                continue
+            if child_count[n, c] < 0:
+                s += sizes[int(child_ref[n, c])]
+            else:
+                s += 1
+        sizes[n] = max(s, 1)
+
+    w_node, w_ref, w_count = [], [], []
+    leaf_start, leaf_n = [], []  # per wide node, into the permuted leaf table
+    leaf_perm = []  # permuted row -> original leaf-table row
+    index_of = {0: 0}
+    w_node.append(None)
+    w_ref.append(None)
+    w_count.append(None)
+    leaf_start.append(0)
+    leaf_n.append(0)
+    queue = [0]
+    while queue:
+        b2 = queue.pop(0)
+        slot = index_of[b2]
+        # entries: (unified_node_id, bvh2_ref_or_leaf_ref, count)
+        entries = [
+            (int(child_node[b2, c]), int(child_ref[b2, c]), int(child_count[b2, c]))
+            for c in range(2)
+            if child_node[b2, c] >= 0
+        ]
+        while len(entries) < 8:
+            internal = [e for e in entries if e[2] < 0]
+            if not internal:
+                break
+            # expand the internal entry with the largest subtree
+            pick = max(internal, key=lambda e: sizes[e[1]])
+            entries.remove(pick)
+            for c in range(2):
+                if child_node[pick[1], c] >= 0:
+                    entries.append(
+                        (int(child_node[pick[1], c]), int(child_ref[pick[1], c]),
+                         int(child_count[pick[1], c]))
+                    )
+            if len(entries) > 8:  # over-expanded: revert and stop
+                for c in range(2):
+                    if child_node[pick[1], c] >= 0:
+                        entries.pop()
+                entries.append(pick)
+                break
+        # leaf children first (contiguous rows in the permuted leaf table),
+        # then internal children
+        nodes8, refs8, counts8 = [], [], []
+        leaf_start[slot] = len(leaf_perm)
+        for node_id, ref, count in entries:
+            if count >= 0:  # leaf: claim the next permuted row
+                refs8.append(len(leaf_perm))
+                leaf_perm.append(ref)
+                nodes8.append(node_id)
+                counts8.append(count)
+        leaf_n[slot] = len(leaf_perm) - leaf_start[slot]
+        for node_id, ref, count in entries:
+            if count < 0:  # stays internal: becomes a wide node
+                if ref not in index_of:
+                    index_of[ref] = len(w_node)
+                    w_node.append(None)
+                    w_ref.append(None)
+                    w_count.append(None)
+                    leaf_start.append(0)
+                    leaf_n.append(0)
+                    queue.append(ref)
+                refs8.append(index_of[ref])
+                nodes8.append(node_id)
+                counts8.append(count)
+        while len(nodes8) < 8:  # padding
+            nodes8.append(-1)
+            refs8.append(0)
+            counts8.append(0)
+        w_node[slot] = nodes8
+        w_ref[slot] = refs8
+        w_count[slot] = counts8
+
+    if not leaf_perm:  # degenerate single-leaf tree: keep shapes nonempty
+        leaf_perm = [0]
+    return dict(
+        bvh8_child_node=np.asarray(w_node, dtype=np.int32),
+        bvh8_child_ref=np.asarray(w_ref, dtype=np.int32),
+        bvh8_child_count=np.asarray(w_count, dtype=np.int32),
+        bvh8_leaf_start=np.asarray(leaf_start, dtype=np.int32),
+        bvh8_leaf_n=np.asarray(leaf_n, dtype=np.int32),
+        bvh8_leaf_perm=np.asarray(leaf_perm, dtype=np.int32),
+    )
+
+
 @dataclasses.dataclass
 class WorldArrays:
     """Per-frame world-space scene: what the walks and shading read.
@@ -693,6 +874,12 @@ class WorldArrays:
     leaf_table row: [K tris x (v0 e1 e2) | K transparencies | first | count |
     K sign-encoded materials | pad to a multiple of 8]; refs and counts are
     float-encoded integers (exact below 2^24).
+
+    Wide view: ``inner8_table`` row: [8 x (bmin(3) bmax(3)) | 8 refs | 8
+    counts | leaf_start | leaf_n | pad to 72], padding slots with an
+    inverted box and count 0; a node's leaf children are its slots
+    0..leaf_n-1 and the ``leaf8_table`` rows leaf_start + slot, which are
+    leaf_table rows permuted so that they are contiguous per wide node.
 
     Tiered view: ``top_table`` rows have the inner_table layout with child
     count -2 for a treelet (ref = treelet id); treelet ``t`` is the inner rows
@@ -718,6 +905,10 @@ class WorldArrays:
     tiered: bool = False
     top_depth: int = 0  # top-tree inner depth (0 = unknown)
     treelet_depth: int = 0  # deepest treelet's inner depth (0 = unknown)
+    inner8_table: Optional[torch.Tensor] = None  # (N8, 72) f32
+    leaf8_table: Optional[torch.Tensor] = None  # (L8, W2) f32
+    wide_depth: int = 0  # levels of the wide tree (0 = unknown)
+    wide_stack: int = 0  # stack entries the wide walks can need (0 = unknown)
 
     @property
     def num_lights(self) -> int:
@@ -827,6 +1018,19 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         dim=1,
     )  # (Ni, 16)
 
+    # BVH8 wide-node table, padded from 66 to 72 columns (16-byte rows)
+    cn8 = arrays.bvh8_child_node.long()  # (N8, 8)
+    cb8 = torch.where((cn8 >= 0)[..., None], node_bounds[cn8.clamp(min=0)],
+                      inverted)  # (N8, 8, 6)
+    inner8_table = torch.cat(
+        [cb8.reshape(cn8.shape[0], 48), arrays.bvh8_child_ref.float(),
+         arrays.bvh8_child_count.float(),
+         arrays.bvh8_leaf_start.float()[:, None],
+         arrays.bvh8_leaf_n.float()[:, None]],
+        dim=1,
+    )  # (N8, 66)
+    inner8_table = torch.nn.functional.pad(inner8_table, (0, 6))
+
     leaf_nodes = arrays.bvh2_leaf_node.long()  # (L,)
     uni_meta = arrays.uni_meta
     leaf_table = torch.cat(
@@ -842,6 +1046,8 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
     pad = (-leaf_table.shape[1]) % 8
     if pad:
         leaf_table = torch.nn.functional.pad(leaf_table, (0, pad))
+    # the wide walks' leaf rows: the same rows, contiguous per wide node
+    leaf8_table = leaf_table[arrays.bvh8_leaf_perm.long()]
 
     # tiered tables: the top tree in inner_table layout, and per treelet its
     # inner rows and a gather of its leaf rows; presence is a shape property
@@ -874,6 +1080,8 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         tri_nsign=tri_nsign,
         inner_table=inner_table.contiguous(),
         leaf_table=leaf_table.contiguous(),
+        inner8_table=inner8_table.contiguous(),
+        leaf8_table=leaf8_table.contiguous(),
         materials=arrays.materials,
         lights=arrays.lights,
         leaf_k=int(leaf_k),
@@ -884,4 +1092,6 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         tiered=tiered,
         top_depth=int(arrays.top_depth),
         treelet_depth=int(arrays.treelet_depth),
+        wide_depth=int(arrays.wide_depth),
+        wide_stack=int(arrays.wide_stack),
     )

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1-K3, K8, the tiered K1, K4's phase 1 and
-continuation, and the K9 instantiations) against their plain PyTorch
-versions on the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
+"""The port's CUDA kernels (K1-K3, K5, K6, K8, the tiered, wide and frustum
+K1, K4's phase 1 and continuation, and the K9 instantiations) against their
+plain PyTorch versions on the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
 run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -189,3 +189,118 @@ def test_octant_k1_matches_plain_and_k1(setup, tiered):
     assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
     torch.testing.assert_close(kc, fc, rtol=0, atol=0)  # the same hits as K1
     assert int(kr) == int(fr)
+
+
+def _light_rays(hit, o):
+    ldir = torch.tensor([0.3, 0.9, 0.1], device=o.device)
+    ldir = (ldir / ldir.norm()).expand_as(o).contiguous()
+    return hit.point + ldir * 1e-3, ldir
+
+
+def test_k5_matches_plain_and_k2(setup):
+    ws, o, d = setup["ws"], setup["o"], setup["d"]
+    act = torch.rand(o.shape[0], device=o.device) < 0.9
+    before = ext.LAUNCHES["closest_hit_bvh8"]
+    k = walk.closest_walk_bvh8(ws, o, d, act)
+    assert ext.LAUNCHES["closest_hit_bvh8"] == before + 1
+    p = walk.wide_closest_walk_reference(ws, o, d, act)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    k2 = walk.closest_walk(ws, o, d, act)
+    hit = k2[1] >= 0
+    assert hit.any() and torch.equal(k[0][hit], k2[0][hit])
+    assert ((k[1] != k2[1]) & (k[0] != k2[0])).sum() == 0  # ties only
+    kh = walk.decode_hit(ws, o, d, *k2)
+    so, ldir = _light_rays(kh, o)
+    kv, kr = walk.shadow_walk_bvh8(ws, so, ldir, 50.0, kh.found)
+    pv = walk.wide_shadow_walk_reference(ws, so, ldir, 50.0, kh.found)
+    v3, _ = walk.shadow_walk_bvh2(ws, so, ldir, 50.0, kh.found)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=1e-6)
+    torch.testing.assert_close(kv, v3, rtol=0, atol=1e-6)
+    assert int(kr) == int(kh.found.sum()) and (kv < 1).any()
+
+
+def test_k6_matches_plain_and_k2(setup):
+    ws, o, d = setup["ws"], setup["o"], setup["d"]
+    act = torch.rand(o.shape[0], device=o.device) < 0.9
+    before = dict(ext.LAUNCHES)
+    k = walk.closest_walk_frustum(ws, o, d, act)
+    p = walk.frustum_closest_walk_reference(ws, o, d, act)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    k2 = walk.closest_walk(ws, o, d, act)
+    hit = k2[1] >= 0
+    assert hit.any() and torch.equal(k[0][hit], k2[0][hit])
+    kh = walk.decode_hit(ws, o, d, *k2)
+    so, ldir = _light_rays(kh, o)
+    kv, kr = walk.shadow_walk_frustum(ws, so, ldir, 50.0, kh.found)
+    pv = walk.frustum_shadow_walk_reference(ws, so, ldir, 50.0, kh.found)
+    v3, _ = walk.shadow_walk_bvh2(ws, so, ldir, 50.0, kh.found)
+    lit = pv > 0.05
+    assert torch.equal(kv > 0.05, lit) and torch.equal(v3 > 0.05, lit)
+    torch.testing.assert_close(kv[lit], pv[lit], rtol=0, atol=1e-6)
+    torch.testing.assert_close(kv[lit], v3[lit], rtol=0, atol=1e-6)
+    assert int(kr) == int(kh.found.sum()) and (kv < 1).any()
+    for name in ("closest_hit_frustum", "shadow_walk_frustum"):
+        assert ext.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(wide_nodes=True), dict(wide_nodes=True, octant_bounce_walks=True),
+    dict(frustum_primary=True),
+    dict(frustum_primary=True, octant_bounce_walks=True),
+], ids=["wide", "wide_octant", "frustum", "frustum_octant"])
+@pytest.mark.parametrize("rng", ["threefry", "reference"])
+def test_wide_and_frustum_k1_match_plain_and_k1(setup, knobs, rng):
+    """At 64x48 (wide) and with an inactive pixel in every warp: the K1
+    instantiation renders its plain version's and K1's image."""
+    dev, ws, cam = setup["dev"], setup["ws"], setup["cam"]
+    cfg = setup["cfg"].replace(width=64, height=48, rng=rng)
+    _, uv = pixel_grid(64, 48, dev)
+    act = torch.arange(uv.shape[0], device=dev) % 29 != 3
+    name = ("sample_wave" + ("_wide" if knobs.get("wide_nodes") else "")
+            + ("_frustum" if knobs.get("frustum_primary") else "")
+            + ("_octant" if knobs.get("octant_bounce_walks") else ""))
+    before = ext.LAUNCHES[name]
+    kc, kr = megakernel.sample_wave(ws, cfg.replace(**knobs), uv, act, cam, 0, 0, 5, 2)
+    assert ext.LAUNCHES[name] == before + 1
+    pc, pr = megakernel.sample_wave_reference(ws, cfg.replace(**knobs), uv, act,
+                                              cam, 0, 0, 5, 2)
+    fc, fr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+    assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
+    torch.testing.assert_close(kc, fc, rtol=0, atol=0)  # the same hits as K1
+    assert int(kr) == int(fr)
+
+
+@pytest.mark.parametrize("octant", [False, True])
+def test_frustum_phase1_matches_plain(setup, octant):
+    knobs = dict(split_bounce=2, frustum_primary=True, octant_bounce_walks=octant)
+    name = "sample_wave_phase1_frustum" + ("_octant" if octant else "")
+    before = ext.LAUNCHES[name]
+    (kc, kr), (pc, pr), (fc, fr) = _split_pair(setup, **knobs)
+    assert ext.LAUNCHES[name] == before + 1
+    assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
+    assert (kc - fc).abs().max().item() <= 1e-6 and int(kr) == int(fr)
+
+
+def test_wide_kernel_overflow_poisons_nan(setup):
+    """A wide ladder deeper than the stack (each node pushes 8 children, one
+    of them the next rung): the K5 walks stop and poison."""
+    dev, ws = setup["dev"], setup["ws"]
+    n = 40
+    inner8 = np.zeros((n, 72), np.float32)
+    box = np.array([-1e9, -1e9, -1e9, 1e9, 1e9, 1e9], np.float32)
+    inner8[:, :48] = np.tile(box, 8)
+    inner8[:, 48:56] = np.minimum(np.arange(n)[:, None] + 1, n - 1)
+    inner8[:, 56:64] = -1  # all internal
+    inner8[n - 1, 56:64] = 0  # the last rung: padding only
+    ladder = type(ws)(**{**ws.__dict__, "wide_stack": 0,
+                         "inner8_table": torch.from_numpy(inner8).to(dev)})
+    o = torch.zeros(64, 3, device=dev)
+    d = torch.zeros(64, 3, device=dev)
+    d[:, 2] = 1.0
+    act = torch.ones(64, dtype=torch.bool, device=dev)
+    t, _tri, _cross, menc = walk.closest_walk_bvh8(ladder, o, d, act)
+    assert torch.isnan(t).all() and torch.isnan(menc).all()
+    vis, _ = walk.shadow_walk_bvh8(ladder, o, d, 50.0, act)
+    assert torch.isnan(vis).all()

@@ -133,12 +133,14 @@ def test_convert_round_trip(tmp_path):
     wa = convert.world_arrays_from_numpy(wd, "cpu")
     back = convert.to_numpy(wa)
     # the treelet tables come across without JAX's 128-lane padding, and the
-    # tiered walks' depth bounds, which JAX does not keep, are computed
+    # tiered and wide walks' depth bounds, which JAX does not keep, are computed
     w2 = wd["leaf_table"].shape[1]
     expect = {**wd, "tre_inner": wd["tre_inner"][..., :16],
               "tre_leaf": wd["tre_leaf"][..., :w2], "top_depth": wa.top_depth,
-              "treelet_depth": wa.treelet_depth}
+              "treelet_depth": wa.treelet_depth, "wide_depth": wa.wide_depth,
+              "wide_stack": wa.wide_stack}
     assert not wa.tiered and wa.top_depth == 1
+    assert (wa.wide_depth, wa.wide_stack) == (sa.wide_depth, sa.wide_stack)
     for f in dataclasses.fields(tpack.WorldArrays):
         np.testing.assert_array_equal(back[f.name], expect[f.name], err_msg=f.name)
     # the converted JAX tables equal the port's own refit of the same scene

@@ -71,8 +71,7 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(wide_nodes=True), dict(frustum_primary=True), dict(walk_pop=2),
-    dict(sample_fuse=2), dict(kernels="xla"),
+    dict(walk_pop=2), dict(sample_fuse=2), dict(kernels="xla"),
 ])
 def test_unimplemented_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
@@ -83,8 +82,9 @@ def test_unimplemented_knobs_raise(knob):
     dict(split_bounce=2), dict(octant_bounce_walks=True),
     dict(split_bounce=2, split_rebin="octcell", split_every=True,
          octant_bounce_walks=True),
+    dict(wide_nodes=True), dict(frustum_primary=True),
 ])
-def test_check_config_accepts_split_and_octant(knob):
+def test_check_config_accepts_split_octant_wide_and_frustum(knob):
     check_config(RenderConfig(**knob))
 
 

@@ -161,7 +161,8 @@ def test_work_counts_the_steps_and_changes_no_hit(setup):
     assert 0 < n["tris"] <= 2 * tws.leaf_k * n["nodes"]
     idle = walk.Work()
     walk.shadow_walk_reference(tws, _t(o), _t(d), 50.0, ~act, work=idle)
-    assert idle.counts() == {"nodes": 0, "tris": 0}
+    assert idle.counts() == {"nodes": 0, "nodes8": 0, "packet_nodes": 0,
+                             "tris": 0}
 
 
 def test_100_rays_padding(setup):
