@@ -5,8 +5,9 @@ scene), the large-scene path (a 1920x1080, 4 spp, 5-bounce frame of the
 503k-triangle field of scripts/bench_large.py, walked through the treelet
 view by the tiered K1), the split-bounce wavefront (K4) and the
 octant-masked bounce walks (K9) on the demo frame, the wide-node walks (K5,
-wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and time
-them.
+wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and the per-wave path
+(the portable torch walks and the staged kernels= variants, with the
+miss-link walks K7 for "pallas-ml"), and time them.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out-dir DIR]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
@@ -70,6 +71,18 @@ Phases (each prints its own lines and stops the run when it fails):
  17 K6            frustum_primary: the same set for K6 and the frustum K1,
                   plus the frustum phase 1 (split_bounce 2) vs plain at
                   256x192 and the frustum + octant K1 once
+ 18 per-wave      K7 closest/shadow vs plain at 256x192 (bit-equal t and
+                  vis) and at the 1080p primary and point-light rays, vs
+                  K2/K3 at the 1080p primary, shadow and incoherent rays
+                  (other triangles counted), timed in turns with them; K1
+                  with sample_fuse=2 vs plain (256x192, 4 spp); the golden
+                  gates for kernels="xla" and "pallas-ml"; "pallas-ml",
+                  "pallas-bvh2", "pallas-nomega" and "xla" vs K1's frame at
+                  256x192; the 1080p/64 spp frame with kernels="pallas-ml"
+                  (3 timed dispatches after a warm-up, launch counts: K7
+                  only, vs K1's frame, one profiled dispatch); "pallas-bvh2"
+                  and "pallas-nomega" at 1080p/4 spp and "xla" at 1080p/1
+                  spp once each, timed, with launch counts
 """
 
 from __future__ import annotations
@@ -107,6 +120,9 @@ OPS_PER_TRI = 54
 # = 87, so 174 (the frustum set-up and the t_max reductions are left out).
 OPS_PER_NODE8 = 200
 OPS_PER_PACKET_NODE = 174
+# A miss-link node visit (K7, walk.cuh walk_closest_misslink): one slab test
+# and its pruning compare, 25.
+OPS_PER_ML_NODE = 25
 
 
 class PhaseFailed(Exception):
@@ -258,7 +274,8 @@ def bound(work, nbytes):
     and whose walks do ``work`` (walk.Work's node visits and triangle
     tests), at the published H100 peaks."""
     ops = (OPS_PER_NODE * work["nodes"] + OPS_PER_NODE8 * work["nodes8"]
-           + OPS_PER_PACKET_NODE * work["packet_nodes"] + OPS_PER_TRI * work["tris"])
+           + OPS_PER_PACKET_NODE * work["packet_nodes"]
+           + OPS_PER_ML_NODE * work["ml_nodes"] + OPS_PER_TRI * work["tris"])
     t_ops, t_bytes = ops / FP32_OPS_S, nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -270,10 +287,10 @@ def nbytes(*xs):
 
 
 def profile_dispatch(fn, torch, trace_path):
-    """Wall time, summed device kernel time and the top kernels of one call
-    of fn() under torch.profiler (trace written to trace_path, if given).
-    The "aten::" rows carry their kernels' device time as well, so only the
-    kernel rows are summed."""
+    """Wall time, summed device kernel time and the kernels (ms, name,
+    count), largest first, of one call of fn() under torch.profiler (trace
+    written to trace_path, if given). The "aten::" rows carry their kernels'
+    device time as well, so only the kernel rows are summed."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -292,7 +309,7 @@ def profile_dispatch(fn, torch, trace_path):
         if us > 0 and not e.key.startswith("aten::"):
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), rows[:5]
+    return wall, sum(r[0] for r in rows), rows
 
 
 def main() -> int:
@@ -535,7 +552,7 @@ def main() -> int:
         out_dir and os.path.join(out_dir, "main_path_trace.json"))
     say(f"[7 kernels] one 1080p/64 spp dispatch under torch.profiler: wall "
         f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall * 100:.1f}%); top: "
-        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
+        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top[:5]))
 
     # ---- 8 launches ----
     # On the main path K2/K3 run as device functions inside K1, so only K1 is
@@ -683,7 +700,7 @@ def main() -> int:
     say(f"[12 field path] refit {frefit_ms:.3f} ms; one dispatch under "
         f"torch.profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({busy / wall * 100:.1f}%); top: "
-        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
+        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top[:5]))
     # the whole-tree K1 on the same scene (tiered="off"), in turns with the
     # tiered path: the evidence for the tiered="auto" rule on this card
     wcfg = fcfg.replace(tiered="off")
@@ -1130,6 +1147,196 @@ def main() -> int:
             "frustum split path launches")
     frame_gate("17 K6", "split frame vs K1's (4 spp)", xi, xr, k1_4, k1_4rays)
 
+    # ---- 18 the per-wave path: K7 and the staged kernels= variants ----
+    # K7 vs plain at the demo's 256x192 primary rays and shadow rays
+    ext.reset_launches()
+    s7cfg, _s7, s7arrays, s7cam = scene_setup(256, 192)
+    s7ws = world_geometry(s7arrays)
+    s7o, s7d = primary_rays(256, 192, s7cam)
+    s7act = torch.ones(s7o.shape[0], dtype=torch.bool, device=dev)
+    _, s7uv = pixel_grid(256, 192, dev)
+    k7 = walk.closest_walk_misslink(s7ws, s7o, s7d, s7act)
+    p7 = walk.misslink_closest_walk_reference(s7ws, s7o, s7d, s7act)
+    k7_exact = all(torch.equal(a, b) for a, b in zip(k7, p7))
+    say(f"[18 K7] K7 closest vs plain, 256x192 primary: same tri "
+        f"{bool(torch.equal(k7[1], p7[1]))}, t bit-equal {bool(torch.equal(k7[0], p7[0]))}, "
+        f"all outputs bit-equal {k7_exact}, hits {int((k7[1] >= 0).sum())}")
+    require(torch.equal(k7[1], p7[1]) and torch.equal(k7[0], p7[0]),
+            "K7 closest vs plain (256x192)")
+    k7s_exact = True
+    s7hit = walk.decode_hit(s7ws, s7o, s7d, *k7)
+    for i, (so, sd, sm, sa) in enumerate(shadow_rays(s7ws, s7hit)):
+        kv, kr = walk.shadow_walk_misslink(s7ws, so, sd, sm, sa)
+        pv = walk.misslink_shadow_walk_reference(s7ws, so, sd, sm, sa)
+        k7s_exact &= bool(torch.equal(kv, pv))
+        say(f"[18 K7] K7 shadow vs plain, 256x192 light {i}: vis exact "
+            f"{bool(torch.equal(kv, pv))}, {int(kr)} rays, {int((kv < 1).sum())} shadowed")
+        require(torch.equal(kv, pv), f"K7 shadow vs plain (256x192, light {i})")
+
+    # K7 at the main path's 1080p primary, shadow and incoherent rays: vs
+    # K2/K3, timed in turns with them; the plain walk counts K7's work
+    def vs_k2(a, b):
+        """(rays with another triangle, of which exact-t ties, t bit-equal
+        where the triangle is the same)."""
+        other = a[1] != b[1]
+        same = ~other
+        return (int(other.sum()), int((other & (a[0] == b[0])).sum()),
+                bool(torch.equal(a[0][same], b[0][same])))
+
+    k7c = walk.closest_walk_misslink(mws, mo, md_, mact)
+    (p7c, p7c_ms, k7_work) = counted(
+        lambda w: walk.misslink_closest_walk_reference(mws, mo, md_, mact, work=w),
+        torch, walk)
+    require(torch.equal(k7c[1], p7c[1]) and torch.equal(k7c[0], p7c[0]),
+            "K7 closest vs plain (1080p)")
+    k2c = walk.closest_walk(mws, mo, md_, mact)
+    n_other, n_ties, t_eq = vs_k2(k7c, k2c)
+    t7 = [cuda_ms(lambda: fn(mws, mo, md_, mact), 10, torch)
+          for fn in (walk.closest_walk, walk.closest_walk_misslink,
+                     walk.closest_walk_misslink, walk.closest_walk)]
+    k7_ms, k2_turn_ms = (t7[1] + t7[2]) / 2, (t7[0] + t7[3]) / 2
+    say(f"[18 K7] 1080p primary ({mo.shape[0]} rays) on {kind} ({smi}): K7 "
+        f"{k7_ms:.3f} ms, K2 {k2_turn_ms:.3f} ms (in turns: "
+        f"{', '.join(f'{t:.3f}' for t in t7)}); plain K7 {p7c_ms:.2f} ms; vs K2: "
+        f"another triangle on {n_other} rays ({n_ties} exact-t ties), t bit-equal "
+        f"where the triangle is the same {t_eq}; work {k7_work}")
+    require(t_eq and n_other <= 1e-4 * mo.shape[0], "K7 vs K2 at 1080p primary")
+    k7s_ms = p7s_ms = None
+    for i, (so, sd, sm, sa) in enumerate(shadow_rays(mws, mhit)):
+        kv, _ = walk.shadow_walk_misslink(mws, so, sd, sm, sa)
+        v3, _ = walk.shadow_walk_bvh2(mws, so, sd, sm, sa)
+        ts = [cuda_ms(lambda: fn(mws, so, sd, sm, sa), 10, torch)
+              for fn in (walk.shadow_walk_bvh2, walk.shadow_walk_misslink,
+                         walk.shadow_walk_misslink, walk.shadow_walk_bvh2)]
+        n_vis = int((kv != v3).sum())
+        if i == 0:  # the point light: its plain walk counts the work
+            pv, p7s_ms, k7s_work = counted(
+                lambda w: walk.misslink_shadow_walk_reference(mws, so, sd, sm, sa,
+                                                              work=w), torch, walk)
+            require(torch.equal(kv, pv), "K7 shadow vs plain (1080p point light)")
+            k7s_ms, k3_turn_ms = (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+        say(f"[18 K7] 1080p light {i}: K7 shadow {(ts[1] + ts[2]) / 2:.3f} ms, K3 "
+            f"{(ts[0] + ts[3]) / 2:.3f} ms (in turns: {', '.join(f'{t:.3f}' for t in ts)}); "
+            f"vis differs from K3 on {n_vis} rays (max abs {(kv - v3).abs().max().item():.3e})")
+        require(n_vis <= 1e-4 * so.shape[0], f"K7 shadow vs K3 (light {i})")
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    rd = torch.randn(mo.shape, generator=g7, device=dev)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    ro = mhit.point + rd * 1e-3
+    i7, i2 = (fn(mws, ro, rd, mhit.found)
+              for fn in (walk.closest_walk_misslink, walk.closest_walk))
+    in_other, in_ties, in_teq = vs_k2(i7, i2)
+    ti = [cuda_ms(lambda: fn(mws, ro, rd, mhit.found), 10, torch)
+          for fn in (walk.closest_walk, walk.closest_walk_misslink,
+                     walk.closest_walk_misslink, walk.closest_walk)]
+    k7_inc_ms, k2_inc_ms = (ti[1] + ti[2]) / 2, (ti[0] + ti[3]) / 2
+    say(f"[18 K7] incoherent rays ({int(mhit.found.sum())} from the primary hits, "
+        f"random directions): K7 {k7_inc_ms:.3f} ms, K2 {k2_inc_ms:.3f} ms (in turns: "
+        f"{', '.join(f'{t:.3f}' for t in ti)}); another triangle on {in_other} rays "
+        f"({in_ties} exact-t ties), t bit-equal where the same {in_teq}")
+    require(in_teq and in_other <= 1e-4 * mo.shape[0], "K7 vs K2 on incoherent rays")
+    k7_standalone = dict(ext.LAUNCHES)
+    require(k7_standalone["closest_hit_misslink"] >= 1
+            and k7_standalone["shadow_walk_misslink"] >= 1, "K7 was never launched")
+
+    # K1 with sample fusion (sample_fuse=2) vs plain, 256x192, 4 spp
+    fz = s7cfg.replace(rng="threefry", sample_fuse=2)
+    k = megakernel.sample_wave(s7ws, fz, s7uv, s7act, s7cam, 0, 0, 5, 4)
+    p = megakernel.sample_wave_reference(s7ws, fz, s7uv, s7act, s7cam, 0, 0, 5, 4)
+    k1_compare("18 fuse", "threefry", k, p, 256, 192, 4, "K1 with sample_fuse=2")
+
+    # the golden gates on the portable path and on the pallas-ml path, and
+    # the staged variants against K1's frame at 256x192
+    for w_, h_, name in ((256, 192, "demo_256x192.npz"),
+                         (800, 600, "demo_reference_800x600.npz")):
+        golden = np.load(os.path.join(HERE, "tests", "golden", name))["image"]
+        golden = golden.astype(np.float32)
+        gcfg_, _gs, garr, gcam_ = scene_setup(w_, h_)
+        for kn in ("xla", "pallas-ml"):
+            img_, _ = render_radiance_with_stats(garr, gcam_, gcfg_.replace(kernels=kn))
+            img_ = img_.cpu().numpy()
+            d_ = np.abs(img_ - golden)
+            s_ = ssim(img_, golden)
+            say(f"[18 gates] {w_}x{h_} kernels={kn} vs {name}: SSIM {s_:.6f}, mean abs "
+                f"{d_.mean():.3e}, max abs {d_.max():.3e}, pixels > 1e-3 "
+                f"{(d_.max(-1) > 1e-3).mean() * 100:.3f}%")
+            require(s_ >= 0.995 and d_.mean() < 2e-3, f"{kn} golden gate {w_}x{h_}")
+    gcfg_, _gs, garr, gcam_ = scene_setup(256, 192)
+    ref256, ref256_rays = render_radiance_with_stats(garr, gcam_, gcfg_)  # K1
+    for kn in ("pallas-ml", "pallas-bvh2", "pallas-nomega", "xla"):
+        im_, r_ = render_radiance_with_stats(garr, gcam_, gcfg_.replace(kernels=kn))
+        frame_gate("18 staged", f"256x192 kernels={kn} vs K1's frame", im_, r_,
+                   ref256, ref256_rays)
+
+    # the slice's path at full width: the demo at 1080p/64 spp through
+    # render_radiance_with_stats with kernels="pallas-ml"
+    mlcfg = mcfg.replace(kernels="pallas-ml")
+    render_radiance_with_stats(marrays, mcam, mlcfg)  # warm-up
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    ml_times, ml_rays = [], set()
+    for _ in range(3):
+        (mlimg, r_), ms = timed(lambda: render_radiance_with_stats(
+            marrays, mcam, mlcfg), torch)
+        ml_times.append(ms)
+        ml_rays.add(int(r_))
+    ml_launches = dict(ext.LAUNCHES)
+    n_disp = len(ml_times)
+    got = {k: v for k, v in ml_launches.items() if v}
+    ml_med = statistics.median(ml_times)
+    ml_rays_pd = min(ml_rays)
+    say(f"[18 pallas-ml] 1920x1080 spp 64, 5 bounces, kernels='pallas-ml' on {kind} "
+        f"({smi}): median {ml_med:.2f} ms, best {min(ml_times):.2f} ms per dispatch "
+        f"over {n_disp} ({', '.join(f'{t:.2f}' for t in ml_times)}); {ml_rays_pd} rays "
+        f"per dispatch, {ml_rays_pd / ml_med / 1e3:.1f} Mrays/s median; launches {got}")
+    require(mlimg.shape == (1080, 1920, 3) and bool(torch.isfinite(mlimg).all()),
+            "pallas-ml frame shape or values")
+    require(len(ml_rays) == 1, "pallas-ml ray count differs between dispatches")
+    n_lights = int(mws.lights.shape[0])
+    require(set(got) == {"closest_hit_misslink", "shadow_walk_misslink"},
+            "the pallas-ml path launched another kernel than K7")
+    require(ml_launches["shadow_walk_misslink"] == n_disp * 64 * n_lights,
+            "K7 shadow: not one launch per light per sample")
+    require(64 * n_disp < ml_launches["closest_hit_misslink"] <= 5 * 64 * n_disp,
+            "K7 closest: not one launch per live bounce wave per sample")
+    frame_gate("18 pallas-ml", "1080p/64 spp frame vs K1's", mlimg, ml_rays_pd,
+               kimg, krays)
+    # the breakdown of a 4-spp dispatch: each sample runs the same walks and
+    # glue, and a 64-spp trace holds ~290k kernels, too many to process here
+    wall, busy, top = profile_dispatch(
+        lambda: render_radiance_with_stats(marrays, mcam, mlcfg.replace(spp=4)),
+        torch, out_dir and os.path.join(out_dir, "pallas_ml_trace.json"))
+    k7_rows = [(ms, n) for ms, name, n in top if "MisslinkWalk" in name]
+    k7_dev = sum(ms for ms, _n in k7_rows)
+    ml_profile = dict(spp=4, wall_ms=wall, device_busy_ms=busy, k7_ms=k7_dev,
+                      k7_launches=sum(n for _ms, n in k7_rows), glue_ms=busy - k7_dev,
+                      glue_launches=sum(n for _ms, _name, n in top)
+                      - sum(n for _ms, n in k7_rows))
+    say(f"[18 pallas-ml] one 4-spp dispatch under torch.profiler: wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%), K7 "
+        f"{k7_dev:.2f} ms in {ml_profile['k7_launches']} launches, torch glue "
+        f"{busy - k7_dev:.2f} ms in {ml_profile['glue_launches']} launches; top: "
+        + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top[:8]))
+
+    # the other staged paths, once each with their launch counts and times
+    staged = {}
+    for kn, spp_ in (("pallas-bvh2", 4), ("pallas-nomega", 4), ("xla", 1)):
+        c_ = mcfg.replace(kernels=kn, spp=spp_)
+        if kn != "xla":
+            render_radiance_with_stats(marrays, mcam, c_)  # warm-up
+        ext.reset_launches()
+        (im_, r_), ms = timed(lambda: render_radiance_with_stats(marrays, mcam, c_),
+                              torch)
+        got = {k: v for k, v in ext.LAUNCHES.items() if v}
+        staged[kn] = dict(ms=ms, spp=spp_, rays=int(r_), launches=got)
+        say(f"[18 staged] 1920x1080 spp {spp_}, kernels={kn!r}: {ms:.2f} ms, "
+            f"{int(r_)} rays, {int(r_) / ms / 1e3:.1f} Mrays/s; launches {got}")
+        require(bool(torch.isfinite(im_).all()), f"{kn} frame values")
+        require(set(got) == {"pallas-bvh2": {"closest_hit_bvh2", "shadow_walk_bvh2"},
+                             "pallas-nomega": {"closest_hit_frustum", "closest_hit_bvh2",
+                                               "shadow_walk_bvh2"},
+                             "xla": set()}[kn], f"{kn} launches")
+
     inside_k1 = "device function inside K1 (csrc/walk.cuh, called by csrc/sample_kernel.cu)"
     inside_k1t = ("device function inside the tiered K1 (csrc/walk.cuh, called by "
                   "csrc/sample_kernel.cu)")
@@ -1278,6 +1485,28 @@ def main() -> int:
              phase1_256x192_err=k6x["ph1"][3],
              phase1_standalone_launches=k6x_standalone["sample_wave_phase1_frustum"],
              phase1_split_path_launches=k6x_path.get("sample_wave_phase1_frustum", 0)))
+    hit7 = k7c[1] >= 0
+    kernels += [
+        row("K7 closest_hit_misslink", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:128",
+            ml_launches["closest_hit_misslink"],
+            (k7c[0] - p7c[0])[hit7].abs().max().item(), k7_ms, p7c_ms, k7_work,
+            nbytes(mws.records) + R * 49,
+            standalone_launches=k7_standalone["closest_hit_misslink"],
+            k2_same_rays_ms=k2_turn_ms, rays_other_triangle_than_k2=n_other,
+            incoherent_rays_ms=k7_inc_ms, k2_incoherent_rays_ms=k2_inc_ms,
+            shape="demo 1080p primary rays",
+            main_path="kernels='pallas-ml', demo 1080p/64 spp",
+            pallas_ml_dispatch_median_ms=ml_med, pallas_ml_profile=ml_profile,
+            staged_dispatches=staged),
+        row("K7 shadow_walk_misslink", "walk_kernels.cu",
+            "rayzen_tpu/ops/pallas_traverse.py:189",
+            ml_launches["shadow_walk_misslink"], 0.0, k7s_ms, p7s_ms, k7s_work,
+            nbytes(mws.records) + R * 33,
+            standalone_launches=k7_standalone["shadow_walk_misslink"],
+            k3_same_rays_ms=k3_turn_ms, shape="demo 1080p shadow rays, point light",
+            main_path="kernels='pallas-ml', demo 1080p/64 spp"),
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,12 @@ CUDA for an NVIDIA H100.
 A port of the JAX package beside it (rayzen_tpu, the reference it is tested
 against). The numpy scene model and BVH builder are carried over; the
 per-frame refit is torch tensor glue; the full-sample path-tracing kernel
-(K1) and the BVH2 closest-hit and shadow walks (K2, K3) are CUDA C++ kernels
-in csrc/, built with nvcc at first use (ext.py). Every kernel has a plain
-PyTorch version beside it, which the wrappers run for CPU tensors.
+(K1) and the walks (K2-K9: BVH2, tiered, wide, frustum and miss-link) are
+CUDA C++ kernels in csrc/, built with nvcc at first use (ext.py). The
+per-wave path (integrator.trace_wave) runs the staged kernels= variants
+on those walks with torch glue between them, or the portable torch walks
+(ops/traverse.py). Every kernel has a plain PyTorch version beside it,
+which the wrappers run for CPU tensors.
 
 Importing this package imports torch and numpy only: no jax, and no kernel
 build.

@@ -4,13 +4,12 @@
 rayzen_tpu ``SceneArrays`` / ``WorldArrays`` with its leaves given as numpy
 arrays — ``{f.name: np.asarray(getattr(x, f.name)) for f in
 dataclasses.fields(x)}`` — and return the port's dataclass with tensors on
-``device``. Fields the port does not use (the record view) are dropped; the
-static fields (``instance_meta``, ``tree_depth``, ``leaf_k``, ``tiered``) are
-carried, and so are the wide view's ``bvh8_*`` arrays and ``inner8_table`` /
-``leaf8_table``. The treelet tables lose JAX's 128-lane padding
-(``tre_inner`` keeps its 16 columns, ``tre_leaf`` the leaf-table width), and
-the tiered and wide walks' depth bounds, which JAX does not keep, are
-computed from the tables. Tests use this to feed the port exactly the JAX
+``device``. Every field is carried: the tables of each view (the miss-link
+``records``, the BVH2, wide and treelet tables) and the static fields
+(``instance_meta``, ``tree_depth``, ``leaf_k``, ``tiered``). The treelet
+tables lose JAX's 128-lane padding (``tre_inner`` keeps its 16 columns,
+``tre_leaf`` the leaf-table width), and the tiered and wide walks' depth
+bounds, which JAX does not keep, are computed from the tables. Tests use this to feed the port exactly the JAX
 tables.
 """
 

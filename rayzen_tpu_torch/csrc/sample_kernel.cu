@@ -61,8 +61,12 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
   constexpr bool kWarp = kOctant || kFrustum;
   if (!kWarp && i >= n) return;
   const bool on = i < n && act[i] != 0;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
+  float acc[3] = {0.0f, 0.0f, 0.0f};  // the current sub-block's sum
   int rays = 0;
+  if (i < n) {  // the sub-block sums add up here
+#pragma unroll
+    for (int c = 0; c < 3; ++c) color_out[3 * i + c] = 0.0f;
+  }
   Path path{};
   rz::Sampler smp{};
   if (on || kWarp) {
@@ -86,8 +90,15 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
       smp.h_pix = rz::hash_u32(pixel_id ^ key_h);
     }
 
+    // sample fusion (cfg.sample_fuse, megakernel.py:592-607, :723-730):
+    // sub-block sb sums the samples g * fuse + sb in order of g, from zero,
+    // and the sub-blocks add up in order, ((A0 + A1) + A2) + ..., in
+    // color_out, so that no sum but the current one takes registers; with
+    // fuse 1 this is the plain sum over samples
+    const int groups = p.n_samples / p.fuse;
     for (int s = 0; s < p.n_samples; ++s) {
-      const float samp_f = p.samp0 + (float)s;
+      const int sb = s / groups, g = s - sb * groups;
+      const float samp_f = p.samp0 + (float)(g * p.fuse + sb);
       smp.samp_f = samp_f;
       path = Path{};
       bool hit0 = false;
@@ -179,12 +190,16 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
 #pragma unroll
         for (int c = 0; c < 3; ++c) acc[c] = acc[c] + path.c[c];
       }
+      if (g == groups - 1) {  // the sub-block ends: fold its sum in
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          if (i < n) color_out[3 * i + c] = color_out[3 * i + c] + acc[c];
+          acc[c] = 0.0f;
+        }
+      }
     }
   }
   if (i >= n) return;
-  color_out[3 * i] = acc[0];
-  color_out[3 * i + 1] = acc[1];
-  color_out[3 * i + 2] = acc[2];
   rays_out[i] = rays;
   // phase 1 (one sample): the path where it stopped, and its seeds
   if (state_out) {

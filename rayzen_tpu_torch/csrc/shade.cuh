@@ -17,6 +17,7 @@ struct SampleParams {
   int32_t width, height, n_samples, max_bounces;
   int32_t rr_start, rng_hash, key, n_mats;
   int32_t n_lights;
+  int32_t fuse;      // sample fusion: n_samples is a multiple of it
   int32_t b_start;   // continuation: first bounce traced
   int32_t b_stop;    // first bounce not traced: max_bounces, or the split
   float samp0;       // sample index of the first sample (progressive keyed)

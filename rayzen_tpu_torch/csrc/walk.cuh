@@ -1,7 +1,8 @@
 // Per-thread BVH2 walks over WorldArrays.inner_table / leaf_table: the device
 // functions behind K2 (closest hit) and K3 (shadow transmission), the
-// tiered walks of K8 over top_table / tre_inner / tre_leaf, and the wide
-// walks of K5 over inner8_table / leaf8_table, shared by the standalone
+// tiered walks of K8 over top_table / tre_inner / tre_leaf, the wide
+// walks of K5 over inner8_table / leaf8_table, and the stackless miss-link
+// walks of K7 over records (standalone kernels only), shared by the standalone
 // kernels (walk_kernels.cu) and the sample kernel (sample_kernel.cu)
 // through the walk policies at the end of this file. (K6, the warp-packet
 // frustum walk, is in frustum.cuh.)
@@ -449,6 +450,114 @@ RZ_DEV float walk_shadow_bvh8(const Tables8& tb, const Ray& r, float maxd,
   return vis;
 }
 
+// ---- K7: the stackless miss-link walks ----
+//
+// Replaces pallas_traverse.py::_make_closest_kernel (:128) and
+// ::_make_shadow_kernel (:189). WorldArrays.records holds one row per node of
+// the unified tree (TLAS and BLAS copies stitched, packing._build_unified):
+// [bmin(3) bmax(3) | left_first, count, miss (float-encoded ints) | K leaf
+// triangles x 9 | K transparencies | K encoded materials | pad]. The packet
+// kernel moves 4096 rays with one scalar node pointer: at node cur each ray
+// tests the node's own box (hit = box & active & tmin <= its bound); if any
+// ray hits an internal node the packet goes to its left child, otherwise (and
+// after a leaf) to the node's miss link; -1 ends the walk. Here each thread
+// follows its own pointer, and its own hit decides. A node's box holds its
+// subtree's boxes, so a ray that misses it would hit nothing the packet
+// walks below it; the nodes a ray processes are the packet walk's in the
+// same pre-order, with the same strict t < t_best in the leaves, so the
+// thread finds the packet's triangle and t, ties included, and multiplies the
+// same transparencies in the same order. No stack: a ray's state is one int.
+//
+// What bounds it on an H100: as the BVH2 walk, the latency of dependent
+// loads (node -> next node) and divergence, not bandwidth; one slab test per
+// node visited (the BVH2 walk makes two) but more nodes per walk, and a
+// 416-byte row per node (K = 8) of which a miss reads 36 bytes and only a
+// hit leaf reads its triangles. The tables (~0.7 MB for the demo) stay in L2.
+
+struct RecordTables {
+  const float* rec;  // (Nu, rec_w), rec_w a multiple of 4
+  int rec_w;
+  int leaf_k;
+};
+
+// The node's box, links and count: two 16-byte loads and one more float.
+RZ_DEV void load_record_head(const float* row, float box[6], int& left,
+                             int& count, int& miss) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+  box[0] = a.x;
+  box[1] = a.y;
+  box[2] = a.z;
+  box[3] = a.w;
+  box[4] = b.x;
+  box[5] = b.y;
+  left = (int)b.z;
+  count = (int)b.w;
+  miss = (int)__ldg(row + 8);
+}
+
+// Closest hit from the state ``h`` (h.t = T_FAR: no bound).
+RZ_DEV void walk_closest_misslink(const RecordTables& tb, const Ray& r,
+                                  HitRec& h) {
+  const int K = tb.leaf_k;
+  int cur = 0;  // the root
+  while (cur >= 0) {
+    const float* row = tb.rec + (size_t)cur * tb.rec_w;
+    float box[6], tmin;
+    int left, count, miss;
+    load_record_head(row, box, left, count, miss);
+    const bool hit = slab(r, box, tmin) && (tmin <= h.t);
+    if (hit && count >= 0) {  // a leaf: its inlined triangles, in order
+      const int n = count < K ? count : K;
+      for (int k = 0; k < n; ++k) {
+        const float* tri = row + 9 + 9 * k;
+        float t;
+        if (moller_trumbore(r, tri, t) && t < h.t) {
+          float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
+          float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
+          h.t = t;
+          h.tri = left + k;
+          h.cx = e1y * e2z - e1z * e2y;
+          h.cy = e1z * e2x - e1x * e2z;
+          h.cz = e1x * e2y - e1y * e2x;
+          h.menc = __ldg(row + 9 + 10 * K + k);
+        }
+      }
+    }
+    cur = (hit && count < 0) ? left : miss;
+  }
+}
+
+// Transmission visibility within (t_eps, maxd), the walk_shadow contract:
+// blockers multiply in their record's transparency (0 = opaque); the ray
+// stops once vis <= min_vis.
+RZ_DEV float walk_shadow_misslink(const RecordTables& tb, const Ray& r,
+                                  float maxd, float min_vis, float t_eps) {
+  const int K = tb.leaf_k;
+  float vis = 1.0f;
+  if (!(vis > min_vis)) return vis;
+  int cur = 0;
+  while (cur >= 0) {
+    const float* row = tb.rec + (size_t)cur * tb.rec_w;
+    float box[6], tmin;
+    int left, count, miss;
+    load_record_head(row, box, left, count, miss);
+    const bool hit = slab(r, box, tmin) && (tmin <= maxd);
+    if (hit && count >= 0) {
+      const int n = count < K ? count : K;
+      for (int k = 0; k < n; ++k) {
+        float t;
+        if (moller_trumbore(r, row + 9 + 9 * k, t) && t >= t_eps && t < maxd) {
+          vis = vis * __ldg(row + 9 + 9 * K + k);
+        }
+      }
+      if (!(vis > min_vis)) return vis;
+    }
+    cur = (hit && count < 0) ? left : miss;
+  }
+  return vis;
+}
+
 // Walk policies: the tables a kernel walks and how. The standalone kernels
 // and sample_kernel are templates over them, so the tiered K1 shares every
 // line of shading, RNG and bounce code with the whole-tree K1.
@@ -480,6 +589,17 @@ struct Bvh8Walk {
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
     return walk_shadow_bvh8(tb, r, maxd, min_vis, t_eps);
+  }
+};
+
+struct MisslinkWalk {
+  RecordTables tb;
+  RZ_DEV void closest(const Ray& r, HitRec& h) const {
+    walk_closest_misslink(tb, r, h);
+  }
+  RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
+                      float t_eps) const {
+    return walk_shadow_misslink(tb, r, maxd, min_vis, t_eps);
   }
 };
 

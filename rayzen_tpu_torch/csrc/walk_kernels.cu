@@ -1,5 +1,5 @@
-// K2, K3, K5, K6 and K8 as standalone kernels: one thread per ray over flat
-// (R,) arrays.
+// K2, K3, K5, K6, K7 and K8 as standalone kernels: one thread per ray over
+// flat (R,) arrays.
 //
 // K2 replaces rayzen_tpu/ops/pallas_traverse.py::_make_closest_kernel_bvh2
 // (:428), launched by pallas_closest_hit_bvh2 (:1338); K3 replaces
@@ -13,6 +13,9 @@
 // (:1191), launched by pallas_closest_hit_frustum (:1361) and
 // pallas_shadow_walk_frustum (:1370); its packet is a warp of 32
 // consecutive rays, so every thread of a launched block stays to the end.
+// K7 replaces ::_make_closest_kernel (:128) and ::_make_shadow_kernel (:189),
+// launched by pallas_closest_hit (:1381) and pallas_shadow_walk (:1405): the
+// per-wave walks of kernels="pallas-ml".
 // The walks themselves (and what bounds them on the card) are in walk.cuh
 // and frustum.cuh. These kernels add only the per-ray loads and stores:
 // rays are (R, 3) rows, read once, so the launch is latency-bound like the
@@ -238,6 +241,24 @@ int rz_shadow_frustum(const float* inner, const float* leaf, int leaf_w,
         min_vis, t_eps, vis_out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int rz_closest_misslink(const float* rec, int rec_w, int leaf_k,
+                        const float* orig, const float* dir,
+                        const uint8_t* act, int n, float* t_out, int* tri_out,
+                        float* cross_out, float* menc_out, void* stream) {
+  const rz::MisslinkWalk w{{rec, rec_w, leaf_k}};
+  return launch_closest(w, orig, dir, act, nullptr, n, t_out, tri_out,
+                        cross_out, menc_out, stream);
+}
+
+int rz_shadow_misslink(const float* rec, int rec_w, int leaf_k,
+                       const float* orig, const float* dir, const float* maxd,
+                       const uint8_t* act, int n, float min_vis, float t_eps,
+                       float* vis_out, void* stream) {
+  const rz::MisslinkWalk w{{rec, rec_w, leaf_k}};
+  return launch_shadow(w, orig, dir, maxd, act, n, min_vis, t_eps, vis_out,
+                       stream);
 }
 
 }  // extern "C"

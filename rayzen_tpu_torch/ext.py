@@ -57,6 +57,7 @@ LAUNCHES = {
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
     "closest_hit_bvh8": 0, "shadow_walk_bvh8": 0,
     "closest_hit_frustum": 0, "shadow_walk_frustum": 0,
+    "closest_hit_misslink": 0, "shadow_walk_misslink": 0,
 }
 
 _lib = None
@@ -131,6 +132,7 @@ class SampleParams(ctypes.Structure):
         ("key", ctypes.c_int32),
         ("n_mats", ctypes.c_int32),
         ("n_lights", ctypes.c_int32),
+        ("fuse", ctypes.c_int32),
         ("b_start", ctypes.c_int32),
         ("b_stop", ctypes.c_int32),
         ("samp0", ctypes.c_float),
@@ -170,6 +172,8 @@ def lib() -> ctypes.CDLL:
             ("rz_shadow_bvh8", shadow),
             ("rz_closest_frustum", closest),
             ("rz_shadow_frustum", shadow),
+            ("rz_closest_misslink", [p, i, i, p, p, p, i, p, p, p, p, p]),
+            ("rz_shadow_misslink", [p, i, i, p, p, p, p, i, f, f, p, p]),
             ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]),
             ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]),
             ("rz_sample_wave", bvh2 + [p]),

@@ -1,4 +1,4 @@
-"""Pixel grid for primary rays (rayzen_tpu/ops/camera_rays.py:18-26).
+"""Pixel grid and primary rays (rayzen_tpu/ops/camera_rays.py).
 
 The port renders in scanline order. rayzen_tpu swizzles pixels into 64x64
 tiles (``tile_permutation``) only so that a 4096-ray packet, which walks the
@@ -9,7 +9,10 @@ coherent, so there is nothing to swizzle.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .intersect import normalize
 
 
 def pixel_grid(width: int, height: int, device):
@@ -22,3 +25,29 @@ def pixel_grid(width: int, height: int, device):
     frag = torch.stack([fx.reshape(-1), fy.reshape(-1)], dim=-1)
     uv = frag / torch.tensor([width, height], dtype=torch.float32, device=device)
     return frag, uv
+
+
+def camera_tensor(x, device):
+    """A camera parameter (numpy array or tensor) as float32 on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+def generate_rays(uv, jitter, inv_proj, inv_view, cam_position):
+    """The calculateRay kernel (glsl:204-212) batched over rays: uv and
+    jitter (R, 2); returns (origin (R, 3), direction (R, 3)). NDC -> eye ->
+    world through the inverse projection and view matrices, as two float32
+    4x4 products (the JAX package asks XLA for full precision there)."""
+    dev = uv.device
+    inv_proj = camera_tensor(inv_proj, dev)
+    inv_view = camera_tensor(inv_view, dev)
+    ndc = (uv + jitter) * 2.0 - 1.0
+    ones = torch.ones_like(ndc[:, :1])
+    clip = torch.cat([ndc, -ones, ones], dim=-1)
+    eye = clip @ inv_proj.T
+    # ray_eye = (x, y, -1, 0)  (glsl:209)
+    eye = torch.cat([eye[:, :2], -ones, torch.zeros_like(ones)], dim=-1)
+    direction = normalize((eye @ inv_view.T)[:, :3])
+    origin = camera_tensor(cam_position, dev).expand_as(direction)
+    return origin, direction

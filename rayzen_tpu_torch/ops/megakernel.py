@@ -36,6 +36,11 @@ from .. import logging_util as log
 from ..config import RenderConfig
 from ..packing import WorldArrays
 from . import walk
+from .shade import pow5
+from .rng import (  # noqa: F401 (sinf_libm: the K1 tests read it here)
+    _M32, _bounce_draws_hash, _bounce_draws_reference, _f32, _hash_u32,
+    _ref_rand, _u32_to_unit_float, sinf_libm,
+)
 
 PI_REF = 3.14159  # glsl:197
 
@@ -50,154 +55,6 @@ def _cross(ax, ay, az, bx, by, bz):
 def _normalize(vx, vy, vz, eps):
     n = torch.clamp_min(torch.sqrt(vx * vx + vy * vy + vz * vz), eps)
     return vx / n, vy / n, vz / n
-
-
-def _pow5(x):
-    """x ** 5 in jax.lax.integer_pow's order: x * ((x * x) * (x * x))."""
-    x2 = x * x
-    return x * (x2 * x2)
-
-
-# libm's single-precision sine (the glibc / Arm optimized-routines sinf): the
-# function XLA's CPU backend calls for jnp.sin on float32, so the one that
-# made tests/golden/*.npz. _ref_rand amplifies sin by 43758.5453: one ulp of
-# difference moves a draw by ~1e-3 and sends the path elsewhere. torch.sin
-# differs from it on ~5% of the sin-hash's arguments (CUDA's sinf is another
-# implementation again), so the sin hash evaluates this algorithm exactly:
-# float64 argument reduction and polynomial, rounded once to float32.
-_SIN_SIGN = (1.0, -1.0, -1.0, 1.0)
-_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2/pi * 2^24
-_HPI = float.fromhex("0x1.921FB54442D18p0")  # pi/2
-_PI63 = float.fromhex("0x1.921FB54442D18p-62")  # pi * 2^-63
-_COS_POLY = tuple(float.fromhex(h) for h in (
-    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
-    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
-_SIN_POLY = tuple(float.fromhex(h) for h in (
-    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"))
-_INV_PIO4 = (  # 4/pi in 24-bit steps
-    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
-    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
-    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
-    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041,
-)
-
-
-def _sinf_poly(x, x2, n, neg_cos):
-    """sin (n even) or cos (n odd) polynomial on the reduced argument."""
-    s1, s2, s3 = _SIN_POLY
-    x3 = x * x2
-    sin = (x + x3 * s1) + (x3 * x2) * (s2 + x2 * s3)
-    c0, c1, c2, c3, c4 = _COS_POLY
-    sgn = torch.where(neg_cos, -1.0, 1.0).double()
-    x4 = x2 * x2
-    cos = ((sgn * c0 + x2 * (sgn * c1)) + x4 * (sgn * c2)) + (x4 * x2) * (
-        sgn * c3 + x2 * (sgn * c4))
-    return torch.where((n & 1) == 0, sin, cos)
-
-
-def sinf_libm(y):
-    """sin of a float32 tensor, bit-identical to libm's sinf (see above)."""
-    x = y.double()
-    bits = y.view(torch.int32).long() & 0xFFFFFFFF
-    top = (bits >> 20) & 0x7FF
-    sign_t = torch.tensor(_SIN_SIGN, dtype=torch.float64, device=y.device)
-    # |y| < pi/4: no reduction; |y| < 2^-12: sin y = y
-    small = top < (0x3F490FDB >> 20)
-    out_small = torch.where(
-        top < (0x39800000 >> 20), x,
-        _sinf_poly(x, x * x, torch.zeros_like(bits), torch.zeros_like(small)),
-    )
-    # |y| < 120: one multiply-subtract reduction
-    r = x * _HPI_INV
-    n_mid = (r.trunc().long() + 0x800000) >> 24
-    xr = x - n_mid.double() * _HPI
-    xr = xr * sign_t[n_mid & 3]
-    out_mid = _sinf_poly(xr, xr * xr, n_mid, (n_mid & 2) != 0)
-    # larger: integer reduction against 4/pi (uint64 math in int64 bits)
-    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=y.device)
-    idx = (bits >> 26) & 15
-    xi = ((bits & 0xFFFFFF) | 0x800000) << ((bits >> 23) & 7)
-    res0 = (xi * tab[idx]) & 0xFFFFFFFF
-    res1 = xi * tab[idx + 4]
-    res2 = xi * tab[idx + 8]
-    res0 = ((res2 >> 32) | (res0 << 32)) + res1
-    n_big = ((res0 + (1 << 61)) >> 62) & 3
-    xl = (res0 - (n_big << 62)).double() * _PI63
-    q = n_big + (bits >> 31)
-    xl = xl * sign_t[q & 3]
-    out_big = _sinf_poly(xl, xl * xl, n_big, (q & 2) != 0)
-    out = torch.where(small, out_small,
-                      torch.where(top < (0x42F00000 >> 20), out_mid, out_big))
-    out = torch.where(top < 0x7F8, out, float("nan"))  # inf / nan -> nan
-    return out.float()
-
-
-def _f32(x) -> float:
-    return float(np.float32(x))
-
-
-def _fma(a, b: float, c):
-    """float32 a * b + c with one rounding (a fused multiply-add): the exact
-    float64 product plus c, rounded once to float32 (a second rounding
-    changes the result only when the float64 sum lands on a float32 tie)."""
-    return (a.double() * _f32(b) + c.double()).float()
-
-
-# XLA's CPU backend fuses the first product of ``a * b + c * d`` into a
-# multiply-add (checked bitwise against jitted JAX on the CPU), and the sin
-# hash turns one ulp of its argument into a different draw. So the two
-# multiply-adds that feed the sin hash are fused here, and only those; the
-# rest of the arithmetic rounds every operation, which moves a colour by
-# ulps, not by a whole path.
-
-
-def _ref_rand(x, y):
-    """fract(sin(dot(v, (12.9898, 78.233))) * 43758.5453) (glsl:188-190)."""
-    s = sinf_libm(_fma(x, 12.9898, y * 78.233)) * 43758.5453
-    return s - torch.floor(s)
-
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul_u32(x, c: int):
-    """(x * c) mod 2^32 for x in [0, 2^32) held in int64, without overflow."""
-    return (x * (c & 0xFFFF) + ((x * (c >> 16)) & 0xFFFF) * 65536) & _M32
-
-
-def _hash_u32(x):
-    """lowbias32 on uint32 values held in int64 tensors."""
-    x = x & _M32
-    x = x ^ (x >> 16)
-    x = _mul_u32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul_u32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
-
-def _u32_to_unit_float(x):
-    return (x >> 8).to(torch.float32) * (1.0 / 16777216.0)
-
-
-def _bounce_draws_reference(s0, s1, samp_f, b_f):
-    """ReferenceSampler.bounce_draws; ``b_f`` is the bounce index as a 0-d
-    float32 tensor, so that every product rounds in float32 as in the JAX
-    kernel."""
-    ts0 = _fma(s0 * (b_f * b_f), 12793.46, b_f * 1423.34)
-    ts1 = _fma(s1 * (b_f * b_f), 12793.46, b_f * 1423.34)
-    rand_val = _ref_rand(ts0 + samp_f, ts1 + b_f)
-    hemi_u = _ref_rand(ts0, ts1)
-    hemi_v = _ref_rand(ts0 + 1.0, ts1 + 1.0)
-    return rand_val, hemi_u, hemi_v
-
-
-def _bounce_draws_hash(h_pix, samp_u: int, b: int):
-    base = (h_pix + ((samp_u * 7919) & _M32) + b * 127) & _M32
-    rand_val = _u32_to_unit_float(_hash_u32(base + 2))
-    hemi_u = _u32_to_unit_float(_hash_u32(base + 3))
-    hemi_v = _u32_to_unit_float(_hash_u32(base + 4))
-    return rand_val, hemi_u, hemi_v
 
 
 def _hemisphere(nx, ny, nz, u, v):
@@ -246,7 +103,7 @@ def _scatter_tiles(dx, dy, dz, nx, ny, nz, cur_ior, rand_val, hemi_u, hemi_v,
     cosi = torch.clamp(mdn, 0.0, 1.0)
     q = (cur_ior - next_ior) / (cur_ior + next_ior)
     f0 = q * q
-    fresnel = f0 + (1.0 - f0) * _pow5(1.0 - cosi)
+    fresnel = f0 + (1.0 - f0) * pow5(1.0 - cosi)
 
     cosi2 = torch.clamp(mdn, -1.0, 1.0)
     sint2 = torch.clamp_min(1.0 - cosi2 * cosi2, 0.0)
@@ -354,7 +211,7 @@ def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
         hx, hy, hz = _normalize(ldx + vx, ldy + vy, ldz + vz, 1e-20)
         n_dot_h = torch.clamp_min(nx * hx + ny * hy + nz * hz, 0.0)
         h_dot_v = torch.clamp_min(hx * vx + hy * vy + hz * vz, 0.0)
-        p5 = _pow5(1.0 - h_dot_v)
+        p5 = pow5(1.0 - h_dot_v)
 
         # transparent specular-only lobe (glsl:571-609)
         f_t = f0t + (1.0 - f0t) * p5
@@ -438,11 +295,26 @@ class _Consts:
     octant: bool  # bounce walks as K9 (cfg.octant_bounce_walks)
     wide: bool = False  # K5 walks (cfg.wide_nodes, not on the treelet view)
     frustum: bool = False  # K6 primary walk (cfg.frustum_primary, BVH2 only)
+    fuse: int = 1  # sample fusion (cfg.sample_fuse; see sample_fuse)
+
+
+def sample_fuse(cfg: RenderConfig, n_samples: int) -> int:
+    """The samples K1 sums per sub-block (megakernel.py:1106-1110): the
+    largest divisor of n_samples that is at most cfg.sample_fuse. A
+    per-thread K1 traces one sample at a time either way; fusion fixes only
+    the order of the per-pixel sum: sub-block s sums the samples g * fuse + s
+    in order of g, and the sub-blocks add up in order (:592-607, :723-730).
+    It also turns the frustum primary walk off (:521-525)."""
+    fuse = max(1, int(cfg.sample_fuse))
+    while n_samples % fuse:
+        fuse -= 1
+    return fuse
 
 
 def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples,
             tiered: bool = False) -> _Consts:
     hash_rng = cfg.rng != "reference"
+    fuse = sample_fuse(cfg, n_samples)
     if hash_rng:
         samp0 = np.float32(samp)
     else:  # the sin-hash flow continues the sample index across frames
@@ -457,9 +329,12 @@ def _consts(cfg: RenderConfig, samp, rng_key, max_bounces, n_samples,
         sky_d=tuple(_f32(z - h) for h, z in zip(cfg.sky_horizon, cfg.sky_zenith)),
         ambient=tuple(_f32(a) for a in cfg.ambient),
         octant=bool(cfg.octant_bounce_walks),
-        # the walk knobs as megakernel.py:503-525 selects them
+        # the walk knobs as megakernel.py:503-525 selects them (no frustum
+        # primary with sample fusion)
         wide=bool(cfg.wide_nodes) and not tiered,
-        frustum=bool(cfg.frustum_primary) and not cfg.wide_nodes and not tiered,
+        frustum=(bool(cfg.frustum_primary) and not cfg.wide_nodes and not tiered
+                 and fuse == 1),
+        fuse=fuse,
     )
 
 
@@ -684,11 +559,16 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
         ) & _M32
         key_h = int(_hash_u32(torch.tensor((c.key + 0x9E3779B9) & _M32)))
         h_pix = _hash_u32(pixel_id ^ key_h)
-    for s in range(n_samples):
-        col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix, s, max_bounces,
-                                        work, idx // walk.PACKET)
-        color[idx] = color[idx] + col_s
-        rays[idx] = rays[idx] + rays_s
+    groups = n_samples // c.fuse
+    for sb in range(c.fuse):  # sample fusion's order of summation
+        acc = torch.zeros((idx.numel(), 3), dtype=torch.float32, device=dev)
+        for g in range(groups):
+            col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix,
+                                            g * c.fuse + sb, max_bounces, work,
+                                            idx // walk.PACKET)
+            acc = acc + col_s
+            rays[idx] = rays[idx] + rays_s
+        color[idx] = color[idx] + acc
     return color, rays.sum()
 
 
@@ -697,6 +577,7 @@ def _sample_params(c: _Consts, ws: WorldArrays, b_start: int,
     return ext.SampleParams(
         c.width, c.height, c.n_samples, c.max_bounces, c.rr_start,
         int(c.hash_rng), c.key, ws.materials.shape[0], ws.lights.shape[0],
+        c.fuse,
         b_start, b_stop, c.samp0, c.min_vis, 1e-3,
         (ctypes.c_float * 3)(*c.sky_h), (ctypes.c_float * 3)(*c.sky_d),
         (ctypes.c_float * 3)(*c.ambient),

@@ -1,6 +1,6 @@
 """BVH2 closest-hit (K2) and shadow-transmission (K3) walks, their tiered
-form over the treelet view (K8), the wide-node walks (K5) and the
-packet-frustum walks (K6).
+form over the treelet view (K8), the wide-node walks (K5), the
+packet-frustum walks (K6) and the stackless miss-link walks (K7).
 
 Counterpart of rayzen_tpu/ops/pallas_traverse.py: ``closest_hit_bvh2`` /
 ``shadow_walk_bvh2`` replace ``pallas_closest_hit_bvh2`` (:1338) and
@@ -10,7 +10,9 @@ Counterpart of rayzen_tpu/ops/pallas_traverse.py: ``closest_hit_bvh2`` /
 ``shadow_walk_tiered`` launch ``tiered_walk_closest`` (:796) /
 ``tiered_walk_shadow`` (:879) and ``closest_hit_bvh8`` / ``shadow_walk_bvh8``
 launch ``bvh8_walk_closest`` (:617) / ``bvh8_walk_shadow`` (:728), which the
-JAX package runs only inside its sample kernel. For CUDA tensors each
+JAX package runs only inside its sample kernel; ``closest_hit_misslink`` /
+``shadow_walk_misslink`` replace ``pallas_closest_hit`` (:1381) and
+``pallas_shadow_walk`` (:1405). For CUDA tensors each
 wrapper launches its kernel (csrc/walk_kernels.cu); for CPU tensors it runs
 the plain PyTorch version below. The plain versions run on any device, so
 the kernels can be held against them on the card.
@@ -24,7 +26,8 @@ treelet's first row, so rays in different treelets share one loop. The wide
 walk does the same over the 8-wide nodes (csrc/walk.cuh says in which
 order). The frustum walk is a packet walk, as csrc/frustum.cuh: one stack
 per packet of ``packet`` consecutive ray ids (a warp on the card), all
-packets advancing one node per step.
+packets advancing one node per step. The miss-link walk needs no stack: a
+ray's state is its node, and all unfinished rays advance one node per step.
 """
 
 from __future__ import annotations
@@ -36,10 +39,8 @@ import torch
 
 from .. import ext
 from ..packing import WorldArrays
+from .intersect import T_FAR, cross3, moller_trumbore_raw, safe_inv, slab_test
 
-DET_EPS = 1e-4
-T_EPS = 1e-4
-T_FAR = 1e30
 STACK_DEPTH = ext.STACK_DEPTH  # the plain versions use the kernels' stack
 
 @dataclasses.dataclass
@@ -49,17 +50,20 @@ class Work:
     kernels: the BVH2 inner (and top-tree) node visits of a ray, one per
     popped node; the wide-node visits of a ray (K5: 8 child boxes each);
     the frustum node visits of a packet (K6: two interval box tests each,
-    done once per packet); and the triangle tests, one per triangle of each
-    leaf a ray walks (min(count, K), as the kernels loop)."""
+    done once per packet); the miss-link node visits of a ray (K7: one box
+    test each); and the triangle tests, one per triangle of each leaf a ray
+    walks (min(count, K), as the kernels loop)."""
 
     nodes: int = 0
     nodes8: int = 0
     packet_nodes: int = 0
+    ml_nodes: int = 0
     tris: int | torch.Tensor = 0  # summed on the walk's device
 
     def counts(self) -> dict:
         return {"nodes": int(self.nodes), "nodes8": int(self.nodes8),
-                "packet_nodes": int(self.packet_nodes), "tris": int(self.tris)}
+                "packet_nodes": int(self.packet_nodes),
+                "ml_nodes": int(self.ml_nodes), "tris": int(self.tris)}
 
 
 @dataclasses.dataclass
@@ -131,91 +135,83 @@ def check_walks(ws: WorldArrays, wide: bool = False) -> None:
 # ---- plain PyTorch versions ---------------------------------------------
 
 
-def _safe_inv(d):
-    return torch.where(d >= 0.0, 1.0, -1.0) / torch.clamp_min(d.abs(), 1e-30)
-
-
 def _rays9(origin, direction):
     """(n, 9) [o | d | 1/d] rows, gathered per step by the plain walks."""
-    return torch.cat([origin, direction, _safe_inv(direction)], dim=1)
+    return torch.cat([origin, direction, safe_inv(direction)], dim=1)
 
 
 def _slab(r, b):
-    """pallas_traverse._slab for rays r (n, 9) against boxes b (n, 6)."""
-    t0 = (b[:, 0] - r[:, 0]) * r[:, 6]
-    t1 = (b[:, 3] - r[:, 0]) * r[:, 6]
-    tmin = torch.minimum(t0, t1)
-    tmax = torch.maximum(t0, t1)
-    t0 = (b[:, 1] - r[:, 1]) * r[:, 7]
-    t1 = (b[:, 4] - r[:, 1]) * r[:, 7]
-    tmin = torch.maximum(tmin, torch.minimum(t0, t1))
-    tmax = torch.minimum(tmax, torch.maximum(t0, t1))
-    t0 = (b[:, 2] - r[:, 2]) * r[:, 8]
-    t1 = (b[:, 5] - r[:, 2]) * r[:, 8]
-    tmin = torch.maximum(tmin, torch.minimum(t0, t1))
-    tmax = torch.minimum(tmax, torch.maximum(t0, t1))
-    return tmin, tmax >= torch.clamp_min(tmin, 0.0)
+    """pallas_traverse._slab for rays r (n, 9) against boxes b (n, 6):
+    (tmin, hit)."""
+    tmin, _tmax, hit = slab_test(r[:, 0:3], r[:, 6:9], b[:, 0:3], b[:, 3:6])
+    return tmin, hit
 
 
 def _moller_trumbore(r, tri):
     """pallas_traverse._mt_broadcast for rays r (n, 1, 9) against leaf
     triangles tri (n, K, 9) = [v0 e1 e2]; returns t, hit (n, K)."""
-    ox, oy, oz, dx, dy, dz = (r[..., c] for c in range(6))
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[..., c] for c in range(9))
-    hx = dy * e2z - dz * e2y
-    hy = dz * e2x - dx * e2z
-    hz = dx * e2y - dy * e2x
-    a = e1x * hx + e1y * hy + e1z * hz
-    valid = a.abs() >= DET_EPS
-    f = 1.0 / torch.where(valid, a, 1.0)
-    sx = ox - v0x
-    sy = oy - v0y
-    sz = oz - v0z
-    u = f * (sx * hx + sy * hy + sz * hz)
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = f * (dx * qx + dy * qy + dz * qz)
-    t = f * (e2x * qx + e2y * qy + e2z * qz)
-    hit = valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_EPS)
-    return t, hit
+    return moller_trumbore_raw(r[..., 0:3], r[..., 3:6], tri[..., 0:3],
+                               tri[..., 3:6], tri[..., 6:9])
 
 
-def _leaf_rows(leaf, K, leaf_idx):
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """Where a row keeps its leaf: the K triangles (9 floats each) from
+    column ``tris``, then K transparencies; the first triangle id and the
+    count in columns ``first`` and ``count``; K encoded materials from
+    column ``mats``."""
+
+    tris: int
+    first: int
+    count: int
+    mats: int
+
+    @staticmethod
+    def leaf_table(K: int) -> "_Layout":
+        return _Layout(0, 10 * K, 10 * K + 1, 10 * K + 2)
+
+    @staticmethod
+    def records(K: int) -> "_Layout":
+        return _Layout(9, 6, 7, 9 + 10 * K)
+
+
+def _leaf_rows(leaf, K, leaf_idx, lay: _Layout):
+    """(rows, triangles (n, K, 9), first, count) of the leaf rows."""
     rows = leaf[leaf_idx]
-    return rows, rows[:, : 9 * K].reshape(-1, K, 9)
+    tris = rows[:, lay.tris: lay.tris + 9 * K].reshape(-1, K, 9)
+    return (rows, tris, rows[:, lay.first].to(torch.int32),
+            rows[:, lay.count].to(torch.int32))
 
 
-def _leaf_closest(leaf, K, leaf_idx, r, sel, state):
-    """bvh2_walk_closest.leaf_proc for the rays ``sel`` (r = their rows)."""
+def _leaf_closest(leaf, K, leaf_idx, r, sel, state, lay: _Layout):
+    """bvh2_walk_closest.leaf_proc (and the miss-link kernel's leaf) for the
+    rays ``sel`` (r = their rows)."""
     t_best, tri_best, cross, menc = state
-    rows, tris = _leaf_rows(leaf, K, leaf_idx)
-    first = rows[:, 10 * K].to(torch.int32)
-    count = rows[:, 10 * K + 1].to(torch.int32)
+    rows, tris, first, count = _leaf_rows(leaf, K, leaf_idx, lay)
     t, h = _moller_trumbore(r[:, None, :], tris)
-    e1x, e1y, e1z, e2x, e2y, e2z = (tris[..., c] for c in range(3, 9))
-    cr = torch.stack(
-        [e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z, e1x * e2y - e1y * e2x],
-        dim=-1,
-    )  # (n, K, 3)
+    cr = cross3(tris[..., 3:6], tris[..., 6:9])  # (n, K, 3)
     tb, tr, cx, me = t_best[sel], tri_best[sel], cross[sel], menc[sel]
     for k in range(K):
         better = h[:, k] & (t[:, k] < tb) & (count > k)
         tb = torch.where(better, t[:, k], tb)
         tr = torch.where(better, first + k, tr)
         cx = torch.where(better[:, None], cr[:, k], cx)
-        me = torch.where(better, rows[:, 10 * K + 2 + k], me)
+        me = torch.where(better, rows[:, lay.mats + k], me)
     t_best[sel], tri_best[sel], cross[sel], menc[sel] = tb, tr, cx, me
 
 
-def _leaf_shadow(leaf, K, leaf_idx, r, maxd, t_eps, vis):
-    """bvh2_walk_shadow.leaf_proc; returns the updated vis of those rays."""
-    rows, tris = _leaf_rows(leaf, K, leaf_idx)
-    count = rows[:, 10 * K + 1].to(torch.int32)
+def _leaf_shadow(leaf, K, leaf_idx, r, maxd, t_eps, vis, lay: _Layout,
+                 factors=None):
+    """bvh2_walk_shadow.leaf_proc; returns the updated vis of those rays.
+    The factor of a blocker is its row's transparency, or ``factors(first,
+    count)`` (n, K) where given."""
+    rows, tris, first, count = _leaf_rows(leaf, K, leaf_idx, lay)
     t, h = _moller_trumbore(r[:, None, :], tris)
+    f = (rows[:, lay.tris + 9 * K: lay.tris + 10 * K] if factors is None
+         else factors(first, count))
     for k in range(K):
         blocking = h[:, k] & (t[:, k] >= t_eps) & (t[:, k] < maxd) & (count > k)
-        vis = torch.where(blocking, vis * rows[:, 9 * K + k], vis)
+        vis = torch.where(blocking, vis * f[:, k], vis)
     return vis
 
 
@@ -267,12 +263,14 @@ class _Walk:
     work: Work | None = None
 
 
-def _closest_ops(state, work=None) -> _Walk:
-    """The closest-hit walk on state = (t_best, tri, cross, menc)."""
+def _closest_ops(state, work=None, records: bool = False) -> _Walk:
+    """The closest-hit walk on state = (t_best, tri, cross, menc), whose
+    leaves are leaf-table rows (or, with ``records``, record rows)."""
     t_best, _tri, _cross, menc = state
+    lay = _Layout.records if records else _Layout.leaf_table
 
     def leaves(leaf, K, li, r, ids):
-        _leaf_closest(leaf, K, li, r, ids, state)
+        _leaf_closest(leaf, K, li, r, ids, state, lay(K))
 
     def poison(ids):
         t_best[ids] = float("nan")
@@ -283,12 +281,16 @@ def _closest_ops(state, work=None) -> _Walk:
                  work)
 
 
-def _shadow_ops(vis, maxd, min_visibility, t_eps, work=None) -> _Walk:
+def _shadow_ops(vis, maxd, min_visibility, t_eps, work=None,
+                records: bool = False, factors=None) -> _Walk:
     """The transmission walk multiplying into ``vis``; a ray stops once its
-    vis drops to min_visibility."""
+    vis drops to min_visibility. Leaves as in _closest_ops; ``factors``
+    see _leaf_shadow."""
+    lay = _Layout.records if records else _Layout.leaf_table
 
     def leaves(leaf, K, li, r, ids):
-        vis[ids] = _leaf_shadow(leaf, K, li, r, maxd[ids], t_eps, vis[ids])
+        vis[ids] = _leaf_shadow(leaf, K, li, r, maxd[ids], t_eps, vis[ids],
+                                lay(K), factors)
 
     def poison(ids):
         vis[ids] = float("nan")
@@ -774,6 +776,69 @@ def frustum_shadow_walk_reference(ws: WorldArrays, origin, direction,
     return vis
 
 
+# ---- K7: the miss-link walks (pallas_traverse.py:128-240) ------------------
+
+
+def _walk_misslink(w: _Walk, records, K, r_all, rays):
+    """The stackless walk over ``records`` of the ray ids ``rays``: at node
+    cur a ray tests the node's own box against its bound; a hit leaf runs
+    its inlined triangles, a hit internal node sends the ray to its left
+    child (left_first), anything else to the node's miss link; -1 ends the
+    walk, and so does ``w.stop`` after a leaf. All unfinished rays advance
+    one node per step."""
+    live = rays
+    cur = torch.zeros_like(rays)
+    while live.numel():
+        row = records[cur]
+        r = r_all[live]
+        tmin, box = _slab(r, row[:, 0:6])
+        hit = box & (tmin <= w.bound(live))
+        left, count, miss = (row[:, c].long() for c in (6, 7, 8))
+        leaf = hit & (count >= 0)
+        if w.work is not None:
+            w.work.ml_nodes += live.numel()
+        if leaf.any():
+            if w.work is not None:
+                w.work.tris = w.work.tris + count[leaf].clamp(max=K).sum()
+            w.leaves(records, K, cur[leaf], r[leaf], live[leaf])
+        nxt = torch.where(hit & (count < 0), left, miss)
+        keep = (nxt >= 0) & ~w.stop(live)
+        live, cur = live[keep], nxt[keep]
+
+
+def check_records(ws: WorldArrays) -> None:
+    """The miss-link walks need the records view (packing.world_geometry)."""
+    if ws.records is None:
+        raise ValueError("the scene has no miss-link records")
+
+
+def misslink_closest_walk_reference(ws: WorldArrays, origin, direction,
+                                    active, work: Work | None = None):
+    """Plain K7 closest-hit walk over ``records``. Returns (t, tri, cross
+    (R, 3), menc), the leaf's triangle data read from its record row."""
+    check_records(ws)
+    state = _closest_state(origin.shape[0], origin.device, None)
+    _walk_misslink(_closest_ops(state, work, records=True), ws.records,
+                   ws.leaf_k, _rays9(origin, direction), active.nonzero()[:, 0])
+    return state
+
+
+def misslink_shadow_walk_reference(ws: WorldArrays, origin, direction,
+                                   max_dist, active,
+                                   min_visibility: float = 0.05,
+                                   t_eps: float = 1e-3,
+                                   work: Work | None = None):
+    """Plain K7 transmission walk: blockers multiply in the transparency
+    column of their record row (the instance's material override applied).
+    Returns vis (R,), 1 for inactive rays."""
+    check_records(ws)
+    vis, maxd, rays = _shadow_setup(origin, max_dist, active, min_visibility)
+    _walk_misslink(_shadow_ops(vis, maxd, min_visibility, t_eps, work,
+                               records=True), ws.records, ws.leaf_k,
+                   _rays9(origin, direction), rays)
+    return vis
+
+
 def _treelet_rows(ws):
     """The treelet tables flattened to (Tt * SI, 16) / (Tt * SL, W2), and the
     row strides SI, SL of one treelet."""
@@ -823,18 +888,20 @@ def plain_walks(ws: WorldArrays, wide: bool = False):
 # ---- kernel launches -------------------------------------------------------
 
 # the tables a kernel walks ("view"): "bvh2" (K2/K3, and K6 over the same
-# rows), "tiered" (K8) or "bvh8" (K5)
+# rows), "tiered" (K8), "bvh8" (K5) or "misslink" (K7)
 def _table_tensors(ws: WorldArrays, view: str):
     return {"bvh2": (ws.inner_table, ws.leaf_table),
             "tiered": (ws.top_table, ws.tre_inner, ws.tre_leaf),
-            "bvh8": (ws.inner8_table, ws.leaf8_table)}[view]
+            "bvh8": (ws.inner8_table, ws.leaf8_table),
+            "misslink": (ws.records,)}[view]
 
 
 def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
     """Validate what a kernel launch reads: the depth bound, one CUDA device,
     contiguous, the table layouts the kernels index (None entries are
     skipped). ``view``: the tables the launch walks."""
-    {"bvh2": check_depth, "tiered": check_tiered, "bvh8": check_wide}[view](ws)
+    {"bvh2": check_depth, "tiered": check_tiered, "bvh8": check_wide,
+     "misslink": check_records}[view](ws)
     tables = _table_tensors(ws, view)
     for t in tables + tensors:
         if t is None:
@@ -843,6 +910,13 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
             raise ValueError("kernel inputs must all lie on one CUDA device")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+    if view == "misslink":
+        rec = ws.records
+        if (rec.dtype != torch.float32 or rec.dim() != 2
+                or rec.shape[1] < 9 + 11 * ws.leaf_k or rec.shape[1] % 4):
+            raise ValueError(f"records must be (Nu, W) float32, W >= "
+                             f"{9 + 11 * ws.leaf_k} and a multiple of 4")
+        return
     *inner, leaf = tables
     width = 72 if view == "bvh8" else 16
     for t in inner:
@@ -861,8 +935,10 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
 def table_args(ws: WorldArrays, view: str) -> tuple:
     """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k)
     for "bvh2" and "bvh8", (top, tre_inner, tre_leaf, si, sl, leaf_w,
-    leaf_k) for "tiered"."""
+    leaf_k) for "tiered", (records, record_w, leaf_k) for "misslink"."""
     ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, view))
+    if view == "misslink":
+        return ptrs + (ws.records.shape[1], ws.leaf_k)
     if view == "tiered":
         return ptrs + (ws.tre_inner.shape[1], ws.tre_leaf.shape[1],
                        ws.tre_leaf.shape[2], ws.leaf_k)
@@ -891,6 +967,8 @@ _KERNELS = {
              "rz_shadow_bvh8", "shadow_walk_bvh8"),
     "frustum": ("bvh2", "rz_closest_frustum", "closest_hit_frustum",
                 "rz_shadow_frustum", "shadow_walk_frustum"),
+    "misslink": ("misslink", "rz_closest_misslink", "closest_hit_misslink",
+                 "rz_shadow_misslink", "shadow_walk_misslink"),
 }
 
 
@@ -939,13 +1017,15 @@ _PLAIN_CLOSEST = {
     "tiered": lambda ws, o, d, a, ti: tiered_closest_walk_reference(ws, o, d, a),
     "bvh8": lambda ws, o, d, a, ti: wide_closest_walk_reference(ws, o, d, a),
     "frustum": lambda ws, o, d, a, ti: frustum_closest_walk_reference(ws, o, d, a),
+    "misslink": lambda ws, o, d, a, ti: misslink_closest_walk_reference(ws, o, d, a),
 }
 _PLAIN_SHADOW = {
     "bvh2": shadow_walk_reference, "tiered": tiered_shadow_walk_reference,
     "bvh8": wide_shadow_walk_reference, "frustum": frustum_shadow_walk_reference,
+    "misslink": misslink_shadow_walk_reference,
 }
 _NAMES = {"bvh2": ("K2", "K3"), "tiered": ("K8", "K8"), "bvh8": ("K5", "K5"),
-          "frustum": ("K6", "K6")}
+          "frustum": ("K6", "K6"), "misslink": ("K7", "K7")}
 
 
 def _closest(ws, origin, direction, active, t_init, kind):
@@ -978,6 +1058,12 @@ def closest_walk_frustum(ws: WorldArrays, origin, direction, active):
     """Raw packet-frustum closest-hit walk (packets of 32 consecutive ray
     ids): K6 on CUDA tensors, the plain version on CPU tensors."""
     return _closest(ws, origin, direction, active, None, "frustum")
+
+
+def closest_walk_misslink(ws: WorldArrays, origin, direction, active):
+    """Raw stackless miss-link closest-hit walk over ``records``: K7 on
+    CUDA tensors, the plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, None, "misslink")
 
 
 def decode_hit(ws: WorldArrays, origin, direction, t, tri, cross, menc) -> Hit:
@@ -1028,6 +1114,13 @@ def closest_hit_frustum(ws: WorldArrays, origin, direction, active) -> Hit:
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
+def closest_hit_misslink(ws: WorldArrays, origin, direction, active) -> Hit:
+    """Closest hit per ray by the stackless miss-link walk (K7,
+    pallas_closest_hit): the same triangle and t as closest_hit_bvh2."""
+    t, tri, cross, menc = closest_walk_misslink(ws, origin, direction, active)
+    return decode_hit(ws, origin, direction, t, tri, cross, menc)
+
+
 def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
             kind):
     if origin.is_cuda:
@@ -1074,3 +1167,12 @@ def shadow_walk_frustum(ws: WorldArrays, origin, direction, max_dist, active,
     ray's vis is exact only where it ends above it."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
                    t_eps, "frustum")
+
+
+def shadow_walk_misslink(ws: WorldArrays, origin, direction, max_dist, active,
+                         min_visibility: float = 0.05, t_eps: float = 1e-3):
+    """shadow_walk_bvh2 by the stackless miss-link walk (K7,
+    pallas_shadow_walk), with the blockers' transparencies read from
+    ``records``."""
+    return _shadow(ws, origin, direction, max_dist, active, min_visibility,
+                   t_eps, "misslink")

@@ -16,9 +16,10 @@ The tiered decision keeps the JAX rule, budget and default (36 MB) so both
 packages walk the same view under the same config; on the H100 the treelet
 view is walked by K8 (csrc/walk.cuh) inside the tiered K1.
 
-Left out until the kernel that reads them is ported (ROADMAP queue 2): the
-miss-link ``records`` (K7). The BLAS disk cache is left out too: the port
-keeps only the in-process memo, so packing reads and writes no files.
+``world_geometry`` also packs the miss-link ``records`` (:1014-1041), one
+row per unified node, which the portable walks (ops/traverse.py) and K7
+read. The BLAS disk cache is left out: the port keeps only the in-process
+memo, so packing reads and writes no files.
 """
 
 from __future__ import annotations
@@ -885,7 +886,13 @@ class WorldArrays:
     count -2 for a treelet (ref = treelet id); treelet ``t`` is the inner rows
     ``tre_inner[t]`` (treelet-local refs) and the leaf rows ``tre_leaf[t]``
     (copies of leaf_table rows, so ``first`` stays the global triangle id).
-    ``tiered`` is set when the pack built the treelet view."""
+    ``tiered`` is set when the pack built the treelet view.
+
+    Miss-link view: ``records`` row = [bmin(3) bmax(3) | left_first, count,
+    miss (float-encoded, exact below 2^24) | K leaf triangles x (v0 e1 e2) |
+    K transparencies | K sign-encoded materials | pad to a multiple of 8],
+    one per unified node (TLAS and BLAS copies stitched, packing
+    ._build_unified); internal nodes have count -1 and zero triangles."""
 
     tri_v0: torch.Tensor  # (Tw, 3) f32 world space
     tri_e1: torch.Tensor  # (Tw, 3) f32
@@ -904,6 +911,7 @@ class WorldArrays:
     tre_leaf: Optional[torch.Tensor] = None  # (Tt, SL, W2) f32
     tiered: bool = False
     top_depth: int = 0  # top-tree inner depth (0 = unknown)
+    records: Optional[torch.Tensor] = None  # (Nu, W) f32, see above
     treelet_depth: int = 0  # deepest treelet's inner depth (0 = unknown)
     inner8_table: Optional[torch.Tensor] = None  # (N8, 72) f32
     leaf8_table: Optional[torch.Tensor] = None  # (L8, W2) f32
@@ -1004,6 +1012,15 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
     wtri_mat_enc = (tri_mat.float() + 1.0) * tri_nsign
     mat_block = wtri_mat_enc[nlt]  # (Nu, K)
 
+    # miss-link records: bounds | meta | leaf triangles | transparencies |
+    # materials | pad; meta ints as float values, exact only below 2^24
+    if n_nodes >= 1 << 24:
+        raise ValueError(f"{n_nodes} unified nodes: records encode ids < 2^24")
+    records = torch.cat(
+        [node_bounds, arrays.uni_meta.float(), leaf_block, transp_block,
+         mat_block], dim=1)
+    records = torch.nn.functional.pad(records, (0, (-records.shape[1]) % 8))
+
     # BVH2 inner table: both children's boxes + refs + counts; padding
     # children (node id -1) get an inverted box
     cn = arrays.bvh2_child_node.long()  # (Ni, 2)
@@ -1094,4 +1111,5 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         treelet_depth=int(arrays.treelet_depth),
         wide_depth=int(arrays.wide_depth),
         wide_stack=int(arrays.wide_stack),
+        records=records.contiguous(),
     )

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K3, K5, K6, K8, the tiered, wide and frustum
-K1, K4's phase 1 and continuation, and the K9 instantiations) against their
-plain PyTorch versions on the card. Marked ``cuda``: they skip where torch sees no CUDA device, and
+"""The port's CUDA kernels (K1-K3, K5, K6, K7, K8, the tiered, wide and
+frustum K1, K1 with sample fusion, K4's phase 1 and continuation, and the
+K9 instantiations) against their plain PyTorch versions on the card, and
+the per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip where torch sees no CUDA device, and
 run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from rayzen_tpu_torch import RenderConfig, ext
+from rayzen_tpu_torch.integrator import render_rays
 from rayzen_tpu_torch.demo import build_small_scene
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
@@ -304,3 +306,63 @@ def test_wide_kernel_overflow_poisons_nan(setup):
     assert torch.isnan(t).all() and torch.isnan(menc).all()
     vis, _ = walk.shadow_walk_bvh8(ladder, o, d, 50.0, act)
     assert torch.isnan(vis).all()
+
+
+def test_k7_matches_plain_and_k2(setup):
+    """K7 closest: the plain version's triangle and t to the bit, and K2's;
+    K7 shadow: the plain version's vis exactly, inactive rays 1."""
+    ws, o, d = setup["ws"], setup["o"], setup["d"]
+    act = torch.rand(o.shape[0], device=o.device) < 0.9
+    before = ext.LAUNCHES["closest_hit_misslink"]
+    k = walk.closest_walk_misslink(ws, o, d, act)
+    assert ext.LAUNCHES["closest_hit_misslink"] == before + 1
+    p = walk.misslink_closest_walk_reference(ws, o, d, act)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    k2 = walk.closest_walk(ws, o, d, act)
+    assert torch.equal(k[1], k2[1]) and torch.equal(k[0], k2[0])
+    hit = walk.decode_hit(ws, o, d, *k)
+    ldir = torch.tensor([0.3, 0.9, 0.1], device=o.device)
+    ldir = (ldir / ldir.norm()).expand_as(o).contiguous()
+    so = hit.point + ldir * 1e-3
+    kv, kr = walk.shadow_walk_misslink(ws, so, ldir, 50.0, hit.found)
+    pv = walk.misslink_shadow_walk_reference(ws, so, ldir, 50.0, hit.found)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert int(kr) == int(hit.found.sum()) and (kv < 1).any()
+    assert (kv[~hit.found] == 1).all()
+
+
+@pytest.mark.parametrize("kernels", ["pallas-ml", "pallas-bvh2", "pallas-nomega"])
+def test_staged_variants_launch_their_kernels(setup, kernels):
+    """Each staged variant on CUDA tensors launches its walks (and no K1)
+    and renders the frame of the same config run on CPU tensors, where the
+    plain walks stand in, within float32 rounding of the torch glue."""
+    cfg = setup["cfg"].replace(kernels=kernels, rng="threefry", max_bounces=3)
+    ws_cpu_arrays = pack_scene(build_small_scene(64, 48), cfg, "cpu")
+    arrays = pack_scene(build_small_scene(64, 48), cfg, setup["dev"])
+    frag, uv = pixel_grid(W, H, setup["dev"])
+    ext.reset_launches()
+    img, rays = render_rays(arrays, frag, uv, setup["cam"], cfg, with_stats=True)
+    got = {k: v for k, v in ext.LAUNCHES.items() if v}
+    expect = {"pallas-ml": {"closest_hit_misslink", "shadow_walk_misslink"},
+              "pallas-bvh2": {"closest_hit_bvh2", "shadow_walk_bvh2"},
+              "pallas-nomega": {"closest_hit_frustum", "closest_hit_bvh2",
+                                "shadow_walk_bvh2"}}[kernels]
+    assert set(got) == expect
+    cfrag, cuv = pixel_grid(W, H, "cpu")
+    pimg, prays = render_rays(ws_cpu_arrays, cfrag, cuv, setup["cam"], cfg,
+                              with_stats=True)
+    assert int(rays) == int(prays)
+    assert (img.cpu() - pimg).abs().max().item() <= 1e-4
+
+
+def test_fused_k1_matches_plain(setup):
+    """K1 with sample_fuse=2 at 4 spp sums in the plain version's order."""
+    cfg = setup["cfg"].replace(rng="threefry", sample_fuse=2)
+    uv, ws, cam = setup["uv"], setup["ws"], setup["cam"]
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 4)
+    pc, pr = megakernel.sample_wave_reference(ws, cfg, uv, act, cam, 0, 0, 5, 4)
+    err = (kc - pc).abs().amax(-1).cpu().numpy()
+    assert (err < 1e-4).mean() >= 0.998
+    assert int(kr) == int(pr)

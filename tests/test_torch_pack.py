@@ -107,6 +107,28 @@ def test_world_geometry_matches_jax(kind, tmp_path):
         assert (tl[:, 10 * 8 + 2:10 * 8 + 2 + 8] < 0).any()
 
 
+def test_records_match_jax(tmp_path):
+    """The miss-link records (K7's and the portable walks' table): bounds
+    and triangles to rtol 1e-6 as the other refit tables, the float-encoded
+    meta, transparency and material columns and the padding bitwise."""
+    for kind in ("small", "demo"):
+        js, ts = _scenes(kind)
+        jcfg, tcfg = _configs(tmp_path)
+        jr = np.asarray(jpack.world_geometry(jpack.pack_scene(js, jcfg)).records)
+        tr = tpack.world_geometry(tpack.pack_scene(ts, tcfg, "cpu")).records.numpy()
+        K = 8
+        assert tr.dtype == jr.dtype == np.float32
+        assert tr.shape == jr.shape and tr.shape[1] == 104, kind  # 97 padded
+        if kind == "demo":
+            assert tr.shape[0] == 1691
+        floats = list(range(0, 6)) + list(range(9, 9 + 9 * K))
+        exact = [c for c in range(tr.shape[1]) if c not in floats]
+        np.testing.assert_array_equal(tr[:, exact], jr[:, exact], err_msg=kind)
+        np.testing.assert_allclose(tr[:, floats], jr[:, floats], rtol=1e-6,
+                                   atol=0, err_msg=kind)
+        assert (tr[:, 7] == -1).any() and (tr[:, 7] >= 1).any()  # inner, leaf
+
+
 def _jax_leaves(x):
     return {f.name: (getattr(x, f.name) if f.metadata.get("static")
                      else np.asarray(getattr(x, f.name)))
