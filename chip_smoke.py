@@ -30,8 +30,13 @@ Phases (each prints its own lines and stops the run when it fails):
   5 gates         bench.py's golden gates at 256x192 and 800x600 on K1
   6 main path     1080p/64 spp frame: warm-up + timed dispatches
   7 kernels       K1 (64 spp, both RNG flows), K2 and K3 vs plain at the main
-                  path's 1080p shapes with the bars of phases 3/4, their
-                  times, and where one dispatch's time goes (torch.profiler)
+                  path's 1080p shapes with the bars of phases 3/4 (the plain
+                  K1 renders the whole frame in the configured flow and a
+                  1-in-8 strided subset of its pixels in the other), their
+                  times, the regenerating K1's compiled budget (registers,
+                  spills, resident warps per SM) and its walk-loop lane
+                  utilisation (the counting K1), and where one dispatch's
+                  time goes (torch.profiler)
   8 launches      K1 launched in the main-path run (K2/K3 run there as device
                   functions of K1); each kernel launched in phase 7
   9 field         the 520-Suzanne field (bench_large.py), packed with the
@@ -39,7 +44,8 @@ Phases (each prints its own lines and stops the run when it fails):
  10 K8            K8 closest/shadow vs plain at the field's 1080p primary rays
                   and shadow rays, and vs K2/K3 on the whole tree
  11 tiered K1     the tiered K1 vs plain at 320x180, 1 spp, both RNG flows;
-                  vs the whole-tree K1 at 1920x1080, 4 spp
+                  vs the whole-tree K1 at 1920x1080, 4 spp, with its time
+                  and walk-loop lane utilisation there
  12 field path    the field's 1080p/4 spp frame (render_radiance_with_stats,
                   tiered K1): timed dispatches, launch counts, the refit and
                   one profiled dispatch, then in turns with the whole-tree K1
@@ -204,36 +210,6 @@ def build_field_scene(width: int, height: int, n_instances: int = 520):
     )
 
 
-def ptxas_summary(log: str) -> dict:
-    """Registers, stack frame and spill stores per kernel from nvcc's
-    -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
-    ",frustum" for those with the K6 primary walk)."""
-    import re
-
-    out, cur = {}, None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            mangled = ln.split("'")[1]
-            kernel = next((k for k in ("continuation_kernel", "sample_kernel",
-                                       "closest_frustum_kernel",
-                                       "shadow_frustum_kernel",
-                                       "closest_kernel", "shadow_kernel")
-                           if k in mangled), mangled)
-            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk")
-                         if w in mangled), "Bvh2Walk")
-            flags = re.findall(r"Lb([01])E", mangled)
-            octant = ",octant" if flags[:1] == ["1"] else ""
-            frustum = ",frustum" if flags[1:2] == ["1"] else ""
-            cur = f"{kernel}<{walk}{octant}{frustum}>"
-            out[cur] = {}
-        elif cur and "bytes stack frame" in ln:
-            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
-            out[cur]["stack"], out[cur]["spill"] = nums[0], nums[1]
-        elif cur and "Used" in ln and "registers" in ln:
-            out[cur]["regs"] = int(ln.split("Used")[1].split()[0])
-    return out
-
-
 def cuda_ms(fn, reps: int, torch):
     """Per-call device time of fn() in ms (CUDA events), after one warm-up
     call."""
@@ -360,7 +336,7 @@ def main() -> int:
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
             f.write(ext.build_log)
-    ptxas = ptxas_summary(ext.build_log)
+    ptxas = ext.ptxas_summary(ext.build_log)
     say(f"[2 build] nvcc sm_90a build {build_s:.1f} s (one nvcc per source, in "
         "parallel); ptxas: " + " | ".join(
             f"{k} {v.get('regs')} regs, {v.get('stack')} B stack, "
@@ -533,19 +509,47 @@ def main() -> int:
             f"{pms:.2f} ms")
         require(err <= 1e-5, "K3 vis atol > 1e-5 at 1080p")
     _, muv = pixel_grid(1920, 1080, dev)
+    # K1 renders the whole 1080p frame in both flows. The plain version
+    # renders it whole in the configured flow (its walks count the bound's
+    # work) and, in the other, the 1-in-8 strided subset of the pixels
+    # (every 8th column, a 240x1080 image), held against the kernel's
+    # pixels there with the same bars.
     for rng in ("threefry", "reference"):
         c7 = mcfg.replace(rng=rng)
-        k = megakernel.sample_wave(mws, c7, muv, mact, mcam, 0, 0, 5, 64)
-        p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
-            mws, c7, muv, mact, mcam, 0, 0, 5, 64, work=w), torch, walk)
-        k1_err = max(k1_err, k1_compare("7 kernels", rng, k, p, 1920, 1080, 64))
+        kc, kr, _ = megakernel._launch_sample(
+            mws, megakernel._consts(c7, 0, 0, 5, 64), muv, mact, mcam, 5,
+            phase1=False)
         if rng == mcfg.rng:
-            p1_ms, k1_work = pms, work
+            p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
+                mws, c7, muv, mact, mcam, 0, 0, 5, 64, work=w), torch, walk)
+            p1_ms, k1_work, k1_frame = pms, work, kc
+            k, shape = (kc, kr.sum(dtype=torch.int64)), (1920, 1080)
+        else:
+            p = megakernel.sample_wave_reference(mws, c7, muv[::8], mact[::8], mcam,
+                                                 0, 0, 5, 64)
+            k, shape = (kc[::8], kr[::8].sum(dtype=torch.int64)), (240, 1080)
+        k1_err = max(k1_err, k1_compare("7 kernels", rng, k, p, *shape, 64))
     k1_ms = cuda_ms(lambda: megakernel.sample_wave(
         mws, mcfg, muv, mact, mcam, 0, 0, 5, 64), 3, torch)
     refit_ms = cuda_ms(lambda: world_geometry(marrays), 10, torch)
     say(f"[7 kernels] 1080p on {kind} ({smi}): K1 64 spp {k1_ms:.2f} ms vs plain "
         f"{p1_ms:.2f} ms; refit {refit_ms:.3f} ms")
+    # the regenerating K1's compiled budget and its walk loop's lane
+    # utilisation (the counting instantiation, a diagnostic off the main
+    # path) on the same 1080p/64 spp frame
+    budget = {v: megakernel.sample_budget(v) for v in ("bvh2", "tiered", "wide")}
+    say("[7 kernels] regenerating K1 budget: " + "; ".join(
+        f"{v} {b['threads']} threads, {b['regs']} registers "
+        f"(ptxas spills {ptxas.get(f'regen_kernel<{w}>', {}).get('spill')} B), "
+        f"{b['local_bytes']} B local, {b['warps_per_sm']} resident warps per SM"
+        for (v, b), w in zip(budget.items(), ("Bvh2Walk", "TieredWalk", "Bvh8Walk"))))
+    lc, lr, l_act, l_slots = megakernel.walk_lane_counts(mws, mcfg, muv, mact, mcam,
+                                                         0, 0, 5, 64)
+    lanes_demo = l_act / l_slots
+    say(f"[7 kernels] K1 walk-loop lane utilisation, 1080p/64 spp: {lanes_demo:.4f} "
+        f"({l_act} active lane-steps of {l_slots}); the counting K1's frame equals "
+        f"K1's {bool(torch.equal(lc, k1_frame))}, rays {int(lr)}")
+    require(torch.equal(lc, k1_frame), "the counting K1 rendered another frame")
     standalone = dict(ext.LAUNCHES)
     wall, busy, top = profile_dispatch(
         lambda: render_radiance_with_stats(marrays, mcam, mcfg), torch,
@@ -641,7 +645,7 @@ def main() -> int:
             fws, gcfg, guv, gact, fcam, 0, 0, 5, 1, work=w), torch, walk)
         k1t_err = max(k1t_err, k1_compare("11 tiered K1", rng, k, p, 320, 180, 1))
         if rng == fcfg.rng:
-            p1t_ms, k1t_work = pms, work
+            p1t_ms, k1t_work, p1t_rays = pms, work, int(p[1])
             k1t_ms = cuda_ms(lambda: megakernel.sample_wave(
                 fws, gcfg, guv, gact, fcam, 0, 0, 5, 1), 5, torch)
     _, fuv = pixel_grid(1920, 1080, dev)
@@ -665,6 +669,15 @@ def main() -> int:
     say(f"[11 tiered K1] field 1080p/4 spp K1 alone on {kind} ({smi}): tiered "
         f"{k1t_1080_ms:.2f} ms, whole tree {k1w_1080_ms:.2f} ms; 320x180/1 spp: "
         f"tiered {k1t_ms:.3f} ms vs plain {p1t_ms:.2f} ms")
+    lc, lr, l_act, l_slots = megakernel.walk_lane_counts(fws, fcfg, fuv, fact, fcam,
+                                                         0, 0, 5, 4)
+    lanes_field = l_act / l_slots
+    say(f"[11 tiered K1] walk-loop lane utilisation, field 1080p/4 spp: "
+        f"{lanes_field:.4f} ({l_act} active lane-steps of {l_slots}); the counting "
+        f"K1's frame equals the tiered K1's {bool(torch.equal(lc, tcol))}, rays "
+        f"{int(lr)} vs {int(trays)}")
+    require(torch.equal(lc, tcol) and int(lr) == int(trays),
+            "the counting tiered K1 rendered another frame")
 
     # ---- 12 field path: render_radiance_with_stats on the tiered K1 ----
     img, rays = render_radiance_with_stats(farrays, fcam, fcfg)  # warm-up
@@ -1399,12 +1412,19 @@ def main() -> int:
                 field_whole_tree_k1_median_ms=out["field_turns"]["K1"], **extra),
         ]
 
+    # the tiered K1's bound at the field's 1080p/4 spp, estimated: the plain
+    # walks' work per traced ray at 320x180/1 spp times the rays K1 traced
+    # at 1080p/4 spp (the plain version at that size would take most of an
+    # hour)
+    k1t_est_bound = bound({k: v * int(trays) / p1t_rays for k, v in k1t_work.items()},
+                          ftab + R * sample_b)
     ph1_ms, pph1_ms, ph1_work, _ = k4["ph1"]
     cont_ms, pcont_ms, cont_work, _ = k4["cont"]
     kernels = [
         row("K1 sample_wave", "sample_kernel.cu", "rayzen_tpu/ops/megakernel.py:460",
             launches["sample_wave"], k1_err, k1_ms, p1_ms, k1_work,
-            mtab + R * sample_b, shape="demo 1080p, 64 spp"),
+            mtab + R * sample_b, shape="demo 1080p, 64 spp",
+            walk_lane_utilisation=lanes_demo, budget=budget["bvh2"]),
         row("K2 closest_hit_bvh2", "walk_kernels.cu",
             "rayzen_tpu/ops/pallas_traverse.py:243", launches["closest_hit_bvh2"],
             k2_err, k2_ms, p2_ms, k2_work,
@@ -1421,7 +1441,9 @@ def main() -> int:
             "rayzen_tpu/ops/megakernel.py:460", flaunches["sample_wave_tiered"],
             k1t_err, k1t_ms, p1t_ms, k1t_work, ftab + 320 * 180 * sample_b,
             shape="field 320x180, 1 spp", field_1080p_4spp_ms=k1t_1080_ms,
-            whole_tree_1080p_4spp_ms=k1w_1080_ms),
+            whole_tree_1080p_4spp_ms=k1w_1080_ms,
+            field_1080p_4spp_bound_ms_estimate=k1t_est_bound[0],
+            walk_lane_utilisation=lanes_field, budget=budget["tiered"]),
         row("K8 closest_hit_tiered", "walk_kernels.cu",
             "rayzen_tpu/ops/pallas_traverse.py:796", flaunches["closest_hit_tiered"],
             k8_err, k8_ms, p8_ms, k8_work, ftab - cam_b + R * 49,
@@ -1474,7 +1496,8 @@ def main() -> int:
         ("closest_hit_bvh8", "shadow_walk_bvh8", "sample_wave_wide"),
         ("rayzen_tpu/ops/pallas_traverse.py:617",
          "rayzen_tpu/ops/pallas_traverse.py:728",
-         "rayzen_tpu/ops/megakernel.py:503"), walk8_b, mtab8, {})
+         "rayzen_tpu/ops/megakernel.py:503"), walk8_b, mtab8,
+        dict(budget=budget["wide"]))
     kernels += knob_rows(
         "K6", k6, "frustum.cuh",
         ("closest_hit_frustum", "shadow_walk_frustum", "sample_wave_frustum"),

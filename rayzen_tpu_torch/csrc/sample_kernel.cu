@@ -1,5 +1,5 @@
-// K1: full path-tracing samples, one thread per pixel, all samples looped
-// inside the thread and all state in registers.
+// K1: full path-tracing samples, one thread per pixel, all of the pixel's
+// samples inside the thread and all state in registers.
 //
 // Replaces rayzen_tpu/ops/megakernel.py::_make_sample_kernel (:460), launched
 // by sample_wave (:1044): per sample, raygen with the 2e-5 sin-hash jitter
@@ -27,16 +27,42 @@
 // writes the 13 continuation rows (stop_bounce / emit_state, :486-490,
 // :706-711) that continuation_kernel.cu resumes from.
 //
-// What bounds it on an H100: the BVH walks (walk.cuh) — dependent, divergent
-// loads from L2-resident tables (~0.5 MB for the demo scene; ~45 MB of
-// treelet tables for the 503k-triangle field, about the size of the L2). Shading is a
-// few hundred flops per bounce and the only global traffic besides the walks
-// is the (R, 2) uv read and the (R, 3) + (R,) result write. The design keeps
-// the whole sample loop in one thread, so no wave state ever goes to memory
-// and a ray that dies stops costing work at once; materials, lights and the
-// camera are tiny tables read through the read-only cache. Divergence between
-// the rays of a warp (different bounce counts, different walks) is the known
-// cost of this simple form.
+// What bounds it on an H100: the BVH walks (walk.cuh), dependent loads from
+// L2-resident tables (~0.5 MB for the demo scene; 37 MB of treelet tables
+// for the 503k-triangle field, most of the 50 MB L2). A walk step waits on
+// its load, and a warp steps only as far as its longest walk, so the time
+// goes to load latency that too few warps hide and to lanes that idle in
+// the step loop; bandwidth and flops are far from their bounds (PERF.md).
+// Shading is a few hundred flops per bounce, and the only other global
+// traffic is the (R, 2) uv read and the (R, 3) + (R,) result write.
+//
+// Two schedules, fixed at compile time by what an instantiation's walks
+// need:
+// - regen_kernel, for K1 over the whole tree, the tiered view and the wide
+//   tables (rz_sample_wave, _tiered, _wide). (1) Warp tiles: a warp covers
+//   8 x 4 pixels and a block 16 x 8, so its primary and shadow rays share
+//   more nodes per step than a row of 32. (2) In-thread regeneration: each
+//   iteration traces one ray per lane (the primary ray, shadow ray li of the
+//   primary hit, or the next bounce) at one call site, through one node
+//   loop for closest and shadow rays (walk.cuh kEither), and a lane whose
+//   path ends starts its own next sample at once instead of idling through
+//   the warp's bounce tail. (3) A register budget: __launch_bounds__ holds
+//   it to 64 registers (some spills, to L1-cached local memory) for 32
+//   resident warps per SM, where the lockstep K1's 128-157 registers left
+//   12-16 to hide the walks' load latency. (4) Over the tiered view the
+//   warps are persistent: each takes warp tiles from a counter until none
+//   is left.
+// - sample_kernel, the lockstep loop: a thread runs its samples in turn,
+//   each through the primary walk, the shadow walks of direct_lighting and
+//   trace_bounces, at separate call sites, scanline pixel order. K9's
+//   votes (kOctant), K6's packet walk (kFrustum) and K4's phase 1 (one
+//   sample and its state rows) need the whole warp at each of those calls,
+//   so their instantiations keep it.
+// Both give each pixel the same operations in the same order (samples,
+// sub-blocks, lights, bounces), so their frames are equal bit for bit.
+#include <algorithm>
+#include <type_traits>
+
 #include "frustum.cuh"
 #include "shade.cuh"
 
@@ -81,14 +107,7 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
                 cpz = __ldg(cam + 34);
 
     smp.hash = p.rng_hash != 0;
-    uint32_t key_h = 0;
-    if (smp.hash) {
-      const uint32_t pixel_id =
-          (uint32_t)(int32_t)floorf(v * H) * (uint32_t)(p.width * 2) +
-          (uint32_t)(int32_t)floorf(u * W);
-      key_h = rz::hash_u32((uint32_t)p.key + 0x9E3779B9u);
-      smp.h_pix = rz::hash_u32(pixel_id ^ key_h);
-    }
+    smp.h_pix = rz::pixel_key(p, u, v);
 
     // sample fusion (cfg.sample_fuse, megakernel.py:592-607, :723-730):
     // sub-block sb sums the samples g * fuse + sb in order of g, from zero,
@@ -98,37 +117,12 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
     const int groups = p.n_samples / p.fuse;
     for (int s = 0; s < p.n_samples; ++s) {
       const int sb = s / groups, g = s - sb * groups;
-      const float samp_f = p.samp0 + (float)(g * p.fuse + sb);
-      smp.samp_f = samp_f;
       path = Path{};
       bool hit0 = false;
       float dx = 0.0f, dy = 0.0f, dz = 0.0f;
       if (on) {
-        float jx, jy;
-        if (!smp.hash) {
-          // seed = uv * (fragX + fragY + samp + 1) (glsl:688)
-          const float scale =
-              ((floorf(u * W) + floorf(v * H)) + 1.0f) + (samp_f + 1.0f);
-          smp.s0 = u * scale;
-          smp.s1 = v * scale;
-          jx = rz::ref_rand(smp.s0, smp.s1) * 0.00002f;
-          jy = rz::ref_rand(smp.s0 + 1.0f, smp.s1 + 1.0f) * 0.00002f;
-        } else {
-          smp.samp_u = (uint32_t)(int32_t)samp_f;
-          const uint32_t jbase = smp.h_pix + smp.samp_u * 7919u;
-          jx = (rz::u32_to_unit(rz::hash_u32(jbase + 0u)) - 0.5f) / W;
-          jy = (rz::u32_to_unit(rz::hash_u32(jbase + 1u)) - 0.5f) / H;
-        }
-
-        // ---- raygen (glsl:204-212) ----
-        const float ndx = (u + jx) * 2.0f - 1.0f;
-        const float ndy = (v + jy) * 2.0f - 1.0f;
-        const float eye0 = ((P[0] * ndx + P[1] * ndy) - P[2]) + P[3];
-        const float eye1 = ((P[4] * ndx + P[5] * ndy) - P[6]) + P[7];
-        dx = (V[0] * eye0 + V[1] * eye1) - V[2];
-        dy = (V[4] * eye0 + V[5] * eye1) - V[6];
-        dz = (V[8] * eye0 + V[9] * eye1) - V[10];
-        rz::normalize3(dx, dy, dz, 0.0f);
+        rz::camera_dir(P, V, u, v, W, H, p.samp0 + (float)(g * p.fuse + sb),
+                       smp, dx, dy, dz);
       }
 
       // ---- bounce 0: primary hit, the only bounce with direct lighting
@@ -163,23 +157,7 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
 #pragma unroll
           for (int c = 0; c < 3; ++c) path.c[c] = 0.0f + direct[c];
 
-          // bounce-0 scatter (throughput starts at 1)
-          float rand_val, hu, hv;
-          smp.draws(0, rand_val, hu, hv);
-          float nd[3];
-          path.ior = 1.0f;
-          rz::scatter(dx, dy, dz, nx, ny, nz, path.ior, rand_val, hu, hv, m,
-                      nd, path.tp);
-          const float push =
-              rz::dot3(nd[0], nd[1], nd[2], nx, ny, nz) > 0.0f ? 0.003f
-                                                               : -0.003f;
-          path.ox = px + nx * push;
-          path.oy = py + ny * push;
-          path.oz = pz + nz * push;
-          path.dx = nd[0];
-          path.dy = nd[1];
-          path.dz = nd[2];
-          path.alive = true;
+          rz::start_path(smp, px, py, pz, dx, dy, dz, nx, ny, nz, m, path);
         }
       }
 
@@ -223,6 +201,303 @@ int launch_sample(Walk w, const float* mats, const float* lights,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the regenerating K1: rz_sample_wave, _tiered and _wide ----
+
+// Block size, and the blocks each SM must hold at once (__launch_bounds__;
+// registers per thread <= 65536 / (threads x blocks)): 128 x 8, 64
+// registers and 32 resident warps, the fastest point of the measured
+// register sweep for the whole tree and the tiered view alike (PERF.md §5).
+// scripts/k1_schedule.py rebuilds with other values (-D) to sweep them.
+#ifndef RZ_K1_THREADS
+#define RZ_K1_THREADS 128
+#endif
+#ifndef RZ_K1_MIN_BLOCKS
+#define RZ_K1_MIN_BLOCKS 8
+#endif
+constexpr int kThreads = RZ_K1_THREADS;
+static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
+constexpr int kWarps = kThreads / 32;
+
+// The screen tile of a block: two warps across, each warp 8 x 4 pixels.
+constexpr int kTileW = 16, kTileH = kThreads / kTileW;
+
+// Block tiles of a launch over n pixels of a width x height frame.
+__host__ __device__ int tile_blocks(int n, int width, int height) {
+  if ((long long)width * height != n) return (n + kThreads - 1) / kThreads;
+  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+}
+
+// The pixel of lane ``lane`` of warp ``warp`` in block tile ``tile``, -1
+// for none. A full frame (n = width x height, row after row) is cut into
+// kTileW x kTileH tiles, clipped at the right and bottom edges; any other
+// wave is mapped linearly. Either map gives each pixel exactly one lane,
+// and a pixel's result does not depend on its lane, so the map changes only
+// which rays share a warp.
+__device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
+                                          int width, int height) {
+  if ((long long)width * height != n) {
+    const int i = tile * kThreads + warp * 32 + lane;
+    return i < n ? i : -1;
+  }
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int x = (tile % tiles_x) * kTileW + (warp & 1) * 8 + (lane & 7);
+  const int y = (tile / tiles_x) * kTileH + (warp >> 1) * 4 + (lane >> 3);
+  return x < width && y < height ? y * width + x : -1;
+}
+
+// Persistent warps, for the tiered K1: the launch starts as many blocks as
+// the card holds at once, and each warp takes warp tiles, in order, from a
+// counter until none is left, so a warp that finishes early takes more
+// work. Measured in turns (PERF.md §6): the tiered K1 0.91x, the whole-tree
+// K1 1.02-1.04x and the wide K1 1.00x, so only the tiered walks run so.
+template <class Walk>
+constexpr bool kPersistent = std::is_same_v<Walk, rz::TieredWalk>;
+
+// The walk-loop lane counter of the counting K1 (rz_sample_wave_count,
+// rz_sample_wave_tiered_count): at every step of a walk's node loop the
+// lowest active lane of the warp adds the active lanes and 32 to one of
+// kCountSlots pairs of 64-bit sums (spread over slots by warp, so that the
+// atomics do not queue on one address). active / slots over a launch is the
+// walk loop's lane utilisation.
+constexpr int kCountSlots = 1024;
+__device__ unsigned long long g_walk_lanes[2 * kCountSlots];
+
+struct LaneCount {
+  __device__ __forceinline__ void step() const {
+    const unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+      const unsigned slot =
+          (blockIdx.x * kWarps + (threadIdx.x >> 5)) % kCountSlots;
+      atomicAdd(&g_walk_lanes[2 * slot], (unsigned long long)__popc(m));
+      atomicAdd(&g_walk_lanes[2 * slot + 1], 32ull);
+    }
+  }
+};
+
+// A lane's stage in its current sample: the primary ray, shadow ray li of
+// the primary hit (stage = li >= 0), or a bounce ray.
+constexpr int kPrimary = -1, kBounce = -2;
+
+// K1 with in-thread path regeneration: each lane runs its own pixel's
+// samples as a state machine that traces one ray per iteration, at one walk
+// call site (Walk::trace, a kEither walk: closest and shadow rays share the
+// node loop). A lane whose path ends starts its next sample at once instead
+// of waiting for the longest path of its warp. Each pixel sums its samples,
+// sub-blocks and lights in the lockstep kernel's order, with the same
+// operations, so its colour and ray count are the lockstep kernel's bit for
+// bit. Between iterations a lane keeps its sample's state: the path (whose
+// origin holds the hit point and whose colour holds the direct-lighting sum
+// while the lights are sampled), the primary hit's normal and material, the
+// sampler seeds, the sub-block sum and the ray count; the view vector, the
+// material row and each light's ray are recomputed where they are used.
+template <class Count, class Walk>
+__device__ __forceinline__ void regen_pixel(
+    int i, const Walk& w, const float* __restrict__ mats,
+    const float* __restrict__ lights, const float* __restrict__ cam,
+    const float* __restrict__ uv, const uint8_t* __restrict__ act,
+    const SampleParams& p, float* __restrict__ color_out,
+    int* __restrict__ rays_out) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) color_out[3 * i + c] = 0.0f;
+  if (act[i] == 0 || p.n_samples <= 0) {
+    rays_out[i] = 0;
+    return;
+  }
+  const Count cnt{};
+  const float u = uv[2 * i], v = uv[2 * i + 1];
+  const float cpx = __ldg(cam + 32), cpy = __ldg(cam + 33),
+              cpz = __ldg(cam + 34);
+  rz::Sampler smp{};
+  smp.hash = p.rng_hash != 0;
+  smp.h_pix = rz::pixel_key(p, u, v);
+  const int groups = p.n_samples / p.fuse;  // sample fusion, as sample_kernel
+
+  float acc[3] = {0.0f, 0.0f, 0.0f};  // the current sub-block's sum
+  int rays = 0;
+  int s = 0, stage = kPrimary, b = 0;
+  bool hit0 = false;
+  Path path{};
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, menc = 0.0f;  // the primary hit
+  // sample s: its primary direction in path.d
+  const auto begin_sample = [&]() {
+    const int sb = s / groups, g = s - sb * groups;
+    float P[8], V[12];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) P[k] = __ldg(cam + k);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) V[k] = __ldg(cam + 16 + k);
+    path = Path{};
+    rz::camera_dir(P, V, u, v, (float)p.width, (float)p.height,
+                   p.samp0 + (float)(g * p.fuse + sb), smp, path.dx, path.dy,
+                   path.dz);
+    stage = kPrimary;
+    hit0 = false;
+  };
+  begin_sample();
+  for (;;) {
+    // ---- this iteration's ray, and its walk: one call site for all lanes
+    const bool shadow = stage >= 0;
+    rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+    rz::Ray r;
+    if (stage == kPrimary) {
+      r = rz::make_ray(cpx, cpy, cpz, path.dx, path.dy, path.dz);
+    } else if (shadow) {
+      const rz::LightRay l =
+          rz::light_ray(lights + 8 * stage, path.ox, path.oy, path.oz);
+      h.t = l.maxd;
+      r = rz::shadow_ray(l, path.ox, path.oy, path.oz);
+    } else {
+      r = rz::make_ray(path.ox, path.oy, path.oz, path.dx, path.dy, path.dz);
+    }
+    float vis = 1.0f;
+    w.trace(r, shadow, p.min_vis, p.shadow_eps, h, vis, cnt);
+    rays += 1;
+
+    // ---- what the ray found
+    bool done = false;
+    if (stage == kPrimary) {
+      if (h.menc == 0.0f) {  // sky (glsl:706-709)
+        const float sky_t = 0.5f * (path.dy + 1.0f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          acc[c] = acc[c] + (p.sky_h[c] + p.sky_d[c] * sky_t);
+        }
+        done = true;
+      } else {  // bounce 0, the only one with direct lighting
+        hit0 = true;
+        rz::hit_normal(h, nx, ny, nz);
+        menc = h.menc;
+        path.ox = cpx + path.dx * h.t;
+        path.oy = cpy + path.dy * h.t;
+        path.oz = cpz + path.dz * h.t;
+        rz::light_init(p, rz::load_material(mats, p.n_mats, menc), path.c);
+        stage = 0;
+      }
+    } else if (shadow) {
+      const float* g = lights + 8 * stage;
+      const rz::LightRay l = rz::light_ray(g, path.ox, path.oy, path.oz);
+      float vx = cpx - path.ox, vy = cpy - path.oy, vz = cpz - path.oz;
+      rz::normalize3(vx, vy, vz, 1e-20f);
+      const float n_dot_v = fmaxf(rz::dot3(nx, ny, nz, vx, vy, vz), 0.0f);
+      rz::add_light(g, l, vis, p.min_vis,
+                    rz::load_material(mats, p.n_mats, menc), nx, ny, nz, vx,
+                    vy, vz, n_dot_v, path.c);
+      stage += 1;
+    } else {
+      rz::shade_bounce(mats, p, smp, b, h, path);
+      b += 1;
+      done = !path.alive || b >= p.b_stop;
+    }
+    if (stage == p.n_lights) {  // the lights are done: bounce 0's scatter
+#pragma unroll
+      for (int c = 0; c < 3; ++c) path.c[c] = 0.0f + path.c[c];
+      rz::start_path(smp, path.ox, path.oy, path.oz, path.dx, path.dy,
+                     path.dz, nx, ny, nz,
+                     rz::load_material(mats, p.n_mats, menc), path);
+      stage = kBounce;
+      b = 1;
+      done = b >= p.b_stop;
+    }
+    if (!done) continue;
+
+    // ---- the sample ends: fold it in, and start the next
+    if (hit0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + path.c[c];
+    }
+    const int sb = s / groups, g = s - sb * groups;
+    if (g == groups - 1) {  // the sub-block ends
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        color_out[3 * i + c] = color_out[3 * i + c] + acc[c];
+        acc[c] = 0.0f;
+      }
+    }
+    if (++s == p.n_samples) break;
+    begin_sample();
+  }
+  rays_out[i] = rays;
+}
+
+// rays_out holds n + 1 ints: the last, zeroed by the wrapper, is the
+// persistent warps' counter of warp tiles taken.
+template <class Walk, class Count>
+__global__ void __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)
+    regen_kernel(Walk w, const float* __restrict__ mats,
+                 const float* __restrict__ lights,
+                 const float* __restrict__ cam, const float* __restrict__ uv,
+                 const uint8_t* __restrict__ act, int n, SampleParams p,
+                 float* __restrict__ color_out, int* __restrict__ rays_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (!kPersistent<Walk>) {
+    const int i = tile_pixel(blockIdx.x, warp, lane, n, p.width, p.height);
+    if (i >= 0) {
+      regen_pixel<Count>(i, w, mats, lights, cam, uv, act, p, color_out,
+                         rays_out);
+    }
+  } else {
+    const int n_items = tile_blocks(n, p.width, p.height) * kWarps;
+    for (;;) {
+      int item = 0;
+      if (lane == 0) item = atomicAdd(rays_out + n, 1);
+      item = __shfl_sync(rz::kFullMask, item, 0);
+      if (item >= n_items) break;
+      const int i =
+          tile_pixel(item / kWarps, item % kWarps, lane, n, p.width, p.height);
+      if (i >= 0) {
+        regen_pixel<Count>(i, w, mats, lights, cam, uv, act, p, color_out,
+                           rays_out);
+      }
+    }
+  }
+}
+
+template <class Count = rz::NoCount, class Walk>
+int launch_regen(Walk w, const float* mats, const float* lights,
+                 const float* cam, const float* uv, const uint8_t* act, int n,
+                 const SampleParams* params, float* color_out, int* rays_out,
+                 void* stream) {
+  if (n > 0) {
+    int blocks = tile_blocks(n, params->width, params->height);
+    if constexpr (kPersistent<Walk>) {  // as many as the card holds at once
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) {
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      }
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, regen_kernel<Walk, Count>, kThreads, 0);
+      }
+      if (e != cudaSuccess) return static_cast<int>(e);
+      blocks = std::min(blocks, std::max(1, sms * per_sm));
+    }
+    regen_kernel<Walk, Count>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            w, mats, lights, cam, uv, act, n, *params, color_out, rays_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled budget of a regenerating instantiation: out = {threads per
+// block, registers per thread, local memory per thread in bytes (the walk
+// stacks and any spills), resident warps per SM}.
+template <class Kernel>
+int budget_of(Kernel kernel, int* out) {
+  cudaFuncAttributes a{};
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, 0);
+  }
+  out[0] = kThreads;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks * (kThreads / 32);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // The entry points: K1 (whole tree, tiered or wide, each plain or with K9
@@ -253,7 +528,7 @@ extern "C" {
 int rz_sample_params_size() { return (int)sizeof(rz::SampleParams); }
 
 int rz_sample_wave(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<false>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+  return launch_regen(RZ_BVH2_WALK, RZ_REST, stream);
 }
 
 int rz_sample_wave_octant(RZ_BVH2_ARGS, void* stream) {
@@ -261,7 +536,7 @@ int rz_sample_wave_octant(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_tiered(RZ_TIERED_ARGS, void* stream) {
-  return launch_sample<false>(RZ_TIERED_WALK, RZ_REST, nullptr, stream);
+  return launch_regen(RZ_TIERED_WALK, RZ_REST, stream);
 }
 
 int rz_sample_wave_tiered_octant(RZ_TIERED_ARGS, void* stream) {
@@ -278,7 +553,7 @@ int rz_sample_wave_phase1_octant(RZ_BVH2_ARGS, float* state_out,
 }
 
 int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<false>(RZ_BVH8_WALK, RZ_REST, nullptr, stream);
+  return launch_regen(RZ_BVH8_WALK, RZ_REST, stream);
 }
 
 int rz_sample_wave_wide_octant(RZ_BVH2_ARGS, void* stream) {
@@ -301,6 +576,44 @@ int rz_sample_wave_phase1_frustum(RZ_BVH2_ARGS, float* state_out,
 int rz_sample_wave_phase1_frustum_octant(RZ_BVH2_ARGS, float* state_out,
                                          void* stream) {
   return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+// The counting K1 (whole tree and tiered): the regenerating kernel with
+// LaneCount at every walk step. Only chip_smoke.py and
+// scripts/k1_schedule.py launch it; the sums are read with rz_walk_lanes.
+int rz_sample_wave_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_regen<LaneCount>(RZ_BVH2_WALK, RZ_REST, stream);
+}
+
+int rz_sample_wave_tiered_count(RZ_TIERED_ARGS, void* stream) {
+  return launch_regen<LaneCount>(RZ_TIERED_WALK, RZ_REST, stream);
+}
+
+// out[0] = active lane-steps, out[1] = warp-steps x 32 over the counting
+// launches since the last reset (synchronises the device); reset != 0 then
+// zeroes the sums.
+int rz_walk_lanes(unsigned long long* out, int reset) {
+  static unsigned long long h[2 * kCountSlots];
+  cudaError_t e = cudaMemcpyFromSymbol(h, g_walk_lanes, sizeof(h));
+  out[0] = out[1] = 0;
+  for (int k = 0; k < kCountSlots; ++k) {
+    out[0] += h[2 * k];
+    out[1] += h[2 * k + 1];
+  }
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zeros[2 * kCountSlots] = {};
+    e = cudaMemcpyToSymbol(g_walk_lanes, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(e);
+}
+
+// The compiled budget (budget_of) of the regenerating K1 over the whole tree
+// (policy 0), the tiered view (1) or the wide tables (2).
+int rz_sample_budget(int policy, int* out) {
+  using rz::NoCount;
+  if (policy == 1) return budget_of(regen_kernel<rz::TieredWalk, NoCount>, out);
+  if (policy == 2) return budget_of(regen_kernel<rz::Bvh8Walk, NoCount>, out);
+  return budget_of(regen_kernel<rz::Bvh2Walk, NoCount>, out);
 }
 
 }  // extern "C"

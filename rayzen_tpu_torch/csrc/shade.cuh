@@ -152,97 +152,128 @@ RZ_DEV void scatter(float dx, float dy, float dz, float nx, float ny,
   if (refract_case) cur_ior = next_ior;
 }
 
-// megakernel._direct_lighting_tiles (glsl:569-663) for one live ray
+// ---- direct lighting: megakernel._direct_lighting_tiles (glsl:569-663) ----
+// Per light of the row g: the shadow ray from the hit point p, then the
+// light's term given its visibility, added to the accumulator ``out`` that
+// light_init started. direct_lighting runs them for one ray in a loop; the
+// regenerating K1 runs one light per iteration of its lane loop.
+
+struct LightRay {
+  float ldx, ldy, ldz;  // unit direction to the light
+  float atten;          // attenuation before the shadow test
+  float maxd;           // the shadow ray's max distance
+};
+
+RZ_DEV LightRay light_ray(const float* g, float px, float py, float pz) {
+  const float g0 = __ldg(g), g1 = __ldg(g + 1), g2 = __ldg(g + 2);
+  const bool is_point = __ldg(g + 3) == 1.0f;
+  const float lvx = g0 - px, lvy = g1 - py, lvz = g2 - pz;
+  const float dist = fmaxf(sqrtf((lvx * lvx + lvy * lvy) + lvz * lvz), 0.001f);
+  const float dn = sqrtf(fmaxf((g0 * g0 + g1 * g1) + g2 * g2, 1e-40f));
+  LightRay l;
+  l.ldx = is_point ? lvx / dist : g0 / dn;
+  l.ldy = is_point ? lvy / dist : g1 / dn;
+  l.ldz = is_point ? lvz / dist : g2 / dn;
+  l.atten = is_point ? __ldg(g + 7) / (dist * dist) : __ldg(g + 7);
+  l.maxd = is_point ? dist : 1e30f;
+  return l;
+}
+
+RZ_DEV Ray shadow_ray(const LightRay& l, float px, float py, float pz) {
+  return make_ray(px + l.ldx * 0.001f, py + l.ldy * 0.001f,
+                  pz + l.ldz * 0.001f, l.ldx, l.ldy, l.ldz);
+}
+
+// The accumulator before any light: the ambient term of the standard lobe,
+// or 0 for a transparent material (specular-only lobe)
+RZ_DEV void light_init(const SampleParams& p, const Material& m,
+                       float out[3]) {
+  const bool is_transparent = m.transp > 0.0f;
+  const float a[3] = {m.ar, m.ag, m.ab};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    out[c] = is_transparent ? 0.0f : p.ambient[c] * a[c];
+  }
+}
+
+// Add light g's term for the hit (normal n, view v, n_dot_v) given the
+// visibility of its shadow ray
+RZ_DEV void add_light(const float* g, const LightRay& l, float vis,
+                      float min_vis, const Material& m, float nx, float ny,
+                      float nz, float vx, float vy, float vz, float n_dot_v,
+                      float out[3]) {
+  const float attenuation = l.atten * vis;
+  const bool lit = vis > min_vis;
+  if (!lit) return;
+  const float ldx = l.ldx, ldy = l.ldy, ldz = l.ldz;
+  const float a[3] = {m.ar, m.ag, m.ab};
+  const float n_dot_l = fmaxf(dot3(nx, ny, nz, ldx, ldy, ldz), 0.0f);
+  float hx = ldx + vx, hy = ldy + vy, hz = ldz + vz;
+  normalize3(hx, hy, hz, 1e-20f);
+  const float n_dot_h = fmaxf(dot3(nx, ny, nz, hx, hy, hz), 0.0f);
+  const float h_dot_v = fmaxf(dot3(hx, hy, hz, vx, vy, vz), 0.0f);
+  const float p5 = pow5(1.0f - h_dot_v);
+  const float lc[3] = {__ldg(g + 4), __ldg(g + 5), __ldg(g + 6)};
+
+  if (m.transp > 0.0f) {
+    // transparent specular-only lobe (glsl:571-609)
+    const float q = (1.0f - m.ior) / (1.0f + m.ior);
+    const float f0t = q * q;
+    const float f_t = f0t + (1.0f - f0t) * p5;
+    const float rough_t = fmaxf(m.rough, 0.02f);
+    const float r2 = rough_t * rough_t;
+    const float a2_t = r2 * r2;
+    const float dden_t = (n_dot_h * n_dot_h) * (a2_t - 1.0f) + 1.0f;
+    const float d_t = a2_t / ((PI_REF * dden_t) * dden_t + 1e-6f);
+    const float k_t = ((rough_t + 1.0f) * (rough_t + 1.0f)) / 8.0f;
+    const float gv_t = n_dot_v / ((n_dot_v * (1.0f - k_t) + k_t) + 1e-6f);
+    const float gl_t = n_dot_l / ((n_dot_l * (1.0f - k_t) + k_t) + 1e-6f);
+    const float denom_t = fmaxf((4.0f * n_dot_l) * n_dot_v, 1e-4f);
+    const float spec_t = (((f_t * d_t) * gv_t) * gl_t) / denom_t;
+    if (n_dot_l > 0.0f) {  // glsl:591 continue
+      const float wt = (spec_t * attenuation) * n_dot_l;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[c] = out[c] + wt * lc[c];
+    }
+  } else {
+    // standard diffuse + specular (glsl:611-660)
+    const float r2 = m.rough * m.rough;
+    const float alpha2 = r2 * r2;
+    const float dden_s = (n_dot_h * n_dot_h) * (alpha2 - 1.0f) + 1.0f;
+    const float d_s = alpha2 / fmaxf((PI_REF * dden_s) * dden_s, 1e-12f);
+    const float k_s = ((m.rough + 1.0f) * (m.rough + 1.0f)) / 8.0f;
+    float g_s = n_dot_v / (n_dot_v * (1.0f - k_s) + k_s);
+    g_s = g_s * (n_dot_l / (n_dot_l * (1.0f - k_s) + k_s));
+    const float denom_s = fmaxf((4.0f * n_dot_v) * n_dot_l, 1e-4f);
+    const float dg = (d_s * g_s) / denom_s;
+    const float ndl_pi = n_dot_l / PI_REF;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float f0s = 0.04f * (1.0f - m.metal) + a[c] * m.metal;
+      const float f_s = f0s + (1.0f - f0s) * p5;
+      const float spec = f_s * dg;
+      const float diffuse = ((1.0f - f_s) * a[c]) * ndl_pi;
+      out[c] = out[c] + fmaxf(0.0f, ((diffuse + spec) * lc[c]) * attenuation);
+    }
+  }
+}
+
+// Direct lighting of one live ray, every light in turn
 template <class Walk>
 RZ_DEV void direct_lighting(const Walk& w, const float* lights,
                             const SampleParams& p, float px, float py,
                             float pz, float nx, float ny, float nz, float vx,
                             float vy, float vz, const Material& m,
                             float out[3]) {
-  const bool is_transparent = m.transp > 0.0f;
-  const float q = (1.0f - m.ior) / (1.0f + m.ior);
-  const float f0t = q * q;
-  const float a[3] = {m.ar, m.ag, m.ab};
-  float f0s[3], outs[3], outt[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    f0s[c] = 0.04f * (1.0f - m.metal) + a[c] * m.metal;
-    outs[c] = p.ambient[c] * a[c];
-    outt[c] = 0.0f;
-  }
+  light_init(p, m, out);
   const float n_dot_v = fmaxf(dot3(nx, ny, nz, vx, vy, vz), 0.0f);
-
   for (int li = 0; li < p.n_lights; ++li) {
     const float* g = lights + 8 * li;
-    const float g0 = __ldg(g), g1 = __ldg(g + 1), g2 = __ldg(g + 2);
-    const bool is_point = __ldg(g + 3) == 1.0f;
-    const float lvx = g0 - px, lvy = g1 - py, lvz = g2 - pz;
-    const float dist =
-        fmaxf(sqrtf((lvx * lvx + lvy * lvy) + lvz * lvz), 0.001f);
-    const float dn = sqrtf(fmaxf((g0 * g0 + g1 * g1) + g2 * g2, 1e-40f));
-    const float ldx = is_point ? lvx / dist : g0 / dn;
-    const float ldy = is_point ? lvy / dist : g1 / dn;
-    const float ldz = is_point ? lvz / dist : g2 / dn;
-    float attenuation = is_point ? __ldg(g + 7) / (dist * dist) : __ldg(g + 7);
-    const float max_dist = is_point ? dist : 1e30f;
-
-    const Ray sr = make_ray(px + ldx * 0.001f, py + ldy * 0.001f,
-                            pz + ldz * 0.001f, ldx, ldy, ldz);
-    const float vis = w.shadow(sr, max_dist, p.min_vis, p.shadow_eps);
-    attenuation = attenuation * vis;
-    const bool lit = vis > p.min_vis;
-    if (!lit) continue;
-
-    const float n_dot_l = fmaxf(dot3(nx, ny, nz, ldx, ldy, ldz), 0.0f);
-    float hx = ldx + vx, hy = ldy + vy, hz = ldz + vz;
-    normalize3(hx, hy, hz, 1e-20f);
-    const float n_dot_h = fmaxf(dot3(nx, ny, nz, hx, hy, hz), 0.0f);
-    const float h_dot_v = fmaxf(dot3(hx, hy, hz, vx, vy, vz), 0.0f);
-    const float p5 = pow5(1.0f - h_dot_v);
-    const float lc[3] = {__ldg(g + 4), __ldg(g + 5), __ldg(g + 6)};
-
-    // transparent specular-only lobe (glsl:571-609)
-    if (is_transparent) {
-      const float f_t = f0t + (1.0f - f0t) * p5;
-      const float rough_t = fmaxf(m.rough, 0.02f);
-      const float r2 = rough_t * rough_t;
-      const float a2_t = r2 * r2;
-      const float dden_t = (n_dot_h * n_dot_h) * (a2_t - 1.0f) + 1.0f;
-      const float d_t = a2_t / ((PI_REF * dden_t) * dden_t + 1e-6f);
-      const float k_t = ((rough_t + 1.0f) * (rough_t + 1.0f)) / 8.0f;
-      const float gv_t = n_dot_v / ((n_dot_v * (1.0f - k_t) + k_t) + 1e-6f);
-      const float gl_t = n_dot_l / ((n_dot_l * (1.0f - k_t) + k_t) + 1e-6f);
-      const float denom_t = fmaxf((4.0f * n_dot_l) * n_dot_v, 1e-4f);
-      const float spec_t = (((f_t * d_t) * gv_t) * gl_t) / denom_t;
-      if (n_dot_l > 0.0f) {  // glsl:591 continue
-        const float wt = (spec_t * attenuation) * n_dot_l;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) outt[c] = outt[c] + wt * lc[c];
-      }
-    } else {
-      // standard diffuse + specular (glsl:611-660)
-      const float r2 = m.rough * m.rough;
-      const float alpha2 = r2 * r2;
-      const float dden_s = (n_dot_h * n_dot_h) * (alpha2 - 1.0f) + 1.0f;
-      const float d_s = alpha2 / fmaxf((PI_REF * dden_s) * dden_s, 1e-12f);
-      const float k_s = ((m.rough + 1.0f) * (m.rough + 1.0f)) / 8.0f;
-      float g_s = n_dot_v / (n_dot_v * (1.0f - k_s) + k_s);
-      g_s = g_s * (n_dot_l / (n_dot_l * (1.0f - k_s) + k_s));
-      const float denom_s = fmaxf((4.0f * n_dot_v) * n_dot_l, 1e-4f);
-      const float dg = (d_s * g_s) / denom_s;
-      const float ndl_pi = n_dot_l / PI_REF;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float f_s = f0s[c] + (1.0f - f0s[c]) * p5;
-        const float spec = f_s * dg;
-        const float diffuse = ((1.0f - f_s) * a[c]) * ndl_pi;
-        outs[c] = outs[c] +
-                  fmaxf(0.0f, ((diffuse + spec) * lc[c]) * attenuation);
-      }
-    }
+    const LightRay l = light_ray(g, px, py, pz);
+    const float vis =
+        w.shadow(shadow_ray(l, px, py, pz), l.maxd, p.min_vis, p.shadow_eps);
+    add_light(g, l, vis, p.min_vis, m, nx, ny, nz, vx, vy, vz, n_dot_v, out);
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[c] = is_transparent ? outt[c] : outs[c];
 }
 
 // per-bounce draws (rand_val, hemi_u, hemi_v): _bounce_draws_reference /
@@ -269,6 +300,50 @@ struct Sampler {
     }
   }
 };
+
+// The primary ray's direction for sample samp_f of the pixel at uv (u, v):
+// the jitter of the sampler's flow, then raygen (glsl:204-212) through the
+// inverse projection rows P and inverse view rows V. Sets the sampler's
+// per-sample state.
+RZ_DEV void camera_dir(const float P[8], const float V[12], float u, float v,
+                       float W, float H, float samp_f, Sampler& smp,
+                       float& dx, float& dy, float& dz) {
+  smp.samp_f = samp_f;
+  float jx, jy;
+  if (!smp.hash) {
+    // seed = uv * (fragX + fragY + samp + 1) (glsl:688)
+    const float scale =
+        ((floorf(u * W) + floorf(v * H)) + 1.0f) + (samp_f + 1.0f);
+    smp.s0 = u * scale;
+    smp.s1 = v * scale;
+    jx = ref_rand(smp.s0, smp.s1) * 0.00002f;
+    jy = ref_rand(smp.s0 + 1.0f, smp.s1 + 1.0f) * 0.00002f;
+  } else {
+    smp.samp_u = (uint32_t)(int32_t)samp_f;
+    const uint32_t jbase = smp.h_pix + smp.samp_u * 7919u;
+    jx = (u32_to_unit(hash_u32(jbase + 0u)) - 0.5f) / W;
+    jy = (u32_to_unit(hash_u32(jbase + 1u)) - 0.5f) / H;
+  }
+  const float ndx = (u + jx) * 2.0f - 1.0f;
+  const float ndy = (v + jy) * 2.0f - 1.0f;
+  const float eye0 = ((P[0] * ndx + P[1] * ndy) - P[2]) + P[3];
+  const float eye1 = ((P[4] * ndx + P[5] * ndy) - P[6]) + P[7];
+  dx = (V[0] * eye0 + V[1] * eye1) - V[2];
+  dy = (V[4] * eye0 + V[5] * eye1) - V[6];
+  dz = (V[8] * eye0 + V[9] * eye1) - V[10];
+  normalize3(dx, dy, dz, 0.0f);
+}
+
+// The integer-hash flow's pixel key (0 for the sin-hash flow)
+RZ_DEV uint32_t pixel_key(const SampleParams& p, float u, float v) {
+  if (p.rng_hash == 0) return 0u;
+  const uint32_t pixel_id =
+      (uint32_t)(int32_t)floorf(v * (float)p.height) *
+          (uint32_t)(p.width * 2) +
+      (uint32_t)(int32_t)floorf(u * (float)p.width);
+  const uint32_t key_h = hash_u32((uint32_t)p.key + 0x9E3779B9u);
+  return hash_u32(pixel_id ^ key_h);
+}
 
 // One ray's path between bounces: the bounce loop's carry (megakernel.py
 // :263-264) and, with the sampler seeds, the 13 continuation rows.
@@ -314,10 +389,75 @@ RZ_DEV void octant_closest(const Walk& w, const Ray& r, bool on, HitRec& h) {
   }
 }
 
-// Bounces b_start..b_stop-1 of one path (megakernel._make_bounce_body, the
-// bounce loop of K1 and of the continuation kernel): trace, sky on a miss,
-// scatter, Russian roulette, reusing the scatter draw. A path that misses or
-// is cut by roulette ends with alive = false.
+// Bounce 0 of a path whose primary ray (direction d) hit at p, normal n,
+// material m: the scatter that starts its throughput (from 1), medium and
+// next ray.
+RZ_DEV void start_path(const Sampler& smp, float px, float py, float pz,
+                       float dx, float dy, float dz, float nx, float ny,
+                       float nz, const Material& m, Path& path) {
+  float rand_val, hu, hv;
+  smp.draws(0, rand_val, hu, hv);
+  float nd[3];
+  path.ior = 1.0f;
+  scatter(dx, dy, dz, nx, ny, nz, path.ior, rand_val, hu, hv, m, nd, path.tp);
+  const float push =
+      dot3(nd[0], nd[1], nd[2], nx, ny, nz) > 0.0f ? 0.003f : -0.003f;
+  path.ox = px + nx * push;
+  path.oy = py + ny * push;
+  path.oz = pz + nz * push;
+  path.dx = nd[0];
+  path.dy = nd[1];
+  path.dz = nd[2];
+  path.alive = true;
+}
+
+// Bounce b of a live path after its closest walk found h
+// (megakernel._make_bounce_body): sky on a miss, weighted by throughput,
+// else scatter and Russian roulette, reusing the scatter draw. A path that
+// misses or is cut ends with alive = false.
+RZ_DEV void shade_bounce(const float* mats, const SampleParams& p,
+                         const Sampler& smp, int b, const HitRec& h, Path& s) {
+  if (h.menc == 0.0f) {  // sky (glsl:706-709)
+    const float sky_t = 0.5f * (s.dy + 1.0f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s.c[c] = s.c[c] + s.tp[c] * (p.sky_h[c] + p.sky_d[c] * sky_t);
+    }
+    s.alive = false;
+    return;
+  }
+  float nx, ny, nz;
+  hit_normal(h, nx, ny, nz);
+  const Material m = load_material(mats, p.n_mats, h.menc);
+  float rand_val, hu, hv;
+  smp.draws(b, rand_val, hu, hv);
+  float nd[3], fct[3];
+  scatter(s.dx, s.dy, s.dz, nx, ny, nz, s.ior, rand_val, hu, hv, m, nd, fct);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s.tp[c] = s.tp[c] * fct[c];
+  const float push =
+      dot3(nd[0], nd[1], nd[2], nx, ny, nz) > 0.0f ? 0.003f : -0.003f;
+  s.ox = (s.ox + s.dx * h.t) + nx * push;
+  s.oy = (s.oy + s.dy * h.t) + ny * push;
+  s.oz = (s.oz + s.dz * h.t) + nz * push;
+  s.dx = nd[0];
+  s.dy = nd[1];
+  s.dz = nd[2];
+  // Russian roulette (glsl:764-769), reusing the scatter draw
+  if (p.rr_start < p.max_bounces - 1 && b > p.rr_start) {
+    const float pmax = fmaxf(fmaxf(s.tp[0], s.tp[1]), s.tp[2]);
+    if (rand_val > pmax) {
+      s.alive = false;
+      return;
+    }
+    const float inv_p = 1.0f / fmaxf(pmax, 1e-12f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.tp[c] = s.tp[c] * inv_p;
+  }
+}
+
+// Bounces b_start..b_stop-1 of one path (the bounce loop of the lockstep K1
+// and of the continuation kernel).
 // kOctant: the closest walks run as K9. The loop then turns warp-uniform (it
 // ends when no lane of the warp is alive), so all 32 lanes reach every vote;
 // the caller keeps every lane of the warp in the kernel.
@@ -325,7 +465,6 @@ template <bool kOctant, class Walk>
 RZ_DEV void trace_bounces(const Walk& w, const float* mats,
                           const SampleParams& p, const Sampler& smp,
                           int b_start, int b_stop, Path& s) {
-  const bool rr_on = p.rr_start < p.max_bounces - 1;
   for (int b = b_start; b < b_stop; ++b) {
     if (kOctant ? !__any_sync(kFullMask, s.alive) : !s.alive) break;
     const Ray r = make_ray(s.ox, s.oy, s.oz, s.dx, s.dy, s.dz);
@@ -334,43 +473,7 @@ RZ_DEV void trace_bounces(const Walk& w, const float* mats,
     if (!s.alive) continue;
     s.rays += 1;
     if constexpr (!kOctant) w.closest(r, h);
-    if (h.menc == 0.0f) {  // sky (glsl:706-709), weighted by throughput
-      const float sky_t = 0.5f * (s.dy + 1.0f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        s.c[c] = s.c[c] + s.tp[c] * (p.sky_h[c] + p.sky_d[c] * sky_t);
-      }
-      s.alive = false;
-      continue;
-    }
-    float nx, ny, nz;
-    hit_normal(h, nx, ny, nz);
-    const Material m = load_material(mats, p.n_mats, h.menc);
-    float rand_val, hu, hv;
-    smp.draws(b, rand_val, hu, hv);
-    float nd[3], fct[3];
-    scatter(s.dx, s.dy, s.dz, nx, ny, nz, s.ior, rand_val, hu, hv, m, nd, fct);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s.tp[c] = s.tp[c] * fct[c];
-    const float push =
-        dot3(nd[0], nd[1], nd[2], nx, ny, nz) > 0.0f ? 0.003f : -0.003f;
-    s.ox = (s.ox + s.dx * h.t) + nx * push;
-    s.oy = (s.oy + s.dy * h.t) + ny * push;
-    s.oz = (s.oz + s.dz * h.t) + nz * push;
-    s.dx = nd[0];
-    s.dy = nd[1];
-    s.dz = nd[2];
-    // Russian roulette (glsl:764-769), reusing the scatter draw
-    if (rr_on && b > p.rr_start) {
-      const float pmax = fmaxf(fmaxf(s.tp[0], s.tp[1]), s.tp[2]);
-      if (rand_val > pmax) {
-        s.alive = false;
-        continue;
-      }
-      const float inv_p = 1.0f / fmaxf(pmax, 1e-12f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s.tp[c] = s.tp[c] * inv_p;
-    }
+    shade_bounce(mats, p, smp, b, h, s);
   }
 }
 

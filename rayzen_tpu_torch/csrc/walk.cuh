@@ -18,12 +18,18 @@
 // and multiplies the same transparencies in the same order.
 //
 // What bounds it on an H100: the demo scene's tables are ~0.5 MB and stay in
-// L2, so the walk is bound by the latency of its dependent loads (pop ->
-// inner row -> leaf row) and by divergence between the rays of a warp, not by
-// bandwidth. The design keeps every ray's state in registers, reads an inner
-// row as four 16-byte loads through the read-only path, and keeps the stack in
-// (L1-cached) local memory. Shared-memory node caches, near-first ordering
-// and warp-coherent scheduling are left for later work.
+// L2 (the field's 37 MB fill most of it), so a walk is bound by the latency
+// of its dependent loads (pop -> inner row -> leaf row) and by the share of
+// a warp's lanes that take each step, not by bandwidth. The design keeps
+// every ray's state in registers, reads an inner row as four 16-byte loads
+// through the read-only path, and keeps the stack in (L1-cached) local
+// memory. Each tree layout has one walk template over a mode (WalkMode):
+// the closest walk, the shadow walk, or either per lane, with which the
+// regenerating K1 (sample_kernel.cu) runs a warp's closest and shadow rays
+// through one node loop; its warp tiles, path regeneration and register
+// budget are where the latency is hidden and the lanes kept busy.
+// Near-first ordering, compressed nodes, shared-memory stacks and node
+// caches are left for later work.
 #pragma once
 
 #include "common.cuh"
@@ -132,14 +138,88 @@ RZ_DEV bool push_children(int* stack, int& sp, bool push_l, bool push_r,
   return true;
 }
 
-// Closest hit. ``h`` enters as the state to continue from: ``h.t`` is the
-// initial bound (t_init, T_FAR, or the best hit of an earlier treelet) and
-// hits at or beyond it are ignored. On stack overflow t and menc become NaN.
-RZ_DEV void walk_closest(const Tables& tb, const Ray& r, HitRec& h) {
+// What a walk computes. kClosest: the closest hit (K2, K8, K5); kShadow: the
+// transmission visibility (K3 and its kin); kEither: either, chosen per lane
+// by its ``shadow_lane`` flag, so that a warp whose lanes hold both kinds of ray
+// runs them through one node loop (the regenerating K1, sample_kernel.cu).
+// A walk's state is a HitRec and a visibility: h.t is the pruning bound, the
+// best t so far for a closest ray and maxd (fixed) for a shadow ray; vis is
+// the shadow ray's visibility. The three modes run the same slab tests and
+// stack in the same order, so each ray processes the same nodes and gets the
+// same result bit for bit in any mode.
+enum WalkMode { kClosest, kShadow, kEither };
+
+// Walk-loop step counters: NoCount for every kernel but the counting K1,
+// which counts with LaneCount (sample_kernel.cu).
+struct NoCount {
+  RZ_DEV void step() const {}
+};
+
+// The closest or shadow leaf procedure, per lane: bvh2_walk_closest's and
+// bvh2_walk_shadow's leaf_proc in one triangle loop.
+RZ_DEV void leaf_either(const Tables& tb, int leaf_idx, const Ray& r,
+                        bool shadow, float t_eps, HitRec& h, float& vis) {
+  const float* row = tb.leaf + (size_t)leaf_idx * tb.leaf_w;
+  const int K = tb.leaf_k;
+  const int first = (int)__ldg(row + 10 * K);
+  const int count = (int)__ldg(row + 10 * K + 1);
+  const int n = count < K ? count : K;
+  for (int k = 0; k < n; ++k) {
+    const float* tri = row + 9 * k;
+    float t;
+    if (!moller_trumbore(r, tri, t)) continue;
+    if (shadow) {
+      if (t >= t_eps && t < h.t) vis = vis * __ldg(row + 9 * K + k);
+    } else if (t < h.t) {
+      float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
+      float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
+      h.t = t;
+      h.tri = first + k;
+      h.cx = e1y * e2z - e1z * e2y;
+      h.cy = e1z * e2x - e1x * e2z;
+      h.cz = e1x * e2y - e1y * e2x;
+      h.menc = __ldg(row + 10 * K + 2 + k);
+    }
+  }
+}
+
+template <int kMode>
+RZ_DEV void leaf_walk(const Tables& tb, int leaf_idx, const Ray& r,
+                      bool shadow, float t_eps, HitRec& h, float& vis) {
+  if constexpr (kMode == kClosest) {
+    leaf_closest(tb, leaf_idx, r, h);
+  } else if constexpr (kMode == kShadow) {
+    vis = leaf_shadow(tb, leaf_idx, r, h.t, t_eps, vis);
+  } else {
+    leaf_either(tb, leaf_idx, r, shadow, t_eps, h, vis);
+  }
+}
+
+// A ray's result past a stack overflow: NaN in every mode.
+RZ_DEV void poison(HitRec& h, float& vis) {
+  h.t = nan_f();
+  h.menc = nan_f();
+  vis = nan_f();
+}
+
+// The BVH2 walk in mode kMode (``shadow_lane`` picks the mode per lane
+// under kEither). Closest: ``h`` enters as the state to continue from, h.t the
+// initial bound (t_init, T_FAR, or the best hit of an earlier treelet); hits
+// at or beyond it are ignored. Shadow: h.t = maxd; vis enters as vis_init (1,
+// or what earlier treelets left), multiplies the transparencies of the
+// triangles hit within (t_eps, maxd), 0 past an opaque one, and the walk
+// stops once vis <= min_vis (shadowVisibility, glsl:507-528).
+template <int kMode, class Count>
+RZ_DEV void walk_bvh2(const Tables& tb, const Ray& r, bool shadow_lane,
+                      float min_vis, float t_eps, HitRec& h, float& vis,
+                      const Count& cnt) {
+  const bool shadow = kMode == kShadow || (kMode == kEither && shadow_lane);
+  if (shadow && !(vis > min_vis)) return;
   int stack[STACK_DEPTH];
   stack[0] = 0;  // root inner node
   int sp = 1;
   while (sp > 0) {
+    cnt.step();
     const int node = stack[--sp];
     float row[16];
     load_inner(tb.inner, node, row);
@@ -148,63 +228,59 @@ RZ_DEV void walk_closest(const Tables& tb, const Ray& r, HitRec& h) {
     const bool hitr = slab(r, row + 6, tminr) && (tminr <= h.t);
     const int lref = (int)row[12], rref = (int)row[13];
     const int lcnt = (int)row[14], rcnt = (int)row[15];
-    if (hitl && lcnt >= 0) leaf_closest(tb, lref, r, h);
-    if (hitr && rcnt >= 0) leaf_closest(tb, rref, r, h);
+    // a shadow ray tests both leaf children with the liveness of the node's
+    // start, as the packet walk does, before the early exit
+    if (hitl && lcnt >= 0) leaf_walk<kMode>(tb, lref, r, shadow, t_eps, h, vis);
+    if (hitr && rcnt >= 0) leaf_walk<kMode>(tb, rref, r, shadow, t_eps, h, vis);
+    if (shadow && !(vis > min_vis)) return;
     if (!push_children(stack, sp, hitl && lcnt < 0, hitr && rcnt < 0, lref,
                        rref)) {
-      h.t = nan_f();
-      h.menc = nan_f();
+      poison(h, vis);
       return;
     }
   }
 }
 
-// Transmission visibility along the ray within (t_eps, maxd): the product of
-// the transparencies of the triangles hit, 0 past an opaque one, times
-// ``vis`` (vis_init: 1, or what earlier treelets left). The walk stops once
-// vis <= min_vis (shadowVisibility, glsl:507-528). NaN on stack overflow.
+// Closest hit (K2) from the state ``h``. On stack overflow t and menc become
+// NaN.
+RZ_DEV void walk_closest(const Tables& tb, const Ray& r, HitRec& h) {
+  float vis = 1.0f;
+  walk_bvh2<kClosest>(tb, r, false, 0.0f, 0.0f, h, vis, NoCount{});
+}
+
+// Transmission visibility (K3) along the ray within (t_eps, maxd), times
+// ``vis``. NaN on stack overflow.
 RZ_DEV float walk_shadow(const Tables& tb, const Ray& r, float maxd,
                          float min_vis, float t_eps, float vis = 1.0f) {
-  if (!(vis > min_vis)) return vis;
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
-  int sp = 1;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    float row[16];
-    load_inner(tb.inner, node, row);
-    float tminl, tminr;
-    const bool hitl = slab(r, row, tminl) && (tminl <= maxd);
-    const bool hitr = slab(r, row + 6, tminr) && (tminr <= maxd);
-    const int lref = (int)row[12], rref = (int)row[13];
-    const int lcnt = (int)row[14], rcnt = (int)row[15];
-    // both leaf children are tested with the liveness of the node's start,
-    // as the packet walk does, before the early exit
-    if (hitl && lcnt >= 0) vis = leaf_shadow(tb, lref, r, maxd, t_eps, vis);
-    if (hitr && rcnt >= 0) vis = leaf_shadow(tb, rref, r, maxd, t_eps, vis);
-    if (!(vis > min_vis)) return vis;
-    if (!push_children(stack, sp, hitl && lcnt < 0, hitr && rcnt < 0, lref,
-                       rref)) {
-      return nan_f();
-    }
-  }
+  HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+  walk_bvh2<kShadow>(tb, r, true, min_vis, t_eps, h, vis, NoCount{});
   return vis;
 }
 
-// K8 closest hit over the tiered view. Per popped top node, as the packet walk
-// (pallas_traverse.py:836-871): both children's boxes are tested against the
-// best t so far, then the left treelet is walked, then the right one (each
-// with walk_closest seeded with the best hit so far), and only then are the
-// hit internal children pushed, left on top. So the processed nodes are the
-// ray's depth-first walk of the whole tree with the same pruning, and the
-// hit (ties included) is the whole-tree walk's. Two stacks: this one for the
-// top tree and walk_closest's for the treelet; the host checks both depths.
-RZ_DEV void walk_closest_tiered(const TieredTables& tt, const Ray& r,
-                                HitRec& h) {
+// K8 over the tiered view, in mode kMode. Per popped top node, as the packet
+// walk (pallas_traverse.py:836-871, :910): both children's boxes are tested
+// against the bound (the best t so far, or maxd), then the left treelet is
+// walked, then the right one (each by walk_bvh2 from the state so far), and
+// only then are the hit internal children pushed, left on top. So a closest
+// ray processes its depth-first walk of the whole tree with the same pruning
+// and finds the whole-tree walk's hit (ties included); a shadow ray
+// multiplies the treelets' transparencies in the whole-tree walk's order and
+// returns as soon as vis drops to min_vis, which gives the packet walk's
+// product (it tests a top node's boxes only for rays still above min_vis
+// and walks the right treelet with what the left one left). Two stacks: this
+// one for the top tree and walk_bvh2's for the treelet; the host checks both
+// depths.
+template <int kMode, class Count>
+RZ_DEV void walk_tiered(const TieredTables& tt, const Ray& r,
+                        bool shadow_lane, float min_vis, float t_eps,
+                        HitRec& h, float& vis, const Count& cnt) {
+  const bool shadow = kMode == kShadow || (kMode == kEither && shadow_lane);
+  if (shadow && !(vis > min_vis)) return;
   int stack[STACK_DEPTH];
   stack[0] = 0;
   int sp = 1;
   while (sp > 0) {
+    cnt.step();
     const int node = stack[--sp];
     float row[16];
     load_inner(tt.top, node, row);
@@ -217,53 +293,32 @@ RZ_DEV void walk_closest_tiered(const TieredTables& tt, const Ray& r,
 #pragma unroll 1
     for (int side = 0; side < 2; ++side) {
       if (side == 0 ? (hitl && lcnt == -2) : (hitr && rcnt == -2)) {
-        walk_closest(tt.treelet(side == 0 ? lref : rref), r, h);
+        walk_bvh2<kMode>(tt.treelet(side == 0 ? lref : rref), r, shadow_lane,
+                         min_vis, t_eps, h, vis, cnt);
       }
     }
-    if (isnan(h.t)) return;  // a treelet walk overflowed its stack
+    // a closest ray stops on a treelet's overflow (t NaN); a shadow ray once
+    // vis <= min_vis, which a NaN from an overflow also is
+    if (shadow ? !(vis > min_vis) : isnan(h.t)) return;
     if (!push_children(stack, sp, hitl && lcnt == -1, hitr && rcnt == -1,
                        lref, rref)) {
-      h.t = nan_f();
-      h.menc = nan_f();
+      poison(h, vis);
       return;
     }
   }
 }
 
-// K8 transmission over the tiered view: the treelets' walk_shadow calls
-// multiply into the carried visibility, left treelet first. The packet walk
-// tests a top node's boxes only for rays still above min_vis (:910) and walks
-// the right treelet with what the left one left; returning as soon as vis
-// drops to min_vis gives the same product.
+RZ_DEV void walk_closest_tiered(const TieredTables& tt, const Ray& r,
+                                HitRec& h) {
+  float vis = 1.0f;
+  walk_tiered<kClosest>(tt, r, false, 0.0f, 0.0f, h, vis, NoCount{});
+}
+
 RZ_DEV float walk_shadow_tiered(const TieredTables& tt, const Ray& r,
                                 float maxd, float min_vis, float t_eps) {
+  HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
   float vis = 1.0f;
-  if (!(vis > min_vis)) return vis;
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
-  int sp = 1;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    float row[16];
-    load_inner(tt.top, node, row);
-    float tminl, tminr;
-    const bool hitl = slab(r, row, tminl) && (tminl <= maxd);
-    const bool hitr = slab(r, row + 6, tminr) && (tminr <= maxd);
-    const int lref = (int)row[12], rref = (int)row[13];
-    const int lcnt = (int)row[14], rcnt = (int)row[15];
-#pragma unroll 1
-    for (int side = 0; side < 2; ++side) {
-      if (side == 0 ? (hitl && lcnt == -2) : (hitr && rcnt == -2)) {
-        vis = walk_shadow(tt.treelet(side == 0 ? lref : rref), r, maxd,
-                          min_vis, t_eps, vis);
-      }
-    }
-    if (!(vis > min_vis)) return vis;  // also a NaN from an overflow
-    if (!push_children(stack, sp, hitl && lcnt == -1, hitr && rcnt == -1,
-                       lref, rref)) {
-      return nan_f();
-    }
-  }
+  walk_tiered<kShadow>(tt, r, true, min_vis, t_eps, h, vis, NoCount{});
   return vis;
 }
 
@@ -399,14 +454,22 @@ RZ_DEV bool push_wide(int* stack, int& sp, unsigned push, const float tmin[8],
   return true;
 }
 
-// K5 closest hit from T_FAR (h enters as the no-hit state). On stack
-// overflow t and menc become NaN.
-RZ_DEV void walk_closest_bvh8(const Tables8& tb, const Ray& r, HitRec& h) {
+// K5 in mode kMode (walk_bvh2's contract; a closest ray from T_FAR). Per
+// popped node all 8 boxes against the bound of the node's start, then the
+// hit leaf children in slot order, then the pushes: a closest ray's sorted by
+// its entry distance, a shadow ray's in slot order after the early exit.
+template <int kMode, class Count>
+RZ_DEV void walk_bvh8(const Tables8& tb, const Ray& r, bool shadow_lane,
+                      float min_vis, float t_eps, HitRec& h, float& vis,
+                      const Count& cnt) {
+  const bool shadow = kMode == kShadow || (kMode == kEither && shadow_lane);
+  if (shadow && !(vis > min_vis)) return;
   const Tables lt = tb.leaves();
   int stack[STACK_DEPTH];
   stack[0] = 0;  // root wide node
   int sp = 1;
   while (sp > 0) {
+    cnt.step();
     const int node = stack[--sp];
     float tmin[8];
     int ref[8];
@@ -414,39 +477,29 @@ RZ_DEV void walk_closest_bvh8(const Tables8& tb, const Ray& r, HitRec& h) {
     int leaf_start;
     wide_node(tb.inner8, node, r, h.t, tmin, ref, leaf_hits, push, leaf_start);
     for (unsigned m = leaf_hits; m; m &= m - 1) {  // slot order
-      leaf_closest(lt, leaf_start + __ffs(m) - 1, r, h);
+      leaf_walk<kMode>(lt, leaf_start + __ffs(m) - 1, r, shadow, t_eps, h, vis);
     }
-    if (!push_wide(stack, sp, push, tmin, ref, true)) {
-      h.t = nan_f();
-      h.menc = nan_f();
+    if (shadow && !(vis > min_vis)) return;
+    if (!push_wide(stack, sp, push, tmin, ref, !shadow)) {
+      poison(h, vis);
       return;
     }
   }
 }
 
+// K5 closest hit from T_FAR (h enters as the no-hit state). On stack
+// overflow t and menc become NaN.
+RZ_DEV void walk_closest_bvh8(const Tables8& tb, const Ray& r, HitRec& h) {
+  float vis = 1.0f;
+  walk_bvh8<kClosest>(tb, r, false, 0.0f, 0.0f, h, vis, NoCount{});
+}
+
 // K5 transmission visibility (walk_shadow's contract). NaN on overflow.
 RZ_DEV float walk_shadow_bvh8(const Tables8& tb, const Ray& r, float maxd,
                               float min_vis, float t_eps) {
+  HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
   float vis = 1.0f;
-  if (!(vis > min_vis)) return vis;
-  const Tables lt = tb.leaves();
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
-  int sp = 1;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    float tmin[8];
-    int ref[8];
-    unsigned leaf_hits, push;
-    int leaf_start;
-    wide_node(tb.inner8, node, r, maxd, tmin, ref, leaf_hits, push,
-              leaf_start);
-    for (unsigned m = leaf_hits; m; m &= m - 1) {
-      vis = leaf_shadow(lt, leaf_start + __ffs(m) - 1, r, maxd, t_eps, vis);
-    }
-    if (!(vis > min_vis)) return vis;
-    if (!push_wide(stack, sp, push, tmin, ref, false)) return nan_f();
-  }
+  walk_bvh8<kShadow>(tb, r, true, min_vis, t_eps, h, vis, NoCount{});
   return vis;
 }
 
@@ -560,13 +613,21 @@ RZ_DEV float walk_shadow_misslink(const RecordTables& tb, const Ray& r,
 
 // Walk policies: the tables a kernel walks and how. The standalone kernels
 // and sample_kernel are templates over them, so the tiered K1 shares every
-// line of shading, RNG and bounce code with the whole-tree K1.
+// line of shading, RNG and bounce code with the whole-tree K1. ``trace`` is
+// the kEither walk of the regenerating K1: a closest ray from ``h`` (h.t =
+// T_FAR) or, with ``is_shadow``, a shadow ray with h.t = maxd and vis = 1.
 struct Bvh2Walk {
   Tables tb;
   RZ_DEV void closest(const Ray& r, HitRec& h) const { walk_closest(tb, r, h); }
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
     return walk_shadow(tb, r, maxd, min_vis, t_eps);
+  }
+  template <class Count>
+  RZ_DEV void trace(const Ray& r, bool is_shadow, float min_vis,
+                    float t_eps, HitRec& h, float& vis,
+                    const Count& cnt) const {
+    walk_bvh2<kEither>(tb, r, is_shadow, min_vis, t_eps, h, vis, cnt);
   }
 };
 
@@ -579,6 +640,12 @@ struct TieredWalk {
                       float t_eps) const {
     return walk_shadow_tiered(tt, r, maxd, min_vis, t_eps);
   }
+  template <class Count>
+  RZ_DEV void trace(const Ray& r, bool is_shadow, float min_vis,
+                    float t_eps, HitRec& h, float& vis,
+                    const Count& cnt) const {
+    walk_tiered<kEither>(tt, r, is_shadow, min_vis, t_eps, h, vis, cnt);
+  }
 };
 
 struct Bvh8Walk {
@@ -589,6 +656,12 @@ struct Bvh8Walk {
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
     return walk_shadow_bvh8(tb, r, maxd, min_vis, t_eps);
+  }
+  template <class Count>
+  RZ_DEV void trace(const Ray& r, bool is_shadow, float min_vis,
+                    float t_eps, HitRec& h, float& vis,
+                    const Count& cnt) const {
+    walk_bvh8<kEither>(tb, r, is_shadow, min_vis, t_eps, h, vis, cnt);
   }
 };
 

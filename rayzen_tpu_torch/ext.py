@@ -15,8 +15,12 @@ kernels are held against.
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper in
 ops/walk.py and ops/megakernel.py adds one where it launches its kernel.
 K1, its K9, wide (K5) and frustum (K6) forms and K4's phase 1 are
-instantiations of one kernel (sample_kernel.cu) behind separate entry
-points, so each has its own count.
+instantiations of sample_kernel.cu behind separate entry points, so each
+has its own count.
+
+``build`` also takes another source tree, output path and ``-D`` defines,
+and ``bind`` loads any such library: scripts/k1_schedule.py builds K1 at
+other register budgets, and an older tree's kernels, beside these.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ STACK_DEPTH = 64
 
 # kernel -> launches made by its wrapper (reset with reset_launches()); the
 # "_octant" entries are the instantiations with K9 bounce walks, "_wide" the
-# K5 ones and "_frustum" those with the K6 primary walk
+# K5 ones, "_frustum" those with the K6 primary walk and "_count" the
+# counting K1 (megakernel.walk_lane_counts, a diagnostic)
 LAUNCHES = {
     "sample_wave": 0, "sample_wave_tiered": 0,
     "sample_wave_octant": 0, "sample_wave_tiered_octant": 0,
@@ -52,6 +57,7 @@ LAUNCHES = {
     "sample_wave_frustum": 0, "sample_wave_frustum_octant": 0,
     "sample_wave_phase1": 0, "sample_wave_phase1_octant": 0,
     "sample_wave_phase1_frustum": 0, "sample_wave_phase1_frustum_octant": 0,
+    "sample_wave_count": 0, "sample_wave_tiered_count": 0,
     "continuation": 0, "continuation_octant": 0,
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
@@ -79,28 +85,32 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _stale(csrc: str, out: str) -> bool:
+    if not os.path.exists(out):
         return True
-    built = os.path.getmtime(LIB_PATH)
+    built = os.path.getmtime(out)
     return any(
-        os.path.getmtime(os.path.join(CSRC, f)) > built for f in SOURCES + HEADERS
+        os.path.getmtime(os.path.join(csrc, f)) > built for f in SOURCES + HEADERS
     )
 
 
-def build(force: bool = False) -> str:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale. Returns the
+def build(force: bool = False, csrc: str = CSRC, out: str = LIB_PATH,
+          defines: tuple = ()) -> str:
+    """Compile the sources of ``csrc`` into the library ``out`` if it is
+    missing or stale, with ``-D`` ``defines`` ("NAME=VALUE"). Returns the
     library path. Safe to call from several processes at once."""
     global build_log
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "lock"), "w") as lock:
+    build_dir = os.path.dirname(out)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if force or _stale():
+        if force or _stale(csrc, out):
             exe = nvcc()
-            objs = [os.path.join(BUILD_DIR, f + ".o") for f in SOURCES]
+            flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+            objs = [os.path.join(build_dir, f + ".o") for f in SOURCES]
             procs = [
                 subprocess.Popen(
-                    [exe, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, f)],
+                    [exe, *flags, "-c", "-o", obj, os.path.join(csrc, f)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
                 for f, obj in zip(SOURCES, objs)
@@ -109,14 +119,49 @@ def build(force: bool = False) -> str:
             build_log = "".join(logs)
             if any(p.returncode for p in procs):
                 raise RuntimeError(f"nvcc failed:\n{build_log}")
-            tmp = LIB_PATH + f".tmp{os.getpid()}"
+            tmp = out + f".tmp{os.getpid()}"
             proc = subprocess.run([exe, "-shared", "-o", tmp, *objs],
                                   capture_output=True, text=True)
             build_log += proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc link failed:\n{build_log}")
-            os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+            os.replace(tmp, out)
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack frame and spill stores per kernel from nvcc's
+    -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
+    ",frustum" for those with the K6 primary walk, ",count" for the counting
+    K1)."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            # (an anonymous namespace's mangling names the source file, so
+            # every kernel of sample_kernel.cu holds "sample_kernel")
+            kernel = next((k for k in ("continuation_kernel", "regen_kernel",
+                                       "sample_kernel",
+                                       "closest_frustum_kernel",
+                                       "shadow_frustum_kernel",
+                                       "closest_kernel", "shadow_kernel")
+                           if k in mangled), mangled)
+            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk")
+                         if w in mangled), "Bvh2Walk")
+            flags = re.findall(r"Lb([01])E", mangled)
+            octant = ",octant" if flags[:1] == ["1"] else ""
+            frustum = ",frustum" if flags[1:2] == ["1"] else ""
+            count = ",count" if "LaneCount" in mangled else ""
+            cur = f"{kernel}<{walk}{octant}{frustum}{count}>"
+            out[cur] = {}
+        elif cur and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[cur]["stack"], out[cur]["spill"] = nums[0], nums[1]
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur]["regs"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 class SampleParams(ctypes.Structure):
@@ -144,56 +189,66 @@ class SampleParams(ctypes.Structure):
     ]
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a kernel library and declare its entry points' arguments (those
+    it has: a library built from an older tree lacks the newer ones)."""
+    L = ctypes.CDLL(path)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sp = ctypes.POINTER(SampleParams)
+    # tables, mats, lights, cam, uv, act, n, params, color, rays
+    bvh2 = [p, p, i, i, p, p, p, p, p, i, sp, p, p]
+    tiered = [p, p, p, i, i, i, i, p, p, p, p, p, i, sp, p, p]
+    # tables, mats, state_in, n, params, color, rays, state_out, stream
+    cont = [p, p, i, i, p, p, i, sp, p, p, p, p]
+    # tables, orig, dir, act, n, t, tri, cross, menc, stream
+    closest = [p, p, i, i, p, p, p, i, p, p, p, p, p]
+    # tables, orig, dir, maxd, act, n, min_vis, t_eps, vis, stream
+    shadow = [p, p, i, i, p, p, p, p, i, f, f, p, p]
+    for name, args, res in (
+        ("rz_error_string", [i], ctypes.c_char_p),
+        ("rz_stack_depth", [], i),
+        ("rz_sample_params_size", [], i),
+        ("rz_closest_bvh2", [p, p, i, i, p, p, p, p, i, p, p, p, p, p], i),
+        ("rz_shadow_bvh2", shadow, i),
+        ("rz_closest_bvh8", closest, i),
+        ("rz_shadow_bvh8", shadow, i),
+        ("rz_closest_frustum", closest, i),
+        ("rz_shadow_frustum", shadow, i),
+        ("rz_closest_misslink", [p, i, i, p, p, p, i, p, p, p, p, p], i),
+        ("rz_shadow_misslink", [p, i, i, p, p, p, p, i, f, f, p, p], i),
+        ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p], i),
+        ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p], i),
+        ("rz_sample_wave", bvh2 + [p], i),
+        ("rz_sample_wave_octant", bvh2 + [p], i),
+        ("rz_sample_wave_tiered", tiered + [p], i),
+        ("rz_sample_wave_tiered_octant", tiered + [p], i),
+        ("rz_sample_wave_wide", bvh2 + [p], i),
+        ("rz_sample_wave_wide_octant", bvh2 + [p], i),
+        ("rz_sample_wave_frustum", bvh2 + [p], i),
+        ("rz_sample_wave_frustum_octant", bvh2 + [p], i),
+        ("rz_sample_wave_phase1", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_octant", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_frustum", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_frustum_octant", bvh2 + [p, p], i),
+        ("rz_sample_wave_count", bvh2 + [p], i),
+        ("rz_sample_wave_tiered_count", tiered + [p], i),
+        ("rz_walk_lanes", [p, i], i),
+        ("rz_sample_budget", [i, p], i),
+        ("rz_continuation", cont, i),
+        ("rz_continuation_octant", cont, i),
+    ):
+        if hasattr(L, name):
+            fn = getattr(L, name)
+            fn.argtypes = args
+            fn.restype = res
+    return L
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     global _lib
     if _lib is None:
-        path = build()
-        L = ctypes.CDLL(path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.rz_error_string.argtypes = [i]
-        L.rz_error_string.restype = ctypes.c_char_p
-        L.rz_stack_depth.restype = i
-        L.rz_sample_params_size.restype = i
-        sp = ctypes.POINTER(SampleParams)
-        # tables, mats, lights, cam, uv, act, n, params, color, rays
-        bvh2 = [p, p, i, i, p, p, p, p, p, i, sp, p, p]
-        tiered = [p, p, p, i, i, i, i, p, p, p, p, p, i, sp, p, p]
-        # tables, mats, state_in, n, params, color, rays, state_out, stream
-        cont = [p, p, i, i, p, p, i, sp, p, p, p, p]
-        # tables, orig, dir, act, n, t, tri, cross, menc, stream
-        closest = [p, p, i, i, p, p, p, i, p, p, p, p, p]
-        # tables, orig, dir, maxd, act, n, min_vis, t_eps, vis, stream
-        shadow = [p, p, i, i, p, p, p, p, i, f, f, p, p]
-        for name, args in (
-            ("rz_closest_bvh2", [p, p, i, i, p, p, p, p, i, p, p, p, p, p]),
-            ("rz_shadow_bvh2", shadow),
-            ("rz_closest_bvh8", closest),
-            ("rz_shadow_bvh8", shadow),
-            ("rz_closest_frustum", closest),
-            ("rz_shadow_frustum", shadow),
-            ("rz_closest_misslink", [p, i, i, p, p, p, i, p, p, p, p, p]),
-            ("rz_shadow_misslink", [p, i, i, p, p, p, p, i, f, f, p, p]),
-            ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]),
-            ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]),
-            ("rz_sample_wave", bvh2 + [p]),
-            ("rz_sample_wave_octant", bvh2 + [p]),
-            ("rz_sample_wave_tiered", tiered + [p]),
-            ("rz_sample_wave_tiered_octant", tiered + [p]),
-            ("rz_sample_wave_wide", bvh2 + [p]),
-            ("rz_sample_wave_wide_octant", bvh2 + [p]),
-            ("rz_sample_wave_frustum", bvh2 + [p]),
-            ("rz_sample_wave_frustum_octant", bvh2 + [p]),
-            ("rz_sample_wave_phase1", bvh2 + [p, p]),
-            ("rz_sample_wave_phase1_octant", bvh2 + [p, p]),
-            ("rz_sample_wave_phase1_frustum", bvh2 + [p, p]),
-            ("rz_sample_wave_phase1_frustum_octant", bvh2 + [p, p]),
-            ("rz_continuation", cont),
-            ("rz_continuation_octant", cont),
-        ):
-            fn = getattr(L, name)
-            fn.argtypes = args
-            fn.restype = i
+        L = bind(build())
         if L.rz_sample_params_size() != ctypes.sizeof(SampleParams):
             raise RuntimeError("SampleParams layout differs from the CUDA source")
         if L.rz_stack_depth() != STACK_DEPTH:

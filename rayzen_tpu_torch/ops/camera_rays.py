@@ -3,8 +3,8 @@
 The port renders in scanline order. rayzen_tpu swizzles pixels into 64x64
 tiles (``tile_permutation``) only so that a 4096-ray packet, which walks the
 tree by consensus, covers a compact screen region. Here every thread walks
-its own ray, and a warp of 32 neighbouring pixels in one row is already
-coherent, so there is nothing to swizzle.
+its own ray, and K1 maps its warps to 8x4-pixel screen tiles inside the
+kernel (csrc/sample_kernel.cu), so the arrays stay in scanline order.
 """
 
 from __future__ import annotations

@@ -7,7 +7,11 @@ Counterpart of rayzen_tpu/ops/megakernel.py: ``sample_wave`` replaces its
 For CUDA tensors it launches csrc/sample_kernel.cu, one thread per pixel:
 over the whole tree (K2/K3 walks), or, when the pack built the treelet view
 (``ws.tiered``), its tiered instantiation (K8 walks), as the JAX package
-does (:1097-1135). The walk knobs follow JAX's rules (:503-525, :1101-1105):
+does (:1097-1135). These and the wide form run the regenerating schedule
+(warps of 8x4 screen pixels, one ray per lane per step, a lane starting its
+next sample as soon as its path ends); the K9, K6 and phase-1 forms run the
+lockstep loop. Both give each pixel the same result bit for bit. The walk
+knobs follow JAX's rules (:503-525, :1101-1105):
 ``wide_nodes`` runs the wide instantiation (K5 walks everywhere) and is
 ignored, with an info log, on a tiered scene; ``frustum_primary`` runs the
 primary closest hit as the warp-packet frustum walk (K6) and applies only
@@ -591,10 +595,12 @@ def _check_tables(ws: WorldArrays) -> None:
 
 
 def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
-                   camera_params: dict, b_stop: int, phase1: bool):
-    """Launch K1 (or, with ``phase1``, K4's phase 1: K1 with a state output)
-    in the instantiation the view and c.wide, c.frustum and c.octant ask
-    for. Returns (color (R, 3), rays (R,) int32, state (13, R) or None)."""
+                   camera_params: dict, b_stop: int, phase1: bool,
+                   count: bool = False):
+    """Launch K1 (or, with ``phase1``, K4's phase 1: K1 with a state output;
+    with ``count``, the counting K1) in the instantiation the view and
+    c.wide, c.frustum and c.octant ask for. Returns (color (R, 3), rays (R,)
+    int32, state (13, R) or None)."""
     dev = uv.device
     uvc = uv.to(torch.float32).contiguous()
     act = active.to(torch.uint8).contiguous()
@@ -607,12 +613,15 @@ def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
     _check_tables(ws)
     n = uvc.shape[0]
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    # one int more than the rays: the tiered K1's persistent warps count the
+    # warp tiles they take in it (sample_kernel.cu), from zero
+    rays = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
     state = (torch.empty((STATE_ROWS, n), dtype=torch.float32, device=dev)
              if phase1 else None)
     name = ("sample_wave" + ("_tiered" if ws.tiered else "")
             + ("_wide" if c.wide else "") + ("_phase1" if phase1 else "")
-            + ("_frustum" if c.frustum else "") + ("_octant" if c.octant else ""))
+            + ("_frustum" if c.frustum else "") + ("_octant" if c.octant else "")
+            + ("_count" if count else ""))
     params = _sample_params(c, ws, 1, b_stop)
     err = getattr(ext.lib(), "rz_" + name)(
         *walk.table_args(ws, view), ws.materials.data_ptr(),
@@ -623,7 +632,7 @@ def _launch_sample(ws: WorldArrays, c: _Consts, uv, active,
     )
     ext.check(err, name)
     ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
-    return color, rays, state
+    return color, rays[:n], state
 
 
 def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
@@ -647,6 +656,42 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
     color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
                                     max_bounces, phase1=False)
     return color, rays.sum(dtype=torch.int64)
+
+
+def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,
+                     camera_params: dict, samp, rng_key, max_bounces: int,
+                     n_samples: int = 1):
+    """A diagnostic of the regenerating K1 (whole tree, or tiered when
+    ``ws.tiered``) on CUDA tensors: its counting instantiation renders the
+    wave and sums, over every step of every walk's node loop, the lanes of
+    the warp that take the step and 32. Returns (color (R, 3), rays ()
+    int64, active lane-steps, warp-steps x 32); their ratio is the walk
+    loop's lane utilisation. No render path calls it."""
+    if not uv.is_cuda:
+        raise ValueError("the counting K1 runs on CUDA tensors only")
+    if cfg.wide_nodes or cfg.frustum_primary or cfg.octant_bounce_walks:
+        raise ValueError("the counting K1 has the whole-tree and tiered walks only")
+    c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
+    sums = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize(uv.device)
+    ext.check(ext.lib().rz_walk_lanes(sums, 1), "rz_walk_lanes")  # zero them
+    color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
+                                    max_bounces, phase1=False, count=True)
+    torch.cuda.synchronize(uv.device)
+    ext.check(ext.lib().rz_walk_lanes(sums, 1), "rz_walk_lanes")
+    return color, rays.sum(dtype=torch.int64), int(sums[0]), int(sums[1])
+
+
+def sample_budget(policy: str) -> dict:
+    """The compiled budget of the regenerating K1 over the walk policy
+    "bvh2", "tiered" or "wide": threads per block, registers per thread,
+    local memory per thread in bytes (walk stacks and spills) and resident
+    warps per SM (the CUDA occupancy calculator)."""
+    out = (ctypes.c_int * 4)()
+    ext.check(ext.lib().rz_sample_budget(
+        {"bvh2": 0, "tiered": 1, "wide": 2}[policy], out), "rz_sample_budget")
+    return dict(threads=out[0], regs=out[1], local_bytes=out[2],
+                warps_per_sm=out[3])
 
 
 # ---- K4: the split-bounce wavefront -----------------------------------------

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K3, K5, K6, K7, K8, the tiered, wide and
 frustum K1, K1 with sample fusion, K4's phase 1 and continuation, and the
-K9 instantiations) against their plain PyTorch versions on the card, and
-the per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip where torch sees no CUDA device, and
+K9 instantiations) against their plain PyTorch versions on the card, the
+regenerating K1 also bit for bit against its lockstep K9 form, and the
+per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip where torch sees no CUDA device, and
 run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -366,3 +367,75 @@ def test_fused_k1_matches_plain(setup):
     err = (kc - pc).abs().amax(-1).cpu().numpy()
     assert (err < 1e-4).mean() >= 0.998
     assert int(kr) == int(pr)
+
+
+# The regenerating, warp-tiled K1 (rz_sample_wave, _tiered, _wide): at
+# ragged frame sizes (37x23 is no multiple of the 16x8 block tile), with
+# holes in ``active``, on a wave that is not a whole frame (mapped linearly),
+# at 1, 2, 3 and 8 spp, with sample_fuse 2 and 3, in both RNG flows. Each
+# frame is held to the plain version (relative 1e-6 of max(1, |plain|), the
+# split tests' bar; rays equal), to a second launch bit for bit, and bit for
+# bit to the same view's K9 instantiation, which runs the lockstep loop and
+# whose frames are the lockstep K1's (test_octant_k1_matches_plain_and_k1).
+REGEN_CASES = [
+    dict(size=(37, 23), spp=1, fuse=1, rng="threefry", holes=False, part=False),
+    dict(size=(37, 23), spp=3, fuse=3, rng="reference", holes=True, part=False),
+    dict(size=(37, 23), spp=8, fuse=2, rng="threefry", holes=True, part=False),
+    dict(size=(48, 32), spp=3, fuse=1, rng="reference", holes=False, part=False),
+    dict(size=(37, 23), spp=2, fuse=1, rng="threefry", holes=True, part=True),
+]
+
+
+def _regen_inputs(setup, view, case):
+    dev = setup["dev"]
+    w, h = case["size"]
+    cfg = setup["cfg"].replace(width=w, height=h, spp=case["spp"], rng=case["rng"],
+                               sample_fuse=case["fuse"], wide_nodes=view == "wide")
+    _, uv = pixel_grid(w, h, dev)
+    if case["part"]:  # every third pixel: not a whole frame
+        uv = uv[::3].contiguous()
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
+    if case["holes"]:
+        act = torch.arange(uv.shape[0], device=dev) % 7 != 2
+    ws = setup["tws"] if view == "tiered" else setup["ws"]
+    return ws, cfg, uv, act
+
+
+@pytest.mark.parametrize("case", REGEN_CASES,
+                         ids=["ragged", "holes_fuse3", "spp8_fuse2", "full_tiles",
+                              "part_wave"])
+@pytest.mark.parametrize("view", ["bvh2", "tiered", "wide"])
+def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
+    ws, cfg, uv, act = _regen_inputs(setup, view, case)
+    cam, spp = setup["cam"], case["spp"]
+    name = "sample_wave" + {"bvh2": "", "tiered": "_tiered", "wide": "_wide"}[view]
+    before = ext.LAUNCHES[name]
+    kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 3, 5, spp)
+    kc2, kr2 = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 3, 5, spp)
+    assert ext.LAUNCHES[name] == before + 2
+    assert torch.equal(kc, kc2) and int(kr) == int(kr2)
+    pc, pr = megakernel.sample_wave_reference(ws, cfg, uv, act, cam, 0, 3, 5, spp)
+    assert ((kc - pc).abs() / pc.abs().clamp_min(1.0)).max().item() <= 1e-6
+    assert int(kr) == int(pr) and int(kr) > 0
+    assert (kc[~act] == 0).all()
+    oc, orr = megakernel.sample_wave(ws, cfg.replace(octant_bounce_walks=True), uv,
+                                     act, cam, 0, 3, 5, spp)
+    assert torch.equal(kc, oc) and int(kr) == int(orr)
+
+
+@pytest.mark.parametrize("view", ["bvh2", "tiered"])
+def test_counting_k1_renders_k1s_frame(setup, view):
+    """The counting instantiation renders the regenerating K1's frame bit for
+    bit and counts at most 32 active lanes per warp step."""
+    ws, cfg, uv, act = _regen_inputs(setup, view, REGEN_CASES[1])
+    before = ext.LAUNCHES["sample_wave" + ("_tiered" if view == "tiered" else "")
+                          + "_count"]
+    cc, cr, active, slots = megakernel.walk_lane_counts(ws, cfg, uv, act,
+                                                        setup["cam"], 0, 3, 5, 3)
+    kc, kr = megakernel.sample_wave(ws, cfg, uv, act, setup["cam"], 0, 3, 5, 3)
+    assert torch.equal(cc, kc) and int(cr) == int(kr)
+    assert 0 < active <= slots and slots % 32 == 0
+    assert ext.LAUNCHES["sample_wave" + ("_tiered" if view == "tiered" else "")
+                        + "_count"] == before + 1
+    budget = megakernel.sample_budget(view)
+    assert budget["regs"] > 0 and budget["warps_per_sm"] > 0
