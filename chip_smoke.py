@@ -64,13 +64,16 @@ Phases (each prints its own lines and stops the run when it fails):
                   256x192 (both RNG flows) and 1080p/1 spp; K9's phase 1 and
                   continuation (split + octant walks) alone vs plain at 256x192
                   and 1080p, and its tiered instantiation (field 320x180) vs
-                  plain; then the split path
+                  plain; the K9 forms' budget and the walk-loop lane
+                  utilisation of K9 (1080p/64 spp) and the tiered K9 (field
+                  1080p/4 spp); then the split path
                   and the field path with octant walks at 1080p/4 spp, each
                   driven with its own launch counts, vs K1 / the tiered K1
  16 K5            wide_nodes: K5 closest/shadow vs plain and vs K2/K3 at the
                   demo's 1080p primary and light rays; the wide K1 vs plain
-                  at 256x192 (both RNG flows) and 1080p/1 spp; the golden
-                  gates with wide_nodes; the 1080p/64 spp wide frame vs K1's
+                  at 256x192 (both RNG flows) and 1080p/1 spp; the wide
+                  and wide + octant K1's budget and lane utilisation at
+                  1080p/64 spp; the golden gates with wide_nodes; the 1080p/64 spp wide frame vs K1's
                   frame, its launch counts, timed in turns with K1; the wide
                   + octant K1 once; the wide K1 on the field (tiered="off")
                   at 1080p/4 spp vs the whole-tree K1, in turns
@@ -342,6 +345,57 @@ def main() -> int:
             f"{k} {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill')} B spill" for k, v in sorted(ptxas.items())))
 
+    # the compiled label of each K1 form: the regenerating regen_kernel over
+    # the whole tree, the tiered view and the wide tables; the K9 and K6
+    # forms on the lockstep sample_kernel with warp tiles; K4's phase 1 (four
+    # forms) on the scanline lockstep loop
+    form_label = {
+        "bvh2": "regen_kernel<Bvh2Walk>", "tiered": "regen_kernel<TieredWalk>",
+        "wide": "regen_kernel<Bvh8Walk>",
+        "octant": "sample_kernel<Bvh2Walk,octant,tiles>",
+        "tiered_octant": "sample_kernel<TieredWalk,octant,tiles>",
+        "wide_octant": "sample_kernel<Bvh8Walk,octant,tiles>",
+        "frustum": "sample_kernel<Bvh2Walk,frustum,tiles>",
+        "frustum_octant": "sample_kernel<Bvh2Walk,octant,frustum,tiles>"}
+    # and of each form's counting instantiation (walk_lane_counts)
+    count_label = {f: lab[:-1] + ",count>" for f, lab in form_label.items()}
+    lockstep = {k for k in ptxas if k.startswith("sample_kernel")}
+    say(f"[2 build] K1 forms: {form_label}; lockstep: {sorted(lockstep)}")
+    require(set(form_label.values()) | set(count_label.values()) <= set(ptxas),
+            "a K1 form or its counting form was not compiled")
+    require(lockstep == {f for f in (*form_label.values(), *count_label.values())
+                         if f.startswith("sample")}
+            | {"sample_kernel<Bvh2Walk>", "sample_kernel<Bvh2Walk,octant>",
+               "sample_kernel<Bvh2Walk,frustum>", "sample_kernel<Bvh2Walk,octant,frustum>"},
+            "the lockstep sample_kernel has other instantiations than K4's phase "
+            "1 and the K9 and K6 forms (and their counting forms)")
+
+    def budget_line(forms):
+        """The compiled budget of K1 forms, with ptxas's spills; their block
+        must be the one the plain version's warp map assumes (tile_pixels,
+        the K6 forms' packets)."""
+        got = {f: megakernel.sample_budget(f) for f in forms}
+        require(all(b["threads"] == megakernel.K1_THREADS for b in got.values()),
+                f"a K1 form's block is not megakernel.K1_THREADS: {got}")
+        return got, "; ".join(
+            f"{f} {b['threads']} threads, {b['regs']} registers (ptxas spills "
+            f"{ptxas.get(form_label[f], {}).get('spill')} B), {b['local_bytes']} B "
+            f"local, {b['warps_per_sm']} resident warps per SM" for f, b in got.items())
+
+    def lane_utilisation(tag, what, ws_, cfg_, uv_, act_, cam_, spp):
+        """The walk-loop lane utilisation of the K1 form sample_wave runs for
+        cfg_ (its counting instantiation, a diagnostic off the main path),
+        which must render the form's frame bit for bit."""
+        lc_, lr_, a_, sl_ = megakernel.walk_lane_counts(ws_, cfg_, uv_, act_, cam_,
+                                                        0, 0, 5, spp)
+        kc_, kr_ = megakernel.sample_wave(ws_, cfg_, uv_, act_, cam_, 0, 0, 5, spp)
+        same_ = bool(torch.equal(lc_, kc_)) and int(lr_) == int(kr_)
+        say(f"[{tag}] {what} walk-loop lane utilisation: {a_ / sl_:.4f} ({a_} "
+            f"active lane-steps of {sl_}); the counting form's frame equals the "
+            f"form's {same_}")
+        require(same_, f"{tag}: the counting {what} rendered another frame")
+        return a_ / sl_
+
     def scene_setup(w, h, spp=1, **kw):
         cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=5, **kw)
         scene = build_demo_scene(w, h)
@@ -537,12 +591,8 @@ def main() -> int:
     # the regenerating K1's compiled budget and its walk loop's lane
     # utilisation (the counting instantiation, a diagnostic off the main
     # path) on the same 1080p/64 spp frame
-    budget = {v: megakernel.sample_budget(v) for v in ("bvh2", "tiered", "wide")}
-    say("[7 kernels] regenerating K1 budget: " + "; ".join(
-        f"{v} {b['threads']} threads, {b['regs']} registers "
-        f"(ptxas spills {ptxas.get(f'regen_kernel<{w}>', {}).get('spill')} B), "
-        f"{b['local_bytes']} B local, {b['warps_per_sm']} resident warps per SM"
-        for (v, b), w in zip(budget.items(), ("Bvh2Walk", "TieredWalk", "Bvh8Walk"))))
+    budget, line = budget_line(("bvh2", "tiered", "wide"))
+    say("[7 kernels] regenerating K1 budget: " + line)
     lc, lr, l_act, l_slots = megakernel.walk_lane_counts(mws, mcfg, muv, mact, mcam,
                                                          0, 0, 5, 64)
     lanes_demo = l_act / l_slots
@@ -881,6 +931,7 @@ def main() -> int:
         f"{omax:.3e}, mean abs {omean:.3e}, rays {int(orays)} vs {int(krays)}; "
         f"launches {olaunches}")
     require(omax <= 1e-6 and int(orays) == int(krays), "K9 frame vs K1")
+    require(bool(torch.equal(oimg, kimg)), "K9 frame not K1's bit for bit")
     require(olaunches["sample_wave_octant"] >= 1 and olaunches["sample_wave"] == 0,
             "K9 was not launched on its main path")
     runs = {"K9": ocfg, "K1": mcfg}
@@ -890,6 +941,7 @@ def main() -> int:
             _, ms = timed(lambda: render_radiance_with_stats(
                 marrays, mcam, runs[name]), torch)
             ab[name].append(ms)
+    k9_turns = {k: statistics.median(v) for k, v in ab.items()}
     say(f"[15 K9] in turns on {kind} ({smi}): " + "; ".join(
         f"{name} median {statistics.median(ts):.2f} ms, best {min(ts):.2f} ms, "
         f"{int(orays) / statistics.median(ts) / 1e3:.1f} Mrays/s median "
@@ -912,6 +964,23 @@ def main() -> int:
         mws, mcfg, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
     say(f"[15 K9] 1080p/1 spp alone: K9 {k9_ms:.3f} ms vs plain {p9_ms:.2f} ms, K1 "
         f"{k1_1spp_ms:.3f} ms")
+    # K9 alone at the dispatch's 1080p/64 spp and at the field's 1080p/4 spp
+    # (tiered), and the K9 forms' compiled budget
+    o64 = mcfg.replace(octant_bounce_walks=True)
+    k9_64_ms = cuda_ms(lambda: megakernel.sample_wave(
+        mws, o64, muv, mact, mcam, 0, 0, 5, 64), 3, torch)
+    t9f = fcfg.replace(octant_bounce_walks=True)
+    k9t_1080_ms = cuda_ms(lambda: megakernel.sample_wave(
+        fws, t9f, fuv, fact, fcam, 0, 0, 5, 4), 3, torch)
+    say(f"[15 K9] K9 alone on {kind} ({smi}): 1080p/64 spp {k9_64_ms:.2f} ms (K1 "
+        f"{k1_ms:.2f} ms, phase 7); tiered, field 1080p/4 spp {k9t_1080_ms:.2f} ms "
+        f"(the tiered K1 {k1t_1080_ms:.2f} ms, phase 11)")
+    budget9, line = budget_line(("octant", "tiered_octant", "wide_octant"))
+    say("[15 K9] K9 forms' budget: " + line)
+    lanes9 = lane_utilisation("15 K9", "K9, demo 1080p/64 spp", mws, o64, muv, mact,
+                              mcam, 64)
+    lanes9t = lane_utilisation("15 K9", "tiered K9, field 1080p/4 spp", fws, t9f, fuv,
+                               fact, fcam, 4)
     # K9's phase 1 and continuation alone: at 256x192 and at the split
     # path's 1080p shapes
     split_kernels(sws, scfg.replace(split_bounce=2, octant_bounce_walks=True),
@@ -954,6 +1023,8 @@ def main() -> int:
             f"{ {k: v for k, v in got.items() if v} }")
         require(dmax <= 1e-5 and dmean <= 1e-6 and int(r) == int(ref_rays),
                 f"K9 {tag} frame")
+        if tag == "field":  # the warp-tiled lockstep K9 form: the tiered K1's bits
+            require(bool(torch.equal(im, ref)), "tiered K9 frame not the tiered K1's")
         require(all(got[k] == v for k, v in expect.items()), f"K9 {tag} path launches")
 
     def frame_gate(tag, what, a, ar_, b, br_):
@@ -989,13 +1060,15 @@ def main() -> int:
         return {k: statistics.median(v) for k, v in ab_.items()}
 
     def knob_phase(tag, knobs, kernel, closest, plain_closest, shadow,
-                   plain_shadow, k1_name):
-        # k1_name: the launch count of the knob's K1 instantiation
+                   plain_shadow, k1_name, forms):
+        # k1_name: the launch count of the knob's K1 instantiation; forms:
+        # the budget names of it and of its K9 form
         """Phases 16 (K5) and 17 (K6): the standalone walks against their
         plain versions and against K2/K3 at the demo's 1080p rays, the K1
-        instantiation against its plain version, the golden gates, the
-        1080p/64 spp frame and the field frame (tiered="off") against K1's,
-        timed in turns. Returns the numbers of the kernel rows."""
+        form and its K9 form against their plain versions, their budgets and
+        walk-loop lane utilisation, the golden gates,
+        the 1080p/64 spp frame and the field frame (tiered="off") against
+        K1's, timed in turns. Returns the numbers of the kernel rows."""
         out = {}
         ext.reset_launches()
         # the closest walk at the 1080p primary rays
@@ -1071,29 +1144,49 @@ def main() -> int:
             k = megakernel.sample_wave(ws, c, uv, act, camp, 0, 0, 5, 1)
             p = megakernel.sample_wave_reference(ws, c, uv, act, camp, 0, 0, 5, 1)
             k1e = max(k1e, k1_compare(tag, rng, k, p, 256, 192, 1, k1_name))
-        c1 = mcfg.replace(**knobs)
-        k = megakernel.sample_wave(mws, c1, muv, mact, mcam, 0, 0, 5, 1)
-        p, p1_ms_, w1 = counted(lambda w: megakernel.sample_wave_reference(
-            mws, c1, muv, mact, mcam, 0, 0, 5, 1, work=w), torch, walk)
-        k1e = max(k1e, k1_compare(tag, c1.rng, k, p, 1920, 1080, 1, k1_name))
-        k1_ms_ = cuda_ms(lambda: megakernel.sample_wave(
-            mws, c1, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
-        say(f"[{tag}] 1080p/1 spp alone: {k1_name} {k1_ms_:.3f} ms vs plain "
-            f"{p1_ms_:.2f} ms, K1 {k1_1spp_ms:.3f} ms")
-        out["k1"] = dict(ms=k1_ms_, plain_ms=p1_ms_, work=w1, err=k1e)
+        # the form and its K9 form at 1080p/1 spp (the K6 forms' plain
+        # version walks its packets as the kernel's warps, so the two must
+        # agree to float rounding), then each alone at the dispatch's 64 spp,
+        # with its budget and lane utilisation
+        k1e = {"": k1e, "_octant": 0.0}
+        budget_, line = budget_line(forms)
+        say(f"[{tag}] {k1_name} forms' budget: " + line)
+        for sfx, c1, form in (
+                ("", mcfg.replace(**knobs), forms[0]),
+                ("_octant", mcfg.replace(octant_bounce_walks=True, **knobs), forms[1])):
+            k = megakernel.sample_wave(mws, c1, muv, mact, mcam, 0, 0, 5, 1)
+            p, p1_ms_, w1 = counted(lambda w: megakernel.sample_wave_reference(
+                mws, c1, muv, mact, mcam, 0, 0, 5, 1, work=w), torch, walk)
+            mx = k1_compare(tag, c1.rng, k, p, 1920, 1080, 1, k1_name + sfx)
+            k1e[sfx] = max(k1e[sfx], mx)
+            if knobs.get("frustum_primary"):
+                require(mx <= 1e-6 and int(k[1]) == int(p[1]),
+                        f"{tag}: {k1_name + sfx} vs plain at 1080p/1 spp")
+            k1_ms_ = cuda_ms(lambda: megakernel.sample_wave(
+                mws, c1, muv, mact, mcam, 0, 0, 5, 1), 5, torch)
+            ms64 = cuda_ms(lambda: megakernel.sample_wave(
+                mws, c1, muv, mact, mcam, 0, 0, 5, 64), 3, torch)
+            say(f"[{tag}] 1080p/1 spp alone: {k1_name + sfx} {k1_ms_:.3f} ms vs plain "
+                f"{p1_ms_:.2f} ms, K1 {k1_1spp_ms:.3f} ms; 1080p/64 spp alone "
+                f"{ms64:.2f} ms (K1 {k1_ms:.2f} ms, phase 7)")
+            lanes = lane_utilisation(tag, f"{k1_name + sfx}, demo 1080p/64 spp", mws,
+                                     c1, muv, mact, mcam, 64)
+            out["k1" + sfx] = dict(ms=k1_ms_, plain_ms=p1_ms_, work=w1, err=k1e[sfx],
+                                   ms_64spp=ms64, lanes=lanes, budget=budget_.get(form))
         out["standalone"] = dict(ext.LAUNCHES)
-        # the golden gates
+        # the golden gates, for the form and its K9 form
         for w_, h_, name in ((256, 192, "demo_256x192.npz"),
                              (800, 600, "demo_reference_800x600.npz")):
-            gcfg_, _gs, garr, gcam_ = scene_setup(w_, h_, **knobs)
-            img_, _ = render_radiance_with_stats(garr, gcam_, gcfg_)
-            img_ = img_.cpu().numpy()
             golden = np.load(os.path.join(HERE, "tests", "golden", name))["image"]
             golden = golden.astype(np.float32)
-            s_, mabs = ssim(img_, golden), float(np.abs(img_ - golden).mean())
-            say(f"[{tag}] gate {w_}x{h_} vs {name} with {knobs}: SSIM {s_:.4f}, "
-                f"mean abs {mabs:.3e}")
-            require(s_ >= 0.995 and mabs < 2e-3, f"{tag} golden gate {w_}x{h_}")
+            for kn in (knobs, dict(octant_bounce_walks=True, **knobs)):
+                gcfg_, _gs, garr, gcam_ = scene_setup(w_, h_, **kn)
+                img_, _ = render_radiance_with_stats(garr, gcam_, gcfg_)
+                img_ = img_.cpu().numpy()
+                s_, mabs = ssim(img_, golden), float(np.abs(img_ - golden).mean())
+                say(f"[{tag}] gate {w_}x{h_} vs {name} with {kn}: SSIM {s_:.4f}, "
+                    f"mean abs {mabs:.3e}")
+                require(s_ >= 0.995 and mabs < 2e-3, f"{tag} golden gate {w_}x{h_}")
         # the main path with the knob: one dispatch with its launch counts,
         # its frame against K1's, then timed in turns with K1
         kcfg = mcfg.replace(**knobs)
@@ -1118,7 +1211,11 @@ def main() -> int:
         got = {k: v for k, v in ext.LAUNCHES.items() if v}
         say(f"[{tag}] 1080p/64 spp with {knobs} and octant bounce walks: launches {got}")
         require(got == {k1_name + "_octant": 1}, f"{tag} octant launches")
+        out["octant_launches"] = got.get(k1_name + "_octant", 0)
         frame_gate(tag, "1080p/64 spp octant frame vs K1's", oi, orr, kimg, krays)
+        if not knobs.get("frustum_primary"):  # K9 takes its view's K1 walks
+            require(bool(torch.equal(oi, img_)) and int(orr) == int(rays_),
+                    f"{tag}: the K9 form's frame is not its K1 form's bit for bit")
         out["turns"] = in_turns(tag, {k1_name: kcfg, k1_name + "_octant": ocfg_,
                                       "K1": mcfg}, marrays, mcam)
         # the field, whole tree (tiered="off"), 1080p/4 spp
@@ -1137,12 +1234,13 @@ def main() -> int:
     # ---- 16 K5: wide nodes ----
     k5 = knob_phase("16 K5", dict(wide_nodes=True), "K5", walk.closest_walk_bvh8,
                     walk.wide_closest_walk_reference, walk.shadow_walk_bvh8,
-                    walk.wide_shadow_walk_reference, "sample_wave_wide")
+                    walk.wide_shadow_walk_reference, "sample_wave_wide",
+                    ("wide", "wide_octant"))
     # ---- 17 K6: the frustum primary walk ----
     k6 = knob_phase("17 K6", dict(frustum_primary=True), "K6",
                     walk.closest_walk_frustum, walk.frustum_closest_walk_reference,
                     walk.shadow_walk_frustum, walk.frustum_shadow_walk_reference,
-                    "sample_wave_frustum")
+                    "sample_wave_frustum", ("frustum", "frustum_octant"))
     # the frustum phase 1 of the split path, vs plain at 256x192 and driven
     # once through the entry point at 1080p/4 spp against K1's frame
     ext.reset_launches()
@@ -1379,12 +1477,19 @@ def main() -> int:
     walk8_b = nbytes(mws.inner8_table, mws.leaf8_table)
     walk2_b = nbytes(mws.inner_table, mws.leaf_table)
 
+    def k1_64(k, work_1spp, tab):
+        """A K1 form's 1080p/64 spp numbers: its time alone, the estimated
+        bound (64 x the 1 spp plain walks' work), lane utilisation, budget."""
+        b64 = bound({key: 64 * v for key, v in work_1spp.items()}, tab + R * sample_b)
+        return dict(ms_1080p_64spp=k["ms_64spp"], bound_ms_1080p_64spp_estimate=b64[0],
+                    walk_lane_utilisation_1080p_64spp=k["lanes"], budget=k["budget"])
+
     def knob_rows(kn, out, source_cuh, names, replaces, tables_b, k1_tab, extra):
         """The closest, shadow and K1 rows of phase 16 (K5) or 17 (K6)."""
         closest_name, shadow_name, k1_name = names
         inside = (f"device function inside the {k1_name} instantiation of K1 "
                   f"(csrc/{source_cuh}, called by csrc/sample_kernel.cu)")
-        c, sh, k1 = out["closest"], out["shadow"], out["k1"]
+        c, sh, k1, ko = out["closest"], out["shadow"], out["k1"], out["k1_octant"]
         return [
             row(f"{kn} {closest_name}", "walk_kernels.cu", replaces[0],
                 out["launches"][closest_name], c["err"], c["ms"], c["plain_ms"],
@@ -1405,11 +1510,20 @@ def main() -> int:
                 standalone_launches=out["standalone"][k1_name],
                 frame_vs_k1_max_abs=out["frame_err"],
                 shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms,
+                **k1_64(k1, k1["work"], k1_tab),
                 dispatch_1080p_64spp_median_ms=out["turns"][k1_name],
                 octant_form_dispatch_median_ms=out["turns"][k1_name + "_octant"],
                 k1_dispatch_1080p_64spp_median_ms=out["turns"]["K1"],
                 field_1080p_4spp_median_ms=out["field_turns"][k1_name],
                 field_whole_tree_k1_median_ms=out["field_turns"]["K1"], **extra),
+            row(f"K9 {k1_name}_octant", "sample_kernel.cu",
+                "rayzen_tpu/ops/megakernel.py:215", out["octant_launches"],
+                ko["err"], ko["ms"], ko["plain_ms"], ko["work"], k1_tab + R * sample_b,
+                standalone_launches=out["standalone"][k1_name + "_octant"],
+                shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms,
+                **k1_64(ko, ko["work"], k1_tab),
+                dispatch_1080p_64spp_median_ms=out["turns"][k1_name + "_octant"],
+                k1_dispatch_1080p_64spp_median_ms=out["turns"]["K1"]),
         ]
 
     # the tiered K1's bound at the field's 1080p/4 spp, estimated: the plain
@@ -1470,13 +1584,20 @@ def main() -> int:
         row("K9 sample_wave_octant", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215", olaunches["sample_wave_octant"],
             k9_err, k9_ms, p9_ms, k9_work, mtab + R * sample_b,
-            shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms),
+            shape="demo 1080p, 1 spp", k1_same_shape_ms=k1_1spp_ms,
+            schedule="lockstep (sample_kernel) with warp tiles",
+            **k1_64(dict(ms_64spp=k9_64_ms, lanes=lanes9, budget=budget9["octant"]),
+                    k9_work, mtab),
+            dispatch_1080p_64spp_median_ms=k9_turns["K9"],
+            k1_dispatch_1080p_64spp_median_ms=k9_turns["K1"]),
         row("K9 sample_wave_tiered_octant", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215",
             k9_paths["field"]["sample_wave_tiered_octant"], k9t_err, k9t_ms, p9t_ms,
             k9t_work, ftab + 320 * 180 * sample_b,
             standalone_launches=k9_standalone["sample_wave_tiered_octant"],
-            shape="field 320x180, 1 spp"),
+            shape="field 320x180, 1 spp", field_1080p_4spp_ms=k9t_1080_ms,
+            walk_lane_utilisation_field_1080p_4spp=lanes9t,
+            budget=budget9["tiered_octant"]),
         row("K9 sample_wave_phase1_octant", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215",
             k9_paths["split"]["sample_wave_phase1_octant"], k9x["ph1"][3], k9x["ph1"][0],
@@ -1496,8 +1617,7 @@ def main() -> int:
         ("closest_hit_bvh8", "shadow_walk_bvh8", "sample_wave_wide"),
         ("rayzen_tpu/ops/pallas_traverse.py:617",
          "rayzen_tpu/ops/pallas_traverse.py:728",
-         "rayzen_tpu/ops/megakernel.py:503"), walk8_b, mtab8,
-        dict(budget=budget["wide"]))
+         "rayzen_tpu/ops/megakernel.py:503"), walk8_b, mtab8, {})
     kernels += knob_rows(
         "K6", k6, "frustum.cuh",
         ("closest_hit_frustum", "shadow_walk_frustum", "sample_wave_frustum"),

@@ -6,11 +6,12 @@
 // The Pallas walk moves a packet of 4096 rays through the tree with scalar
 // interval tests against the packet's frustum (per-axis origin and
 // inverse-direction intervals); rays do work only at leaves, with no box test
-// of their own. Here the packet is a warp: its active lanes' rays (32
-// consecutive ray ids, as K1 maps ray i to thread i). Every lane runs the
-// same scalar node loop with its own copy of one identical stack, so every
-// branch below that depends only on node data is warp-uniform; leaves are
-// tested per lane. Lanes that are out of range or inactive stay in the loop
+// of their own. Here the packet is a warp: its active lanes' rays (in the
+// standalone walks and K4's phase 1, 32 consecutive ray ids, ray i on thread
+// i; in K1's K6 forms, the warp's 8 x 4 pixel tile). Every lane runs the
+// same scalar node loop over one stack, so every branch below that depends
+// only on node data is warp-uniform; leaves are tested per lane. Lanes that
+// are out of range or inactive stay in the loop
 // but are left out of the frustum and of the bounds (the Pallas packet's
 // padded lanes have zero directions, which widen its frustum to everything;
 // a frustum over fewer rays is still conservative for the rays it serves).
@@ -25,6 +26,11 @@
 //
 // Every lane of the warp must call these (``on`` false for a lane without a
 // ray): the shuffles name the full warp.
+//
+// The packet's stack is warp-uniform. The standalone walks and K4's phase 1
+// keep a copy of it in every lane's local memory (LocalStack); K1's K6
+// forms keep one copy per warp in shared memory (SharedStack), which frees
+// the 32 copies' local memory under their 64-register budget.
 //
 // What bounds it on an H100: the same dependent loads as the BVH2 walk, but
 // one node sequence per warp instead of 32 divergent ones, and per node two
@@ -108,18 +114,41 @@ RZ_DEV bool frustum_box(const Frustum& f, const float* b, float t_bound,
   return exit_hi >= fmaxf(entry, 0.0f) && entry <= t_bound;
 }
 
-// K6 closest hit from T_FAR (h enters as the no-hit state). On stack
-// overflow every lane's t and menc become NaN.
-RZ_DEV void frustum_closest(const Tables& tb, const Ray& r, bool on,
-                            HitRec& h) {
+// The packet stacks: get(k) reads entry k and set(k, v) writes it; every
+// lane calls both with the same k and v (the walk's control flow is
+// warp-uniform). sync() comes between a step's pop and its pushes.
+struct LocalStack {  // a copy in every lane's local memory
+  int s[STACK_DEPTH];
+  RZ_DEV int get(int k) const { return s[k]; }
+  RZ_DEV void set(int k, int v) { s[k] = v; }
+  RZ_DEV void sync() const {}
+};
+
+// One copy per warp in shared memory (STACK_DEPTH ints). Every lane writes
+// the same values, so a lane reads its own writes; the sync keeps one lane's
+// pushes from overwriting an entry before another lane has popped it.
+struct SharedStack {
+  int* s;
+  RZ_DEV int get(int k) const { return s[k]; }
+  RZ_DEV void set(int k, int v) { s[k] = v; }
+  RZ_DEV void sync() const { __syncwarp(); }
+};
+
+// K6 closest hit from T_FAR (h enters as the no-hit state) on the packet
+// stack ``stack``, counting its steps with ``cnt``. On stack overflow every
+// lane's t and menc become NaN.
+template <class Stack, class Count = NoCount>
+RZ_DEV void frustum_walk_closest(const Tables& tb, const Ray& r, bool on,
+                                 HitRec& h, Stack& stack,
+                                 const Count& cnt = Count{}) {
   Frustum f;
   if (!packet_frustum(r, on, f)) return;
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
+  stack.set(0, 0);
   int sp = 1;
   float t_max = T_FAR;
   while (sp > 0) {  // warp-uniform
-    const int node = stack[--sp];
+    cnt.packet(on);
+    const int node = stack.get(--sp);
     float row[16];
     load_inner(tb.inner, node, row);
     float tl, tr;
@@ -131,22 +160,32 @@ RZ_DEV void frustum_closest(const Tables& tb, const Ray& r, bool on,
     if (hl && on) leaf_closest(tb, lref, r, h);
     if (hr && on) leaf_closest(tb, rref, r, h);
     if (hl || hr) t_max = warp_max(on ? h.t : -INFINITY);
-    // the nearer entry on top
-    const bool near_left = tl <= tr;
+    // the hit internal children, the nearer entry (by interval entry) on top
     const bool push_l = ok_l && !l_leaf, push_r = ok_r && !r_leaf;
-    bool fit;
-    if (push_l && push_r) {
-      fit = push_children(stack, sp, true, true, near_left ? lref : rref,
-                          near_left ? rref : lref);
-    } else {
-      fit = push_children(stack, sp, push_l, push_r, lref, rref);
-    }
-    if (!fit) {
+    const int npush = (int)push_l + (int)push_r;
+    if (sp + npush > STACK_DEPTH) {  // never write past the stack
       h.t = nan_f();
       h.menc = nan_f();
       return;
     }
+    stack.sync();
+    if (push_l && push_r) {
+      const bool near_left = tl <= tr;
+      stack.set(sp, near_left ? rref : lref);
+      stack.set(sp + 1, near_left ? lref : rref);
+    } else if (npush == 1) {
+      stack.set(sp, push_l ? lref : rref);
+    }
+    sp += npush;
   }
+}
+
+// K6 closest hit from T_FAR with a stack copy in every lane (the standalone
+// walk and K4's phase 1).
+RZ_DEV void frustum_closest(const Tables& tb, const Ray& r, bool on,
+                            HitRec& h) {
+  LocalStack stack;
+  frustum_walk_closest(tb, r, on, h, stack);
 }
 
 // K6 transmission visibility (walk_shadow's contract for the lanes that are

@@ -54,12 +54,27 @@
 //   is left.
 // - sample_kernel, the lockstep loop: a thread runs its samples in turn,
 //   each through the primary walk, the shadow walks of direct_lighting and
-//   trace_bounces, at separate call sites, scanline pixel order. K9's
-//   votes (kOctant), K6's packet walk (kFrustum) and K4's phase 1 (one
-//   sample and its state rows) need the whole warp at each of those calls,
-//   so their instantiations keep it.
-// Both give each pixel the same operations in the same order (samples,
-// sub-blocks, lights, bounces), so their frames are equal bit for bit.
+//   trace_bounces, at separate call sites. K9's votes (kOctant), K6's packet
+//   walk (kFrustum) and K4's phase 1 (one sample and its state rows) need
+//   the whole warp at each of those calls, so they run it. K1's K9 and K6
+//   forms (rz_sample_wave_octant, _tiered_octant, _wide_octant, _frustum,
+//   _frustum_octant) run it with regen_kernel's warp tiles and register
+//   budget (kTiles) and, for K6, one packet stack per warp in shared memory;
+//   phase 1 in scanline order. A warp-synchronous form of regen_kernel for
+//   K9 and K6 (every lane in the loop until its warp is done, one call site
+//   that votes) measured slower or no faster on every form: the octant
+//   groups serialise the bounce walks that regeneration overlaps, and the
+//   packet waits each sample for the warp's longest path, which the
+//   lockstep loop does anyway (PERF.md §6).
+// The K9 and K6 forms replace rayzen_tpu/ops/megakernel.py:215
+// (_octant_masked_walk, used by _make_bounce_body :251-257, :697) and
+// :515-525, :576-585 (the frustum primary, pallas_traverse.py:1002). What
+// bounds them is what bounds K1, dependent loads of L2-resident tables and
+// lanes idle in a warp's walk, against a work bound of ~4.2 ms (K9) and
+// ~3.6 ms (K6) per 1080p/64 spp demo frame (PERF.md §6: max(fp32 ops / 67
+// TFLOP/s, bytes / 3.35 TB/s), operations). The warp tiles make a warp's
+// rays, and so K6's packet, coherent; the budget holds 32 warps resident
+// to hide the load latency; the shared stack frees K6's 256 B per lane.
 #include <algorithm>
 #include <type_traits>
 
@@ -72,24 +87,129 @@ using rz::Path;
 using rz::SampleParams;
 constexpr int kBlock = 128;
 
-template <class Walk, bool kOctant, bool kFrustum>
-__global__ void sample_kernel(Walk w, const float* __restrict__ mats,
-                              const float* __restrict__ lights,
-                              const float* __restrict__ cam,
-                              const float* __restrict__ uv,
-                              const uint8_t* __restrict__ act, int n,
-                              SampleParams p, float* __restrict__ color_out,
-                              int* __restrict__ rays_out,
-                              float* __restrict__ state_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// Block size, and the blocks each SM must hold at once (__launch_bounds__;
+// registers per thread <= 65536 / (threads x blocks)): 128 x 8, 64
+// registers and 32 resident warps, the fastest point of the measured
+// register sweep for the whole tree and the tiered view alike (PERF.md §5).
+// scripts/k1_schedule.py rebuilds with other values (-D) to sweep them.
+#ifndef RZ_K1_THREADS
+#define RZ_K1_THREADS 128
+#endif
+#ifndef RZ_K1_MIN_BLOCKS
+#define RZ_K1_MIN_BLOCKS 8
+#endif
+constexpr int kThreads = RZ_K1_THREADS;
+static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
+constexpr int kWarps = kThreads / 32;
+
+// The screen tile of a block: two warps across, each warp 8 x 4 pixels.
+constexpr int kTileW = 16, kTileH = kThreads / kTileW;
+
+// Block tiles of a launch over n pixels of a width x height frame.
+__host__ __device__ int tile_blocks(int n, int width, int height) {
+  if ((long long)width * height != n) return (n + kThreads - 1) / kThreads;
+  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+}
+
+// The pixel of lane ``lane`` of warp ``warp`` in block tile ``tile``, -1
+// for none. A full frame (n = width x height, row after row) is cut into
+// kTileW x kTileH tiles, clipped at the right and bottom edges; any other
+// wave is mapped linearly. Either map gives each pixel exactly one lane,
+// and a pixel's result does not depend on its lane, so the map changes only
+// which rays share a warp (and so the K6 forms' packets). The plain form is
+// ops/megakernel.py tile_pixels.
+__device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
+                                          int width, int height) {
+  if ((long long)width * height != n) {
+    const int i = tile * kThreads + warp * 32 + lane;
+    return i < n ? i : -1;
+  }
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int x = (tile % tiles_x) * kTileW + (warp & 1) * 8 + (lane & 7);
+  const int y = (tile / tiles_x) * kTileH + (warp >> 1) * 4 + (lane >> 3);
+  return x < width && y < height ? y * width + x : -1;
+}
+
+// The walk-loop lane counter of the counting K1 forms (the _count entry
+// points): at every step of a walk's node loop the lowest active lane of
+// the warp adds the active lanes and 32 to one of kCountSlots pairs of
+// 64-bit sums (spread over slots by warp, so that the atomics do not queue
+// on one address). active / slots over a launch is the walk loop's lane
+// utilisation. In a step of K6's packet walk every lane of the warp takes
+// the step, and the lanes with a ray in the packet count as active.
+constexpr int kCountSlots = 1024;
+__device__ unsigned long long g_walk_lanes[2 * kCountSlots];
+
+struct LaneCount {
+  __device__ __forceinline__ void add(unsigned active) const {
+    const unsigned slot =
+        (blockIdx.x * kWarps + (threadIdx.x >> 5)) % kCountSlots;
+    atomicAdd(&g_walk_lanes[2 * slot], (unsigned long long)active);
+    atomicAdd(&g_walk_lanes[2 * slot + 1], 32ull);
+  }
+  __device__ __forceinline__ void step() const {
+    const unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) add(__popc(m));
+  }
+  __device__ __forceinline__ void packet(bool on) const {
+    const unsigned m = __ballot_sync(rz::kFullMask, on);
+    if ((threadIdx.x & 31) == 0) add(__popc(m));
+  }
+};
+
+// The walks of the counting K9 and K6 forms: Walk's closest and shadow
+// walks as its kEither walk (trace, the regenerating K1's, which takes the
+// same steps to the same result) with LaneCount at every step.
+template <class Walk>
+struct Counted : Walk {
+  __device__ void closest(const rz::Ray& r, rz::HitRec& h) const {
+    float vis = 1.0f;
+    this->trace(r, false, 0.0f, 0.0f, h, vis, LaneCount{});
+  }
+  __device__ float shadow(const rz::Ray& r, float maxd, float min_vis,
+                          float t_eps) const {
+    rz::HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+    float vis = 1.0f;
+    this->trace(r, true, min_vis, t_eps, h, vis, LaneCount{});
+    return vis;
+  }
+};
+
+// kTiles: K1's warp tiles and register budget (tile_pixel,
+// __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)) and K6's packet stack in
+// shared memory; otherwise scanline pixels in blocks of kBlock (phase 1).
+// Count: LaneCount in the counting forms (Walk is then Counted<...>), which
+// also counts K6's packet steps.
+template <class Walk, bool kOctant, bool kFrustum, bool kTiles,
+          class Count = rz::NoCount>
+__global__ void __launch_bounds__(kTiles ? kThreads : kBlock,
+                                  kTiles ? RZ_K1_MIN_BLOCKS : 1)
+    sample_kernel(Walk w, const float* __restrict__ mats,
+                  const float* __restrict__ lights,
+                  const float* __restrict__ cam, const float* __restrict__ uv,
+                  const uint8_t* __restrict__ act, int n, SampleParams p,
+                  float* __restrict__ color_out, int* __restrict__ rays_out,
+                  float* __restrict__ state_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;  // -1: no pixel
+  if constexpr (kTiles) {
+    i = tile_pixel(blockIdx.x, threadIdx.x >> 5, threadIdx.x & 31, n, p.width,
+                   p.height);
+  } else if (i >= n) {
+    i = -1;
+  }
   // K9's votes and K6's shuffles name the whole warp: with kOctant or
   // kFrustum every lane stays to the end
   constexpr bool kWarp = kOctant || kFrustum;
-  if (!kWarp && i >= n) return;
-  const bool on = i < n && act[i] != 0;
+  if (!kWarp && i < 0) return;
+  // the tiled K6 forms' packet stacks, one per warp
+  constexpr bool kShared = kFrustum && kTiles;
+  __shared__ int stacks[kShared ? kWarps * rz::STACK_DEPTH : 1];
+  rz::SharedStack stack{stacks +
+                        (kShared ? (threadIdx.x >> 5) * rz::STACK_DEPTH : 0)};
+  const bool on = i >= 0 && act[i] != 0;
   float acc[3] = {0.0f, 0.0f, 0.0f};  // the current sub-block's sum
   int rays = 0;
-  if (i < n) {  // the sub-block sums add up here
+  if (i >= 0) {  // the sub-block sums add up here
 #pragma unroll
     for (int c = 0; c < 3; ++c) color_out[3 * i + c] = 0.0f;
   }
@@ -128,7 +248,9 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
       // ---- bounce 0: primary hit, the only bounce with direct lighting
       rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
       const rz::Ray pr = rz::make_ray(cpx, cpy, cpz, dx, dy, dz);
-      if constexpr (kFrustum) {
+      if constexpr (kShared) {  // every lane of the warp
+        rz::frustum_walk_closest(w.tb, pr, on, h, stack, Count{});
+      } else if constexpr (kFrustum) {
         rz::frustum_closest(w.tb, pr, on, h);  // every lane of the warp
       } else if (on) {
         w.closest(pr, h);
@@ -171,13 +293,13 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
       if (g == groups - 1) {  // the sub-block ends: fold its sum in
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          if (i < n) color_out[3 * i + c] = color_out[3 * i + c] + acc[c];
+          if (i >= 0) color_out[3 * i + c] = color_out[3 * i + c] + acc[c];
           acc[c] = 0.0f;
         }
       }
     }
   }
-  if (i >= n) return;
+  if (i < 0) return;
   rays_out[i] = rays;
   // phase 1 (one sample): the path where it stopped, and its seeds
   if (state_out) {
@@ -186,64 +308,28 @@ __global__ void sample_kernel(Walk w, const float* __restrict__ mats,
   }
 }
 
-template <bool kOctant, bool kFrustum = false, class Walk>
+template <bool kOctant, bool kFrustum, bool kTiles,
+          class Count = rz::NoCount, class Walk>
 int launch_sample(Walk w, const float* mats, const float* lights,
                   const float* cam, const float* uv, const uint8_t* act, int n,
                   const SampleParams* params, float* color_out, int* rays_out,
                   float* state_out, void* stream) {
+  using W = std::conditional_t<std::is_same_v<Count, LaneCount>, Counted<Walk>,
+                               Walk>;
   if (n > 0) {
-    sample_kernel<Walk, kOctant, kFrustum>
-        <<<(n + kBlock - 1) / kBlock, kBlock, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-        w, mats, lights, cam, uv, act, n, *params, color_out, rays_out,
-        state_out);
+    const int threads = kTiles ? kThreads : kBlock;
+    const int blocks = kTiles ? tile_blocks(n, params->width, params->height)
+                              : (n + kBlock - 1) / kBlock;
+    sample_kernel<W, kOctant, kFrustum, kTiles, Count>
+        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            W{w}, mats, lights, cam, uv, act, n, *params, color_out, rays_out,
+            state_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- the regenerating K1: rz_sample_wave, _tiered and _wide ----
 
-// Block size, and the blocks each SM must hold at once (__launch_bounds__;
-// registers per thread <= 65536 / (threads x blocks)): 128 x 8, 64
-// registers and 32 resident warps, the fastest point of the measured
-// register sweep for the whole tree and the tiered view alike (PERF.md §5).
-// scripts/k1_schedule.py rebuilds with other values (-D) to sweep them.
-#ifndef RZ_K1_THREADS
-#define RZ_K1_THREADS 128
-#endif
-#ifndef RZ_K1_MIN_BLOCKS
-#define RZ_K1_MIN_BLOCKS 8
-#endif
-constexpr int kThreads = RZ_K1_THREADS;
-static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
-constexpr int kWarps = kThreads / 32;
-
-// The screen tile of a block: two warps across, each warp 8 x 4 pixels.
-constexpr int kTileW = 16, kTileH = kThreads / kTileW;
-
-// Block tiles of a launch over n pixels of a width x height frame.
-__host__ __device__ int tile_blocks(int n, int width, int height) {
-  if ((long long)width * height != n) return (n + kThreads - 1) / kThreads;
-  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
-}
-
-// The pixel of lane ``lane`` of warp ``warp`` in block tile ``tile``, -1
-// for none. A full frame (n = width x height, row after row) is cut into
-// kTileW x kTileH tiles, clipped at the right and bottom edges; any other
-// wave is mapped linearly. Either map gives each pixel exactly one lane,
-// and a pixel's result does not depend on its lane, so the map changes only
-// which rays share a warp.
-__device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
-                                          int width, int height) {
-  if ((long long)width * height != n) {
-    const int i = tile * kThreads + warp * 32 + lane;
-    return i < n ? i : -1;
-  }
-  const int tiles_x = (width + kTileW - 1) / kTileW;
-  const int x = (tile % tiles_x) * kTileW + (warp & 1) * 8 + (lane & 7);
-  const int y = (tile / tiles_x) * kTileH + (warp >> 1) * 4 + (lane >> 3);
-  return x < width && y < height ? y * width + x : -1;
-}
 
 // Persistent warps, for the tiered K1: the launch starts as many blocks as
 // the card holds at once, and each warp takes warp tiles, in order, from a
@@ -252,27 +338,6 @@ __device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
 // K1 1.02-1.04x and the wide K1 1.00x, so only the tiered walks run so.
 template <class Walk>
 constexpr bool kPersistent = std::is_same_v<Walk, rz::TieredWalk>;
-
-// The walk-loop lane counter of the counting K1 (rz_sample_wave_count,
-// rz_sample_wave_tiered_count): at every step of a walk's node loop the
-// lowest active lane of the warp adds the active lanes and 32 to one of
-// kCountSlots pairs of 64-bit sums (spread over slots by warp, so that the
-// atomics do not queue on one address). active / slots over a launch is the
-// walk loop's lane utilisation.
-constexpr int kCountSlots = 1024;
-__device__ unsigned long long g_walk_lanes[2 * kCountSlots];
-
-struct LaneCount {
-  __device__ __forceinline__ void step() const {
-    const unsigned m = __activemask();
-    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-      const unsigned slot =
-          (blockIdx.x * kWarps + (threadIdx.x >> 5)) % kCountSlots;
-      atomicAdd(&g_walk_lanes[2 * slot], (unsigned long long)__popc(m));
-      atomicAdd(&g_walk_lanes[2 * slot + 1], 32ull);
-    }
-  }
-};
 
 // A lane's stage in its current sample: the primary ray, shadow ray li of
 // the primary hit (stage = li >= 0), or a bounce ray.
@@ -479,9 +544,9 @@ int launch_regen(Walk w, const float* mats, const float* lights,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The compiled budget of a regenerating instantiation: out = {threads per
-// block, registers per thread, local memory per thread in bytes (the walk
-// stacks and any spills), resident warps per SM}.
+// The compiled budget of a K1 kernel launched with kThreads threads: out =
+// {threads per block, registers per thread, local memory per thread in bytes
+// (the walk stacks and any spills), resident warps per SM}.
 template <class Kernel>
 int budget_of(Kernel kernel, int* out) {
   cudaFuncAttributes a{};
@@ -501,8 +566,9 @@ int budget_of(Kernel kernel, int* out) {
 }  // namespace
 
 // The entry points: K1 (whole tree, tiered or wide, each plain or with K9
-// bounce walks; whole tree with the K6 primary, plain or K9) and K4's phase
-// 1 (whole tree, plain or K9, each with or without the K6 primary). K1
+// bounce walks; whole tree with the K6 primary, plain or K9; the K9 and K6
+// forms on the tiled lockstep loop) and K4's phase 1 (whole tree, plain or
+// K9, each with or without the K6 primary). K1
 // passes params->b_stop = max_bounces; phase 1 passes n_samples = 1 and the
 // split. The wide forms take the wide tables (inner8, leaf8) in the places
 // of (inner, leaf).
@@ -532,7 +598,8 @@ int rz_sample_wave(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+  return launch_sample<true, false, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+                                          stream);
 }
 
 int rz_sample_wave_tiered(RZ_TIERED_ARGS, void* stream) {
@@ -540,16 +607,19 @@ int rz_sample_wave_tiered(RZ_TIERED_ARGS, void* stream) {
 }
 
 int rz_sample_wave_tiered_octant(RZ_TIERED_ARGS, void* stream) {
-  return launch_sample<true>(RZ_TIERED_WALK, RZ_REST, nullptr, stream);
+  return launch_sample<true, false, true>(RZ_TIERED_WALK, RZ_REST, nullptr,
+                                          stream);
 }
 
 int rz_sample_wave_phase1(RZ_BVH2_ARGS, float* state_out, void* stream) {
-  return launch_sample<false>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+  return launch_sample<false, false, false>(RZ_BVH2_WALK, RZ_REST, state_out,
+                                            stream);
 }
 
 int rz_sample_wave_phase1_octant(RZ_BVH2_ARGS, float* state_out,
                                  void* stream) {
-  return launch_sample<true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+  return launch_sample<true, false, false>(RZ_BVH2_WALK, RZ_REST, state_out,
+                                           stream);
 }
 
 int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
@@ -557,36 +627,72 @@ int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_wide_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true>(RZ_BVH8_WALK, RZ_REST, nullptr, stream);
+  return launch_sample<true, false, true>(RZ_BVH8_WALK, RZ_REST, nullptr,
+                                          stream);
 }
 
 int rz_sample_wave_frustum(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+  return launch_sample<false, true, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+                                          stream);
 }
 
 int rz_sample_wave_frustum_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, nullptr, stream);
+  return launch_sample<true, true, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+                                         stream);
 }
 
 int rz_sample_wave_phase1_frustum(RZ_BVH2_ARGS, float* state_out,
                                   void* stream) {
-  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+  return launch_sample<false, true, false>(RZ_BVH2_WALK, RZ_REST, state_out,
+                                           stream);
 }
 
 int rz_sample_wave_phase1_frustum_octant(RZ_BVH2_ARGS, float* state_out,
                                          void* stream) {
-  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+  return launch_sample<true, true, false>(RZ_BVH2_WALK, RZ_REST, state_out,
+                                          stream);
 }
 
-// The counting K1 (whole tree and tiered): the regenerating kernel with
-// LaneCount at every walk step. Only chip_smoke.py and
-// scripts/k1_schedule.py launch it; the sums are read with rz_walk_lanes.
+// The counting K1 forms: each form with LaneCount at every walk step (the
+// regenerating kernel for the whole tree, tiered and wide; the tiled
+// lockstep loop, walking through Counted, for the K9 and K6 forms). Only
+// chip_smoke.py, scripts/k1_schedule.py and the card tests launch them; the
+// sums are read with rz_walk_lanes.
 int rz_sample_wave_count(RZ_BVH2_ARGS, void* stream) {
   return launch_regen<LaneCount>(RZ_BVH2_WALK, RZ_REST, stream);
 }
 
 int rz_sample_wave_tiered_count(RZ_TIERED_ARGS, void* stream) {
   return launch_regen<LaneCount>(RZ_TIERED_WALK, RZ_REST, stream);
+}
+
+int rz_sample_wave_wide_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_regen<LaneCount>(RZ_BVH8_WALK, RZ_REST, stream);
+}
+
+int rz_sample_wave_octant_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<true, false, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+                                                     nullptr, stream);
+}
+
+int rz_sample_wave_tiered_octant_count(RZ_TIERED_ARGS, void* stream) {
+  return launch_sample<true, false, true, LaneCount>(RZ_TIERED_WALK, RZ_REST,
+                                                     nullptr, stream);
+}
+
+int rz_sample_wave_wide_octant_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<true, false, true, LaneCount>(RZ_BVH8_WALK, RZ_REST,
+                                                     nullptr, stream);
+}
+
+int rz_sample_wave_frustum_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<false, true, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+                                                     nullptr, stream);
+}
+
+int rz_sample_wave_frustum_octant_count(RZ_BVH2_ARGS, void* stream) {
+  return launch_sample<true, true, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+                                                    nullptr, stream);
 }
 
 // out[0] = active lane-steps, out[1] = warp-steps x 32 over the counting
@@ -607,13 +713,25 @@ int rz_walk_lanes(unsigned long long* out, int reset) {
   return static_cast<int>(e);
 }
 
-// The compiled budget (budget_of) of the regenerating K1 over the whole tree
-// (policy 0), the tiered view (1) or the wide tables (2).
+// The compiled budget (budget_of) of a K1 form: policy 0 the whole tree, 1
+// the tiered view, 2 the wide tables (regen_kernel); 3-5 the same with K9
+// bounce walks, 6 the K6 primary, 7 the K6 primary with K9 bounce walks
+// (the tiled sample_kernel).
 int rz_sample_budget(int policy, int* out) {
+  using rz::Bvh2Walk;
+  using rz::Bvh8Walk;
   using rz::NoCount;
-  if (policy == 1) return budget_of(regen_kernel<rz::TieredWalk, NoCount>, out);
-  if (policy == 2) return budget_of(regen_kernel<rz::Bvh8Walk, NoCount>, out);
-  return budget_of(regen_kernel<rz::Bvh2Walk, NoCount>, out);
+  using rz::TieredWalk;
+  switch (policy) {
+    case 1: return budget_of(regen_kernel<TieredWalk, NoCount>, out);
+    case 2: return budget_of(regen_kernel<Bvh8Walk, NoCount>, out);
+    case 3: return budget_of(sample_kernel<Bvh2Walk, true, false, true>, out);
+    case 4: return budget_of(sample_kernel<TieredWalk, true, false, true>, out);
+    case 5: return budget_of(sample_kernel<Bvh8Walk, true, false, true>, out);
+    case 6: return budget_of(sample_kernel<Bvh2Walk, false, true, true>, out);
+    case 7: return budget_of(sample_kernel<Bvh2Walk, true, true, true>, out);
+    default: return budget_of(regen_kernel<Bvh2Walk, NoCount>, out);
+  }
 }
 
 }  // extern "C"

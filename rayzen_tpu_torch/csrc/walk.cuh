@@ -149,10 +149,12 @@ RZ_DEV bool push_children(int* stack, int& sp, bool push_l, bool push_r,
 // same result bit for bit in any mode.
 enum WalkMode { kClosest, kShadow, kEither };
 
-// Walk-loop step counters: NoCount for every kernel but the counting K1,
-// which counts with LaneCount (sample_kernel.cu).
+// Walk-loop step counters: NoCount for every kernel but the counting K1
+// forms, which count with LaneCount (sample_kernel.cu): step() at a step of
+// a per-lane walk, packet(on) at a step of K6's packet walk (frustum.cuh).
 struct NoCount {
   RZ_DEV void step() const {}
+  RZ_DEV void packet(bool) const {}
 };
 
 // The closest or shadow leaf procedure, per lane: bvh2_walk_closest's and

@@ -16,7 +16,9 @@ kernels are held against.
 ops/walk.py and ops/megakernel.py adds one where it launches its kernel.
 K1, its K9, wide (K5) and frustum (K6) forms and K4's phase 1 are
 instantiations of sample_kernel.cu behind separate entry points, so each
-has its own count.
+has its own count: K1 over the whole tree, the tiered view and the wide
+tables runs a ``regen_kernel``; its K9 and K6 forms and K4's phase 1 run
+the lockstep ``sample_kernel``.
 
 ``build`` also takes another source tree, output path and ``-D`` defines,
 and ``bind`` loads any such library: scripts/k1_schedule.py builds K1 at
@@ -58,6 +60,9 @@ LAUNCHES = {
     "sample_wave_phase1": 0, "sample_wave_phase1_octant": 0,
     "sample_wave_phase1_frustum": 0, "sample_wave_phase1_frustum_octant": 0,
     "sample_wave_count": 0, "sample_wave_tiered_count": 0,
+    "sample_wave_wide_count": 0, "sample_wave_octant_count": 0,
+    "sample_wave_tiered_octant_count": 0, "sample_wave_wide_octant_count": 0,
+    "sample_wave_frustum_count": 0, "sample_wave_frustum_octant_count": 0,
     "continuation": 0, "continuation_octant": 0,
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
@@ -132,8 +137,8 @@ def build(force: bool = False, csrc: str = CSRC, out: str = LIB_PATH,
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
     -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
-    ",frustum" for those with the K6 primary walk, ",count" for the counting
-    K1)."""
+    ",frustum" for those with the K6 primary walk, ",tiles" for the lockstep
+    loop's warp-tiled forms, ",count" for the counting K1 forms)."""
     import re
 
     out, cur = {}, None
@@ -153,8 +158,9 @@ def ptxas_summary(log: str) -> dict:
             flags = re.findall(r"Lb([01])E", mangled)
             octant = ",octant" if flags[:1] == ["1"] else ""
             frustum = ",frustum" if flags[1:2] == ["1"] else ""
+            tiles = ",tiles" if flags[2:3] == ["1"] else ""
             count = ",count" if "LaneCount" in mangled else ""
-            cur = f"{kernel}<{walk}{octant}{frustum}{count}>"
+            cur = f"{kernel}<{walk}{octant}{frustum}{tiles}{count}>"
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
@@ -232,6 +238,12 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_sample_wave_phase1_frustum_octant", bvh2 + [p, p], i),
         ("rz_sample_wave_count", bvh2 + [p], i),
         ("rz_sample_wave_tiered_count", tiered + [p], i),
+        ("rz_sample_wave_wide_count", bvh2 + [p], i),
+        ("rz_sample_wave_octant_count", bvh2 + [p], i),
+        ("rz_sample_wave_tiered_octant_count", tiered + [p], i),
+        ("rz_sample_wave_wide_octant_count", bvh2 + [p], i),
+        ("rz_sample_wave_frustum_count", bvh2 + [p], i),
+        ("rz_sample_wave_frustum_octant_count", bvh2 + [p], i),
         ("rz_walk_lanes", [p, i], i),
         ("rz_sample_budget", [i, p], i),
         ("rz_continuation", cont, i),

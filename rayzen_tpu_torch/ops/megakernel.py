@@ -9,8 +9,10 @@ over the whole tree (K2/K3 walks), or, when the pack built the treelet view
 (``ws.tiered``), its tiered instantiation (K8 walks), as the JAX package
 does (:1097-1135). These and the wide form run the regenerating schedule
 (warps of 8x4 screen pixels, one ray per lane per step, a lane starting its
-next sample as soon as its path ends); the K9, K6 and phase-1 forms run the
-lockstep loop. Both give each pixel the same result bit for bit. The walk
+next sample as soon as its path ends); the K9 and K6 forms run the lockstep
+loop with the same warp tiles and register budget, and K4's phase 1 the
+lockstep loop in scanline order. Both give each pixel the same result bit
+for bit. The walk
 knobs follow JAX's rules (:503-525, :1101-1105):
 ``wide_nodes`` runs the wide instantiation (K5 walks everywhere) and is
 ignored, with an info log, on a tiered scene; ``frustum_primary`` runs the
@@ -409,10 +411,48 @@ def _sampler(c: _Consts, u, v, h_pix, s: int):
     return jx, jy, draws, None
 
 
+# csrc/sample_kernel.cu RZ_K1_THREADS, 4 warps a block: the built value is
+# sample_budget's "threads", which chip_smoke.py and the card tests hold to
+# this one (a build with another -D RZ_K1_THREADS has other warp tiles)
+K1_THREADS = 128
+_TILE_W = 16  # a block's screen tile: 16 x (K1_THREADS // 16) pixels
+
+
+def tile_pixels(n: int, width: int, height: int) -> torch.Tensor:
+    """The plain form of csrc/sample_kernel.cu tile_pixel over a K1 launch
+    on n pixels of a width x height frame: (warps, 32) int64, entry [w, l]
+    the pixel of lane l of warp w (block w // 4, its warp w % 4), -1 for
+    none. A full frame is cut into 16 x 8 block tiles of two by two warps of
+    8 x 4 pixels, clipped at the right and bottom edges; any other wave is
+    mapped linearly (32 consecutive pixels a warp)."""
+    warps = K1_THREADS // 32
+    if width * height != n:
+        i = torch.arange(-(-n // K1_THREADS) * K1_THREADS).reshape(-1, 32)
+        return torch.where(i < n, i, -1)
+    tile_h = K1_THREADS // _TILE_W
+    tiles_x = -(-width // _TILE_W)
+    tiles = tiles_x * -(-height // tile_h)
+    tile = torch.arange(tiles)[:, None, None]
+    warp = torch.arange(warps)[None, :, None]
+    lane = torch.arange(32)[None, None, :]
+    x = (tile % tiles_x) * _TILE_W + (warp & 1) * 8 + (lane & 7)
+    y = (tile // tiles_x) * tile_h + (warp >> 1) * 4 + (lane >> 3)
+    return torch.where((x < width) & (y < height), y * width + x, -1).reshape(-1, 32)
+
+
+def pixel_warps(n: int, width: int, height: int, device=None) -> torch.Tensor:
+    """(n,) int64: the K1 warp of each pixel (tile_pixels' map), which is
+    the K6 forms' packet of sample 0."""
+    tp = tile_pixels(n, width, height)
+    on = tp >= 0
+    warp = torch.empty(n, dtype=torch.int64)
+    warp[tp[on]] = torch.arange(tp.shape[0])[:, None].expand_as(tp)[on]
+    return warp.to(device)
+
+
 def _primary_walk(ws, c: _Consts, packet_ids):
     """The plain primary closest walk: K6's over packets of equal
-    ``packet_ids`` (the warps of K1: pixel id // 32) under c.frustum, else
-    the view's closest walk."""
+    ``packet_ids`` under c.frustum, else the view's closest walk."""
     if c.frustum:
         return lambda ws, o, d, a, work: walk.frustum_closest_walk_reference(
             ws, o, d, a, packet_ids=packet_ids, work=work)
@@ -546,7 +586,10 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
     instantiation runs (K5 under cfg.wide_nodes, K6 for the primary hit
     under cfg.frustum_primary, K9 for the bounces under
     cfg.octant_bounce_walks). Returns (color sum over samples (R, 3) f32,
-    rays () int64). ``work`` counts the walks' steps."""
+    rays () int64). ``work`` counts the walks' steps.
+
+    K6's packets are the kernel's warps (pixel_warps): a warp's 8 x 4 pixel
+    tile, its active pixels, in every sample."""
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
     walk.check_walks(ws, c.wide)
     n, dev = uv.shape[0], uv.device
@@ -564,12 +607,13 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
         key_h = int(_hash_u32(torch.tensor((c.key + 0x9E3779B9) & _M32)))
         h_pix = _hash_u32(pixel_id ^ key_h)
     groups = n_samples // c.fuse
+    packets = pixel_warps(n, c.width, c.height, dev)[idx] if c.frustum else None
     for sb in range(c.fuse):  # sample fusion's order of summation
         acc = torch.zeros((idx.numel(), 3), dtype=torch.float32, device=dev)
         for g in range(groups):
             col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix,
                                             g * c.fuse + sb, max_bounces, work,
-                                            idx // walk.PACKET)
+                                            packets)
             acc = acc + col_s
             rays[idx] = rays[idx] + rays_s
         color[idx] = color[idx] + acc
@@ -661,16 +705,15 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
 def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,
                      camera_params: dict, samp, rng_key, max_bounces: int,
                      n_samples: int = 1):
-    """A diagnostic of the regenerating K1 (whole tree, or tiered when
-    ``ws.tiered``) on CUDA tensors: its counting instantiation renders the
-    wave and sums, over every step of every walk's node loop, the lanes of
-    the warp that take the step and 32. Returns (color (R, 3), rays ()
-    int64, active lane-steps, warp-steps x 32); their ratio is the walk
-    loop's lane utilisation. No render path calls it."""
+    """A diagnostic of a K1 form (the one sample_wave launches for ``ws``
+    and ``cfg``) on CUDA tensors: its counting instantiation renders the wave
+    and sums, over every step of every walk's node loop, the lanes of the
+    warp that take the step and 32 (in a step of K6's packet walk, the lanes
+    with a ray in the packet). Returns (color (R, 3), rays () int64, active
+    lane-steps, warp-steps x 32); their ratio is the walk loop's lane
+    utilisation. No render path calls it."""
     if not uv.is_cuda:
         raise ValueError("the counting K1 runs on CUDA tensors only")
-    if cfg.wide_nodes or cfg.frustum_primary or cfg.octant_bounce_walks:
-        raise ValueError("the counting K1 has the whole-tree and tiered walks only")
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
     sums = (ctypes.c_ulonglong * 2)()
     torch.cuda.synchronize(uv.device)
@@ -682,14 +725,22 @@ def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,
     return color, rays.sum(dtype=torch.int64), int(sums[0]), int(sums[1])
 
 
+# the K1 forms, by their rz_sample_budget policy id: the regenerating ones,
+# then the K9 and K6 forms (the warp-tiled lockstep loop)
+BUDGET_POLICIES = ("bvh2", "tiered", "wide", "octant", "tiered_octant",
+                   "wide_octant", "frustum", "frustum_octant")
+
+
 def sample_budget(policy: str) -> dict:
-    """The compiled budget of the regenerating K1 over the walk policy
-    "bvh2", "tiered" or "wide": threads per block, registers per thread,
-    local memory per thread in bytes (walk stacks and spills) and resident
-    warps per SM (the CUDA occupancy calculator)."""
+    """The compiled budget of a K1 form (a name of BUDGET_POLICIES: the walk
+    policy "bvh2", "tiered" or "wide", with K9 bounce walks "..._octant",
+    the K6 primary "frustum", with K9 "frustum_octant"): threads
+    per block, registers per thread, local memory per thread in bytes (walk
+    stacks and spills) and resident warps per SM (the CUDA occupancy
+    calculator)."""
     out = (ctypes.c_int * 4)()
-    ext.check(ext.lib().rz_sample_budget(
-        {"bvh2": 0, "tiered": 1, "wide": 2}[policy], out), "rz_sample_budget")
+    ext.check(ext.lib().rz_sample_budget(BUDGET_POLICIES.index(policy), out),
+              "rz_sample_budget")
     return dict(threads=out[0], regs=out[1], local_bytes=out[2],
                 warps_per_sm=out[3])
 

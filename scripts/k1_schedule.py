@@ -3,31 +3,38 @@
 Builds the port's kernels (rayzen_tpu_torch/csrc) of this tree and of the
 trees named on the command line, loads them side by side (ext.bind), and on
 the demo scene at 1920x1080 / 64 spp and the 503k-triangle field of
-chip_smoke.py at 1920x1080 / 4 spp, for each build:
-  - renders K1's frames (the demo in both RNG flows; the field through the
-    tiered K1; the demo with wide_nodes) and holds each, bit for bit and
-    with its ray count, against the first build's;
-  - reads its regenerating K1's compiled budget (registers, local bytes per
+chip_smoke.py at 1920x1080 / 4 spp (through the tiered view, and over the
+whole tree with tiered="off"), for each build:
+  - renders the frames of its forms: K1 (the demo in both RNG flows, the field
+    tiered and whole, the demo with wide_nodes), its K9 forms
+    (octant_bounce_walks: demo, tiered field, wide demo, whole field), its
+    K6 forms (frustum_primary, with and without K9: demo, whole field), and
+    holds each against the first build's (bit for bit, with its ray count,
+    and the pixels that differ) and each K9 and K6 frame against the same
+    build's K1 frame of its view;
+  - reads its K1 forms' compiled budgets (registers, local bytes per
     thread, resident warps per SM: megakernel.sample_budget) and the spill
     stores of nvcc's -Xptxas -v report, where the build has them;
-  - counts its walk loop's lane utilisation (megakernel.walk_lane_counts),
-    where the build has the counting K1;
-then times K1 (demo, 64 spp), the tiered K1 (field, 4 spp), the wide K1
-(demo, 64 spp) and the demo and field dispatches
+  - counts each form's walk-loop lane utilisation
+    (megakernel.walk_lane_counts), where the build has its counting form;
+then times each form's kernel alone and the demo and field dispatches
 (render_radiance_with_stats, refit included), every timed build in turns
 (a b c, c b a) x 3, one call each, with CUDA events.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
-    python scripts/k1_schedule.py [--tree NAME=DIR[:DEFINE,...]]... [--sweep]
-                                  [--count NAME=DIR]... [--out FILE]
+    python scripts/k1_schedule.py [--tree NAME=DIR[:DEFINE,...]]...
+                                  [--sweep [POINT,...]] [--count NAME=DIR]...
+                                  [--forms PREFIX,...] [--out FILE]
 
 --tree: a build to time, from DIR/rayzen_tpu_torch/csrc ("." is this tree)
 with nvcc -D DEFINEs; the first is the reference of the bitwise checks (by
 default ".", alone). --sweep adds this tree at each register budget of
-SWEEP. --count: a build used only for its frames and lane counts (a copy of
-an older K1 with the counter added). Prints one JSON object as its last
-line, and writes it to --out.
+SWEEP, or at the named points of it. --count: a build used only for its
+frames and lane counts (a copy of an older K1 with the counter added).
+--forms: only the frames whose names start with a PREFIX (and the
+K1 frames they are held to), and no dispatches. Prints one JSON object as
+its last line, and writes it to --out.
 """
 
 from __future__ import annotations
@@ -105,7 +112,7 @@ def main() -> int:
     from rayzen_tpu_torch.ops.camera_rays import pixel_grid
     from rayzen_tpu_torch.packing import pack_scene, world_geometry
 
-    trees, counts, out_path = [], [], None
+    trees, counts, out_path, prefixes = [], [], None, None
     i = 0
     while i < len(args):
         if args[i] == "--tree":
@@ -115,10 +122,17 @@ def main() -> int:
             counts.append(_spec(args[i + 1]))
             i += 2
         elif args[i] == "--sweep":
+            points = None
+            if i + 1 < len(args) and not args[i + 1].startswith("--"):
+                points = args[i + 1].split(",")
+                i += 1
             trees += [(n, os.path.join(ROOT, "rayzen_tpu_torch", "csrc"),
                        (f"RZ_K1_THREADS={t}", f"RZ_K1_MIN_BLOCKS={b}"))
-                      for n, t, b in SWEEP]
+                      for n, t, b in SWEEP if points is None or n in points]
             i += 1
+        elif args[i] == "--forms":
+            prefixes = tuple(args[i + 1].split(","))
+            i += 2
         elif args[i] == "--out":
             out_path = args[i + 1]
             i += 2
@@ -153,19 +167,53 @@ def main() -> int:
     fws, fcam = world_geometry(farrays), fscene.camera.device_params()
     if not fws.tiered:
         raise RuntimeError("the field did not pack tiered")
+    whole = world_geometry(pack_scene(fscene, fcfg.replace(tiered="off"), dev))
     _, uv = pixel_grid(1920, 1080, dev)
     act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
     say("[scenes] demo and field packed")
 
-    def k1(ws, cfg, cam, spp):
+    k9, k6 = dict(octant_bounce_walks=True), dict(frustum_primary=True)
+    # frame name -> (view, its config, camera, spp, the same view's K1 frame)
+    demo, field = (mws, mcfg, mcam, 64), (fws, fcfg, fcam, 4)
+    fwhole = (whole, fcfg, fcam, 4)
+    forms = {
+        "k1_demo_reference": (*demo, None),
+        "k1_demo_threefry": (mws, mcfg.replace(rng="threefry"), mcam, 64, None),
+        "k1_field_tiered": (*field, None),
+        "k1_demo_wide": (mws, mcfg.replace(wide_nodes=True), mcam, 64, None),
+        "k1_field_whole": (*fwhole, None),
+        "k9_demo": (mws, mcfg.replace(**k9), mcam, 64, "k1_demo_reference"),
+        "k9_field_tiered": (fws, fcfg.replace(**k9), fcam, 4, "k1_field_tiered"),
+        "k9_demo_wide": (mws, mcfg.replace(wide_nodes=True, **k9), mcam, 64,
+                         "k1_demo_wide"),
+        "k9_field_whole": (whole, fcfg.replace(**k9), fcam, 4, "k1_field_whole"),
+        "k6_demo": (mws, mcfg.replace(**k6), mcam, 64, "k1_demo_reference"),
+        "k6_field_whole": (whole, fcfg.replace(**k6), fcam, 4, "k1_field_whole"),
+        "k6_k9_demo": (mws, mcfg.replace(**k6, **k9), mcam, 64, "k1_demo_reference"),
+        "k6_k9_field_whole": (whole, fcfg.replace(**k6, **k9), fcam, 4,
+                              "k1_field_whole"),
+    }
+
+    if prefixes:
+        keep = {f for f in forms if f.startswith(prefixes)}
+        keep |= {forms[f][4] for f in keep if forms[f][4]}
+        forms = {f: v for f, v in forms.items() if f in keep}
+
+    def k1(ws, cfg, cam, spp, _k1=None):
         return lambda: megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
 
-    frames = {
-        "k1_demo_reference": k1(mws, mcfg, mcam, 64),
-        "k1_demo_threefry": k1(mws, mcfg.replace(rng="threefry"), mcam, 64),
-        "k1_field_tiered": k1(fws, fcfg, fcam, 4),
-        "k1_demo_wide": k1(mws, mcfg.replace(wide_nodes=True), mcam, 64),
-    }
+    def count_name(ws, cfg):
+        c = megakernel._consts(cfg, 0, 0, 5, 1, ws.tiered)
+        return ("rz_sample_wave" + ("_tiered" if ws.tiered else "")
+                + ("_wide" if c.wide else "") + ("_frustum" if c.frustum else "")
+                + ("_octant" if c.octant else "") + "_count")
+
+    def differ(a, b):
+        """(bit for bit, max abs, pixels that differ) of two (R, 3) frames."""
+        d = (a - b).abs()
+        return (bool(torch.equal(a, b)), d.max().item(),
+                int((d.amax(-1) > 0).sum()))
+
     ref, report = {}, {}
     for name, csrc, defines in trees + counts:
         ext._lib = libs[name]
@@ -175,38 +223,46 @@ def main() -> int:
         rep["ptxas"] = {k: v for k, v in ext.ptxas_summary(logs[name]).items()
                         if k.startswith("regen_kernel")}
         if hasattr(libs[name], "rz_sample_budget"):
+            # an older build knows policies 0-2 (the regenerating forms)
+            n_pol = (len(megakernel.BUDGET_POLICIES)
+                     if hasattr(libs[name], "rz_sample_wave_wide_count") else 3)
             rep["budget"] = {p: megakernel.sample_budget(p)
-                             for p in ("bvh2", "tiered", "wide")}
+                             for p in megakernel.BUDGET_POLICIES[:n_pol]}
         bit = rep["bitwise"] = {}
-        for fname, fn in frames.items():
-            c, r = fn()
+        own = rep["vs_k1"] = {}
+        frames = {}
+        for fname, (ws, cfg, cam, spp, k1_of) in forms.items():
+            c, r = k1(ws, cfg, cam, spp)()
+            frames[fname] = (c, int(r))
             if fname not in ref:
                 ref[fname] = (c, int(r))
-            bit[fname] = dict(equal=bool(torch.equal(c, ref[fname][0])),
-                              max_abs=(c - ref[fname][0]).abs().max().item(),
-                              rays=int(r), ref_rays=ref[fname][1])
-        if hasattr(libs[name], "rz_sample_wave_count"):
-            lanes = rep["lanes"] = {}
-            for lname, (ws, cfg, cam, spp) in (("demo", (mws, mcfg, mcam, 64)),
-                                               ("field", (fws, fcfg, fcam, 4))):
-                c, r, a, s = megakernel.walk_lane_counts(ws, cfg, uv, act, cam, 0, 0,
-                                                         5, spp)
-                lanes[lname] = dict(active=a, slots=s, utilisation=a / s,
-                                    frame_equal=bool(torch.equal(
-                                        c, ref[f"k1_{lname}_" + (
-                                            "reference" if lname == "demo"
-                                            else "tiered")][0])))
+            eq, mx, npx = differ(c, ref[fname][0])
+            bit[fname] = dict(equal=eq, max_abs=mx, pixels_differ=npx, rays=int(r),
+                              ref_rays=ref[fname][1])
+            if k1_of:
+                eq, mx, npx = differ(c, frames[k1_of][0])
+                own[fname] = dict(equal=eq, max_abs=mx, pixels_differ=npx,
+                                  rays=int(r), k1_rays=frames[k1_of][1])
+        del frames
+        lanes = rep["lanes"] = {}
+        for fname, (ws, cfg, cam, spp, _k1) in forms.items():
+            if fname == "k1_demo_threefry" or not hasattr(libs[name],
+                                                          count_name(ws, cfg)):
+                continue
+            c, r, a, sl = megakernel.walk_lane_counts(ws, cfg, uv, act, cam, 0, 0,
+                                                      5, spp)
+            lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
+                                frame_equal=bool(torch.equal(c, k1(ws, cfg, cam, spp)()[0])))
         say(f"[build {name}] " + json.dumps({k: rep[k] for k in rep if k != "tree"}))
     del ref
 
     timed_names = [t[0] for t in trees]
-    quantities = {
-        "k1_demo_ms": k1(mws, mcfg, mcam, 64),
-        "k1_field_tiered_ms": k1(fws, fcfg, fcam, 4),
-        "k1_demo_wide_ms": k1(mws, mcfg.replace(wide_nodes=True), mcam, 64),
-        "dispatch_demo_ms": lambda: render_radiance_with_stats(marrays, mcam, mcfg),
-        "dispatch_field_ms": lambda: render_radiance_with_stats(farrays, fcam, fcfg),
-    }
+    quantities = {f"{f}_ms": k1(*forms[f]) for f in forms if f != "k1_demo_threefry"}
+    if not prefixes:
+        quantities.update({
+            "dispatch_demo_ms": lambda: render_radiance_with_stats(marrays, mcam, mcfg),
+            "dispatch_field_ms": lambda: render_radiance_with_stats(farrays, fcam, fcfg),
+        })
     times = {}
     for q, fn in quantities.items():
         got = {n: [] for n in timed_names}

@@ -1,15 +1,18 @@
 """The port's CUDA kernels (K1-K3, K5, K6, K7, K8, the tiered, wide and
 frustum K1, K1 with sample fusion, K4's phase 1 and continuation, and the
 K9 instantiations) against their plain PyTorch versions on the card, the
-regenerating K1 also bit for bit against its lockstep K9 form, and the
-per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip where torch sees no CUDA device, and
-run on the GPU machine with
+regenerating K1 also bit for bit against the lockstep loop (K4's phase 1
+once per sample) and its (warp-tiled lockstep) K9 form, and the per-wave
+path's staged variants against their plain runs. Marked ``cuda``: they skip
+where torch sees no CUDA device, and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not use
 and that machine need not have; the kernels are built from
 rayzen_tpu_torch/csrc at first use)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -177,18 +180,37 @@ def test_split_matches_plain(setup, knobs):
     assert (kc - fc).abs().max().item() <= 1e-6 and int(kr) == int(fr)
 
 
-@pytest.mark.parametrize("tiered", [False, True])
-def test_octant_k1_matches_plain_and_k1(setup, tiered):
-    ws = setup["tws"] if tiered else setup["ws"]
-    cfg = setup["cfg"].replace(octant_bounce_walks=True)
-    uv, cam = setup["uv"], setup["cam"]
+# Waves of the K9 and K6 forms' checks: (width, height, spp, rng, holes);
+# 37x23 is no multiple of the 16x8 block tile.
+FORM_WAVES = [(48, 32, 2, "reference", False), (37, 23, 1, "threefry", True),
+              (37, 23, 8, "reference", True)]
+
+
+def _form_wave(setup, wave):
+    w, h, spp, rng, holes = wave
+    cfg = setup["cfg"].replace(width=w, height=h, rng=rng)
+    _, uv = pixel_grid(w, h, setup["dev"])
     act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    if holes:
+        act = torch.arange(uv.shape[0], device=uv.device) % 29 != 3
+    return cfg, uv, act, spp
+
+
+@pytest.mark.parametrize("wave", FORM_WAVES, ids=["48x32", "ragged", "ragged_spp8"])
+@pytest.mark.parametrize("tiered", [False, True])
+def test_octant_k1_matches_plain_and_k1(setup, tiered, wave):
+    """The K9 form (the warp-tiled lockstep loop) renders its plain version's
+    image and the same view's (regenerating) K1 image bit for bit."""
+    ws = setup["tws"] if tiered else setup["ws"]
+    cfg, uv, act, spp = _form_wave(setup, wave)
+    ocfg = cfg.replace(octant_bounce_walks=True)
+    cam = setup["cam"]
     name = "sample_wave" + ("_tiered" if tiered else "") + "_octant"
     before = ext.LAUNCHES[name]
-    kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+    kc, kr = megakernel.sample_wave(ws, ocfg, uv, act, cam, 0, 0, 5, spp)
     assert ext.LAUNCHES[name] == before + 1
-    pc, pr = megakernel.sample_wave_reference(ws, cfg, uv, act, cam, 0, 0, 5, 2)
-    fc, fr = megakernel.sample_wave(ws, setup["cfg"], uv, act, cam, 0, 0, 5, 2)
+    pc, pr = megakernel.sample_wave_reference(ws, ocfg, uv, act, cam, 0, 0, 5, spp)
+    fc, fr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
     assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
     torch.testing.assert_close(kc, fc, rtol=0, atol=0)  # the same hits as K1
     assert int(kr) == int(fr)
@@ -248,28 +270,33 @@ def test_k6_matches_plain_and_k2(setup):
         assert ext.LAUNCHES[name] == before[name] + 1
 
 
+@pytest.mark.parametrize("wave", [(64, 48, 2), (37, 23, 1), (37, 23, 8)],
+                         ids=["64x48", "ragged", "ragged_spp8"])
 @pytest.mark.parametrize("knobs", [
     dict(wide_nodes=True), dict(wide_nodes=True, octant_bounce_walks=True),
     dict(frustum_primary=True),
     dict(frustum_primary=True, octant_bounce_walks=True),
 ], ids=["wide", "wide_octant", "frustum", "frustum_octant"])
 @pytest.mark.parametrize("rng", ["threefry", "reference"])
-def test_wide_and_frustum_k1_match_plain_and_k1(setup, knobs, rng):
-    """At 64x48 (wide) and with an inactive pixel in every warp: the K1
-    instantiation renders its plain version's and K1's image."""
+def test_wide_and_frustum_k1_match_plain_and_k1(setup, knobs, rng, wave):
+    """With an inactive pixel in every warp: the K1 form renders its plain
+    version's and K1's image (the frustum forms' plain version walks every
+    sample's primary rays in the packets of the kernel's warps, 8 x 4 pixel
+    tiles)."""
     dev, ws, cam = setup["dev"], setup["ws"], setup["cam"]
-    cfg = setup["cfg"].replace(width=64, height=48, rng=rng)
-    _, uv = pixel_grid(64, 48, dev)
+    w, h, spp = wave
+    cfg = setup["cfg"].replace(width=w, height=h, rng=rng)
+    _, uv = pixel_grid(w, h, dev)
     act = torch.arange(uv.shape[0], device=dev) % 29 != 3
     name = ("sample_wave" + ("_wide" if knobs.get("wide_nodes") else "")
             + ("_frustum" if knobs.get("frustum_primary") else "")
             + ("_octant" if knobs.get("octant_bounce_walks") else ""))
     before = ext.LAUNCHES[name]
-    kc, kr = megakernel.sample_wave(ws, cfg.replace(**knobs), uv, act, cam, 0, 0, 5, 2)
+    kc, kr = megakernel.sample_wave(ws, cfg.replace(**knobs), uv, act, cam, 0, 0, 5, spp)
     assert ext.LAUNCHES[name] == before + 1
     pc, pr = megakernel.sample_wave_reference(ws, cfg.replace(**knobs), uv, act,
-                                              cam, 0, 0, 5, 2)
-    fc, fr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
+                                              cam, 0, 0, 5, spp)
+    fc, fr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
     assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
     torch.testing.assert_close(kc, fc, rtol=0, atol=0)  # the same hits as K1
     assert int(kr) == int(fr)
@@ -374,36 +401,64 @@ def test_fused_k1_matches_plain(setup):
 # holes in ``active``, on a wave that is not a whole frame (mapped linearly),
 # at 1, 2, 3 and 8 spp, with sample_fuse 2 and 3, in both RNG flows. Each
 # frame is held to the plain version (relative 1e-6 of max(1, |plain|), the
-# split tests' bar; rays equal), to a second launch bit for bit, and bit for
-# bit to the same view's K9 instantiation, which runs the lockstep loop and
-# whose frames are the lockstep K1's (test_octant_k1_matches_plain_and_k1).
+# split tests' bar; rays equal), to a second launch bit for bit, to the same
+# view's K9 form bit for bit (the warp-tiled lockstep loop), and, without
+# fusion, to the scanline lockstep loop bit for bit (_lockstep_k1).
 REGEN_CASES = [
     dict(size=(37, 23), spp=1, fuse=1, rng="threefry", holes=False, part=False),
     dict(size=(37, 23), spp=3, fuse=3, rng="reference", holes=True, part=False),
     dict(size=(37, 23), spp=8, fuse=2, rng="threefry", holes=True, part=False),
     dict(size=(48, 32), spp=3, fuse=1, rng="reference", holes=False, part=False),
     dict(size=(37, 23), spp=2, fuse=1, rng="threefry", holes=True, part=True),
+    dict(size=(37, 23), spp=3, fuse=1, rng="reference", holes=True, part=False),
 ]
+
+# the K1 forms (megakernel.BUDGET_POLICIES): the view's walks and the knobs
+# that select them
+FORMS = {"bvh2": {}, "tiered": {}, "wide": dict(wide_nodes=True),
+         "octant": dict(octant_bounce_walks=True),
+         "tiered_octant": dict(octant_bounce_walks=True),
+         "wide_octant": dict(wide_nodes=True, octant_bounce_walks=True),
+         "frustum": dict(frustum_primary=True),
+         "frustum_octant": dict(frustum_primary=True, octant_bounce_walks=True)}
 
 
 def _regen_inputs(setup, view, case):
     dev = setup["dev"]
     w, h = case["size"]
     cfg = setup["cfg"].replace(width=w, height=h, spp=case["spp"], rng=case["rng"],
-                               sample_fuse=case["fuse"], wide_nodes=view == "wide")
+                               sample_fuse=case["fuse"], **FORMS[view])
     _, uv = pixel_grid(w, h, dev)
     if case["part"]:  # every third pixel: not a whole frame
         uv = uv[::3].contiguous()
     act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
     if case["holes"]:
         act = torch.arange(uv.shape[0], device=dev) % 7 != 2
-    ws = setup["tws"] if view == "tiered" else setup["ws"]
+    ws = setup["tws"] if view.startswith("tiered") else setup["ws"]
     return ws, cfg, uv, act
+
+
+def _lockstep_k1(ws, cfg, uv, act, cam, rng_key, spp):
+    """The lockstep loop's K1 frame without fusion: K4's phase-1 form (the
+    lockstep sample_kernel over the whole tree) launched once per sample
+    with b_stop = max_bounces, the samples summed in order, which is the
+    lockstep K1's sum at sample_fuse 1 (held once on the card against the
+    scanline lockstep K9 form that the warp-tiled lockstep K9 form replaced)."""
+    whole = dataclasses.replace(ws, tiered=False)
+    cfg = cfg.replace(wide_nodes=False, octant_bounce_walks=False,
+                      frustum_primary=False)
+    color, rays = 0.0, 0
+    for s in range(spp):
+        c = megakernel._consts(cfg, s, rng_key, 5, 1)
+        col, r, _ = megakernel._launch_sample(whole, c, uv, act, cam, 5, phase1=True)
+        color = col if s == 0 else color + col
+        rays += int(r.sum(dtype=torch.int64))
+    return color, rays
 
 
 @pytest.mark.parametrize("case", REGEN_CASES,
                          ids=["ragged", "holes_fuse3", "spp8_fuse2", "full_tiles",
-                              "part_wave"])
+                              "part_wave", "holes"])
 @pytest.mark.parametrize("view", ["bvh2", "tiered", "wide"])
 def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
     ws, cfg, uv, act = _regen_inputs(setup, view, case)
@@ -421,21 +476,36 @@ def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
     oc, orr = megakernel.sample_wave(ws, cfg.replace(octant_bounce_walks=True), uv,
                                      act, cam, 0, 3, 5, spp)
     assert torch.equal(kc, oc) and int(kr) == int(orr)
+    if case["fuse"] == 1:
+        lc, lr = _lockstep_k1(ws, cfg, uv, act, cam, 3, spp)
+        assert torch.equal(kc, lc) and int(kr) == lr
 
 
-@pytest.mark.parametrize("view", ["bvh2", "tiered"])
-def test_counting_k1_renders_k1s_frame(setup, view):
-    """The counting instantiation renders the regenerating K1's frame bit for
-    bit and counts at most 32 active lanes per warp step."""
-    ws, cfg, uv, act = _regen_inputs(setup, view, REGEN_CASES[1])
-    before = ext.LAUNCHES["sample_wave" + ("_tiered" if view == "tiered" else "")
-                          + "_count"]
+@pytest.mark.parametrize("case", [REGEN_CASES[1], REGEN_CASES[5]],
+                         ids=["holes_fuse3", "holes"])
+@pytest.mark.parametrize("view", megakernel.BUDGET_POLICIES)
+def test_counting_k1_renders_k1s_frame(setup, view, case):
+    """Every K1 form compiles to at most 64 registers and 32 resident warps
+    per SM (__launch_bounds__(128, 8)), in blocks of the K1_THREADS threads
+    that the plain version's warp map (tile_pixels) assumes; the counting
+    instantiation of each form renders that form's frame bit for bit and
+    counts at most 32 active lanes per warp step, with sample fusion and
+    without (fusion turns the K6 primary off, so the fused frustum cases
+    count the K1 and K9 forms)."""
+    budget = megakernel.sample_budget(view)
+    assert budget["threads"] == megakernel.K1_THREADS == 128
+    assert 0 < budget["regs"] <= 64 and budget["warps_per_sm"] == 32
+    ws, cfg, uv, act = _regen_inputs(setup, view, case)
+    knobs = FORMS[view]
+    name = ("sample_wave" + ("_tiered" if view.startswith("tiered") else "")
+            + ("_wide" if knobs.get("wide_nodes") else "")
+            + ("_frustum" if knobs.get("frustum_primary") and case["fuse"] == 1
+               else "")
+            + ("_octant" if knobs.get("octant_bounce_walks") else "") + "_count")
+    before = ext.LAUNCHES[name]
     cc, cr, active, slots = megakernel.walk_lane_counts(ws, cfg, uv, act,
                                                         setup["cam"], 0, 3, 5, 3)
     kc, kr = megakernel.sample_wave(ws, cfg, uv, act, setup["cam"], 0, 3, 5, 3)
     assert torch.equal(cc, kc) and int(cr) == int(kr)
     assert 0 < active <= slots and slots % 32 == 0
-    assert ext.LAUNCHES["sample_wave" + ("_tiered" if view == "tiered" else "")
-                        + "_count"] == before + 1
-    budget = megakernel.sample_budget(view)
-    assert budget["regs"] > 0 and budget["warps_per_sm"] > 0
+    assert ext.LAUNCHES[name] == before + 1

@@ -1,7 +1,9 @@
 """ext.ptxas_summary: nvcc's -Xptxas -v report read per kernel
 instantiation. An anonymous namespace's mangling names the source file, so
 every kernel of sample_kernel.cu holds "sample_kernel"; the regenerating K1
-must still be told from the lockstep one, and the counting K1 from both."""
+must still be told from the lockstep one, the counting K1 forms from both,
+and the K9 and K6 forms (the lockstep loop with warp tiles) from phase
+1's."""
 
 from rayzen_tpu_torch import ext
 
@@ -23,6 +25,29 @@ LOG = "\n".join([
     "ptxas info    : Function properties for x",
     "    768 bytes stack frame, 718 bytes spill stores, 700 bytes spill loads",
     "ptxas info    : Used 64 registers, used 0 barriers, 768 bytes cumulative stack size",
+    # the K9 and K6 forms of K1 on the warp-tiled lockstep loop
+    # (sample_kernel<Walk, kOctant, kFrustum, kTiles>) and the counting wide K1
+    *(line for kernel, walk, rest, regs in (
+        ("13sample", "10TieredWalk", "ELb1ELb0ELb1", 63),
+        ("13sample", "8Bvh2Walk", "ELb0ELb1ELb1", 62),
+        ("13sample", "8Bvh2Walk", "ELb1ELb1ELb1", 61),
+        ("13sample", "8Bvh8Walk", "ELb1ELb0ELb1", 60),
+        ("12regen", "8Bvh8Walk", "ENS_9LaneCount", 59))
+      for line in (
+        f"ptxas info    : Compiling entry function '{_PFX}{kernel}_kernelIN2rz{walk}"
+        f"{rest}{_TAIL}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    512 bytes stack frame, 400 bytes spill stores, 400 bytes spill loads",
+        f"ptxas info    : Used {regs} registers, used 0 barriers, 512 bytes "
+        "cumulative stack size")),
+    # the counting form of the frustum K9 form: the tiled lockstep loop
+    # walking through Counted<Walk>, with LaneCount
+    f"ptxas info    : Compiling entry function '{_PFX}13sample_kernelINS_7CountedIN2rz"
+    "8Bvh2WalkEEELb1ELb1ELb1ENS_9LaneCountEEEvT_PKfS8_S8_S8_PKhiNS2_12SampleParams"
+    "EPfPiSC_' for 'sm_90a'",
+    "ptxas info    : Function properties for x",
+    "    640 bytes stack frame, 520 bytes spill stores, 520 bytes spill loads",
+    "ptxas info    : Used 64 registers, used 0 barriers, 640 bytes cumulative stack size",
 ])
 
 
@@ -31,4 +56,15 @@ def test_ptxas_summary_tells_the_k1_schedules_apart():
         "regen_kernel<Bvh2Walk,count>": {"stack": 448, "spill": 378, "regs": 64},
         "sample_kernel<Bvh2Walk,octant>": {"stack": 256, "spill": 0, "regs": 122},
         "regen_kernel<TieredWalk>": {"stack": 768, "spill": 718, "regs": 64},
+        "sample_kernel<TieredWalk,octant,tiles>": {"stack": 512, "spill": 400,
+                                                   "regs": 63},
+        "sample_kernel<Bvh2Walk,frustum,tiles>": {"stack": 512, "spill": 400,
+                                                  "regs": 62},
+        "sample_kernel<Bvh2Walk,octant,frustum,tiles>": {"stack": 512, "spill": 400,
+                                                         "regs": 61},
+        "sample_kernel<Bvh8Walk,octant,tiles>": {"stack": 512, "spill": 400,
+                                                 "regs": 60},
+        "regen_kernel<Bvh8Walk,count>": {"stack": 512, "spill": 400, "regs": 59},
+        "sample_kernel<Bvh2Walk,octant,frustum,tiles,count>": {
+            "stack": 640, "spill": 520, "regs": 64},
     }
