@@ -9,7 +9,8 @@ wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and the per-
 (the portable torch walks and the staged kernels= variants, with the
 miss-link walks K7 for "pallas-ml"), and time them.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--out-dir DIR]
+Run from the root of a checkout:
+    python3 chip_smoke.py [--out-dir DIR] [--parent]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); it exits non-zero, printing no result, without them. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels with
@@ -20,10 +21,16 @@ the plain walks on the same inputs; library_ms null: no PyTorch call
 computes a BVH walk).
 With --out-dir, the compiler's full register report and torch.profiler
 traces of one main-path and one field-path dispatch are written there.
+With --parent, K7 and K4's phase 1 are also held bit for bit to their
+earlier forms and timed in turns with them: K7's one-thread-per-slot walk
+over the records (walk.*_misslink_rows) and phase 1 on the scanline
+lockstep schedule (a second build of csrc/ with -DRZ_PHASE1_SCANLINE).
 
 Phases (each prints its own lines and stops the run when it fails):
   1 device        card name and power limit
-  2 build         nvcc build of csrc/ with its wall time
+  2 build         nvcc build of csrc/ with its wall time (with --parent, and
+                  beside it the same sources with -DRZ_PHASE1_SCANLINE: K4's
+                  phase 1 on the earlier scanline schedule)
   3 walks         K2/K3 vs plain on the demo scene's 256x192 primary rays and
                   shadow rays toward both lights
   4 sample        K1 vs plain at 256x192, spp 1, 5 bounces, both RNG flows
@@ -57,13 +64,17 @@ Phases (each prints its own lines and stops the run when it fails):
                   split_rebin="octant": vs K1's frame, launch counts (64
                   phase-1 and 64 continuation launches), timed dispatches in
                   turns with K1, one profiled dispatch; phase 1, compaction and
-                  continuation alone at 1080p vs plain; split_bounce=3 and
-                  split_every at 4 spp vs K1
+                  continuation alone at 1080p vs plain; phase 1 timed alone
+                  with its lane utilisation and budget (with --parent: vs
+                  the scanline phase 1, colour, rays, state rows bit for
+                  bit, both timed in turns); split_bounce=3 and split_every
+                  at 4 spp vs K1
  15 K9            the 1080p/64 spp frame with octant_bounce_walks: vs K1's
                   frame, launch counts, timed in turns with K1; K9 vs plain at
                   256x192 (both RNG flows) and 1080p/1 spp; K9's phase 1 and
                   continuation (split + octant walks) alone vs plain at 256x192
-                  and 1080p, and its tiered instantiation (field 320x180) vs
+                  and 1080p (its phase 1 timed as in 14), and
+                  its tiered instantiation (field 320x180) vs
                   plain; the K9 forms' budget and the walk-loop lane
                   utilisation of K9 (1080p/64 spp) and the tiered K9 (field
                   1080p/4 spp); then the split path
@@ -78,24 +89,37 @@ Phases (each prints its own lines and stops the run when it fails):
                   + octant K1 once; the wide K1 on the field (tiered="off")
                   at 1080p/4 spp vs the whole-tree K1, in turns
  17 K6            frustum_primary: the same set for K6 and the frustum K1,
-                  plus the frustum phase 1 (split_bounce 2) vs plain at
-                  256x192 and the frustum + octant K1 once
- 18 per-wave      K7 closest/shadow vs plain at 256x192 (bit-equal t and
-                  vis) and at the 1080p primary and point-light rays, vs
-                  K2/K3 at the 1080p primary, shadow and incoherent rays
-                  (other triangles counted), timed in turns with them; K1
+                  plus the frustum phase 1 and frustum + octant phase 1
+                  (split_bounce 2) vs plain at 256x192 and 1080p (timed as
+                  in 14; with --parent bit for bit the scanline form's,
+                  though its packets are now the warp tiles), and the
+                  frustum + octant K1 once
+ 18 per-wave      K7 closest/shadow vs plain at 256x192 (bit for bit) and
+                  the incoherent rays, vs plain at the
+                  1080p primary and point-light rays, vs K2/K3 at the 1080p
+                  primary, shadow and incoherent rays (other triangles
+                  counted), timed in turns with them; the
+                  7 K7 waves of one 1080p pallas-ml sample (5 closest, 2
+                  shadow, recorded at the wrappers): the kernel and the plain
+                  version bit for bit, the kernel timed alone, its lane
+                  utilisation, each wave's bound (with --parent, the same
+                  for the one-thread-per-slot K7, timed in turns); K1
                   with sample_fuse=2 vs plain (256x192, 4 spp); the golden
                   gates for kernels="xla" and "pallas-ml"; "pallas-ml",
                   "pallas-bvh2", "pallas-nomega" and "xla" vs K1's frame at
                   256x192; the 1080p/64 spp frame with kernels="pallas-ml"
                   (3 timed dispatches after a warm-up, launch counts: K7
-                  only, vs K1's frame, one profiled dispatch); "pallas-bvh2"
+                  only, vs K1's frame, one more dispatch with K7's own time
+                  summed from CUDA events around each of its launches, one
+                  profiled 4-spp dispatch; with --parent the same frame
+                  through the one-thread-per-slot K7 bit for bit); "pallas-bvh2"
                   and "pallas-nomega" at 1080p/4 spp and "xla" at 1080p/1
                   spp once each, timed, with launch counts
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -324,6 +348,7 @@ def main() -> int:
     if "--out-dir" in sys.argv[1:]:
         out_dir = sys.argv[sys.argv.index("--out-dir") + 1]
         os.makedirs(out_dir, exist_ok=True)
+    parent = "--parent" in sys.argv[1:]
 
     # ---- 1 device ----
     kind = torch.cuda.get_device_name(0)
@@ -332,23 +357,46 @@ def main() -> int:
     print(smi, flush=True)
 
     # ---- 2 build ----
+    # the kernels, and with --parent beside them (one more build, started
+    # first, run at the same time) the anchor of the phase-1 checks: this
+    # tree's sources with -DRZ_PHASE1_SCANLINE, K4's phase 1 on its earlier
+    # scanline schedule
     t0 = time.perf_counter()
-    ext.build(force=True)
-    ext.lib()
+    anchor = anchor_build = None
+    if parent:
+        anchor_path = os.path.join(ext.BUILD_DIR, "phase1-scanline",
+                                   "librayzen_kernels.so")
+        anchor_build = subprocess.Popen(
+            [sys.executable, "-c", "import sys; from rayzen_tpu_torch import ext; "
+             "ext.build(force=True, out=sys.argv[1], defines=('RZ_PHASE1_SCANLINE',))",
+             anchor_path], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    try:
+        ext.build(force=True)
+        ext.lib()
+    finally:
+        if anchor_build is not None:
+            anchor_log = anchor_build.communicate()[0]
+    if anchor_build is not None:
+        require(anchor_build.returncode == 0,
+                f"the phase-1 anchor build failed: {anchor_log[-2000:]}")
+        anchor = ext.bind(anchor_path)
     build_s = time.perf_counter() - t0
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
             f.write(ext.build_log)
     ptxas = ext.ptxas_summary(ext.build_log)
     say(f"[2 build] nvcc sm_90a build {build_s:.1f} s (one nvcc per source, in "
-        "parallel); ptxas: " + " | ".join(
+        "parallel" + (", and the phase-1 anchor build beside it" if parent else "")
+        + "); ptxas: " + " | ".join(
             f"{k} {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill')} B spill" for k, v in sorted(ptxas.items())))
 
     # the compiled label of each K1 form: the regenerating regen_kernel over
     # the whole tree, the tiered view and the wide tables; the K9 and K6
-    # forms on the lockstep sample_kernel with warp tiles; K4's phase 1 (four
-    # forms) on the scanline lockstep loop
+    # forms on the lockstep sample_kernel with warp tiles; K4's phase 1: its
+    # plain form regen_phase1_kernel, its K9 and K6 forms the K1 forms'
+    # instantiations
     form_label = {
         "bvh2": "regen_kernel<Bvh2Walk>", "tiered": "regen_kernel<TieredWalk>",
         "wide": "regen_kernel<Bvh8Walk>",
@@ -364,11 +412,24 @@ def main() -> int:
     require(set(form_label.values()) | set(count_label.values()) <= set(ptxas),
             "a K1 form or its counting form was not compiled")
     require(lockstep == {f for f in (*form_label.values(), *count_label.values())
-                         if f.startswith("sample")}
-            | {"sample_kernel<Bvh2Walk>", "sample_kernel<Bvh2Walk,octant>",
-               "sample_kernel<Bvh2Walk,frustum>", "sample_kernel<Bvh2Walk,octant,frustum>"},
-            "the lockstep sample_kernel has other instantiations than K4's phase "
-            "1 and the K9 and K6 forms (and their counting forms)")
+                         if f.startswith("sample")},
+            "the lockstep sample_kernel has other instantiations than the K9 and "
+            "K6 forms (and their counting forms), which K4's phase 1 shares")
+    require({"regen_phase1_kernel<Bvh2Walk>", "regen_phase1_kernel<Bvh2Walk,count>"}
+            <= set(ptxas), "K4's plain phase 1 (regenerating) was not compiled")
+    k7_labels = {f"misslink_kernel<{m}{c}>" for m in ("closest", "shadow")
+                 for c in ("", ",count")}
+    require(k7_labels <= set(ptxas), "a K7 kernel or its counting form was not compiled")
+
+    @contextlib.contextmanager
+    def using(lib_):
+        """Run the wrappers' launches through another build's library."""
+        saved = ext.lib()
+        ext._lib = lib_
+        try:
+            yield
+        finally:
+            ext._lib = saved
 
     def budget_line(forms):
         """The compiled budget of K1 forms, with ptxas's spills; their block
@@ -838,6 +899,62 @@ def main() -> int:
         d = (a - b).abs()
         return d.max().item(), d.mean().item()
 
+    def phase1_1080p(tag, cfg_):
+        """K4's phase 1 (the form cfg_ selects) at the demo's 1080p, one
+        sample: its time alone (median of 6) and its walk-loop lane
+        utilisation (the counting form, which must write the same colour and
+        rays). With --parent, against the scanline phase 1 (the anchor
+        build) too: colour, rays and the 13 state rows bit for bit (the K6
+        forms too, though their packets are now the warp tiles), both timed
+        in turns and counted."""
+        args = (mws, cfg_, muv, mact, mcam, 0, 0, 5)
+        libs = {"kernel": ext.lib()}
+        if anchor is not None:
+            libs["parent"] = anchor
+        out = {}
+        for name, lib_ in libs.items():
+            with using(lib_):
+                out[name] = megakernel.sample_wave_phase1(*args)
+        got = {name: [] for name in libs}
+        for order in ((list(libs), list(libs)[::-1]) * 3):
+            for name in order:
+                with using(libs[name]):
+                    got[name].append(cuda_ms(
+                        lambda: megakernel.sample_wave_phase1(*args), 5, torch))
+        lanes = {}
+        for name, lib_ in libs.items():
+            with using(lib_):
+                lc, lr, a_, sl_ = megakernel.walk_lane_counts(*args, phase1=True)
+            require(bool(torch.equal(lc, out[name][0]))
+                    and int(lr) == int(out[name][1]),
+                    f"{tag}: the counting phase 1 ({name}) wrote another colour")
+            lanes[name] = a_ / sl_
+        med = {k: statistics.median(v) for k, v in got.items()}
+        form = dict(split_bounce=cfg_.split_bounce, octant=cfg_.octant_bounce_walks,
+                    frustum=cfg_.frustum_primary)
+        res = dict(ms=med["kernel"], lanes=lanes["kernel"], parent_ms=None,
+                   parent_lanes=None, parent_bitwise=None, parent_pixels_differ=None)
+        vs = ""
+        if anchor is not None:
+            (kc, kr, ks), (oc, orr, os_) = out["kernel"], out["parent"]
+            same = (bool(torch.equal(kc, oc)) and int(kr) == int(orr)
+                    and bool(torch.equal(ks, os_)))
+            npx = int(((kc != oc).any(-1) | (ks != os_).any(0)).sum())
+            res.update(parent_ms=med["parent"], parent_lanes=lanes["parent"],
+                       parent_bitwise=same, parent_pixels_differ=npx)
+            vs = (f"vs the scanline phase 1 colour, rays and state rows bit for bit "
+                  f"{same} ({npx} pixels differ); ")
+        say(f"[{tag}] phase 1 at 1080p {form}: {vs}"
+            + ("in turns" if anchor is not None else "alone") + f" on {kind} ({smi}): "
+            + ", ".join(f"{k} {med[k]:.4f} ms" for k in libs) + " ("
+            + ", ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in got.items())
+            + "); walk-loop lane utilisation "
+            + ", ".join(f"{k} {lanes[k]:.4f}" for k in libs))
+        require(res["parent_bitwise"] is not False,
+                f"{tag}: phase 1 differs from the scanline form's "
+                f"({res['parent_pixels_differ']} pixels)")
+        return res
+
     # ---- 13 split: K4 (phase 1 + compaction + continuation) vs plain ----
     ext.reset_launches()
     scfg, _sscene, sarrays, scam = scene_setup(256, 192)
@@ -906,6 +1023,16 @@ def main() -> int:
         + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
     ext.reset_launches()
     k4 = split_kernels(mws, xcfg, muv, mact, mcam, "14 split path")
+    k4p = phase1_1080p("14 split path", xcfg)
+    ph1_budget_parent = None
+    if anchor is not None:
+        with using(anchor):
+            ph1_budget_parent = megakernel.sample_budget("phase1")
+    ph1_budget = megakernel.sample_budget("phase1")
+    say(f"[14 split path] phase 1's budget: {ph1_budget}"
+        + (f" (the scanline form's {ph1_budget_parent})" if anchor is not None else ""))
+    require(ph1_budget["threads"] == megakernel.K1_THREADS,
+            "phase 1's block is not megakernel.K1_THREADS")
     c4 = mcfg.replace(spp=4)
     k1_4, k1_4rays = render_radiance_with_stats(marrays, mcam, c4)
     for knobs in (dict(split_bounce=3),
@@ -987,6 +1114,7 @@ def main() -> int:
                   suv, sact, scam, "15 K9")
     k9x = split_kernels(mws, xcfg.replace(octant_bounce_walks=True), muv, mact,
                         mcam, "15 K9")
+    k9xp = phase1_1080p("15 K9", xcfg.replace(octant_bounce_walks=True))
     # the tiered K9 at phase 11's 320x180 (guv, gact)
     t9 = fcfg.replace(width=320, height=180, spp=1, octant_bounce_walks=True)
     k = megakernel.sample_wave(fws, t9, guv, gact, fcam, 0, 0, 5, 1)
@@ -1246,9 +1374,15 @@ def main() -> int:
     ext.reset_launches()
     k6x = split_kernels(sws, scfg.replace(split_bounce=2, frustum_primary=True),
                         suv, sact, scam, "17 K6")
+    k6x_1080 = {}
+    for sfx, kn in (("", {}), ("_octant", dict(octant_bounce_walks=True))):
+        c6 = xcfg.replace(frustum_primary=True, **kn)
+        k6x_1080[sfx] = dict(split_kernels(mws, c6, muv, mact, mcam, "17 K6"),
+                             parent=phase1_1080p("17 K6", c6))
     k6x_standalone = dict(ext.LAUNCHES)
-    require(k6x_standalone["sample_wave_phase1_frustum"] >= 1,
-            "the frustum phase 1 was never launched")
+    require(k6x_standalone["sample_wave_phase1_frustum"] >= 1
+            and k6x_standalone["sample_wave_phase1_frustum_octant"] >= 1,
+            "a frustum phase 1 was never launched")
     ext.reset_launches()
     xi, xr = render_radiance_with_stats(marrays, mcam, c4.replace(
         split_bounce=2, split_rebin="octant", frustum_primary=True))
@@ -1266,23 +1400,27 @@ def main() -> int:
     s7o, s7d = primary_rays(256, 192, s7cam)
     s7act = torch.ones(s7o.shape[0], dtype=torch.bool, device=dev)
     _, s7uv = pixel_grid(256, 192, dev)
-    k7 = walk.closest_walk_misslink(s7ws, s7o, s7d, s7act)
+    # (with --parent also vs the one-thread-per-slot K7 over the records)
+    vs_rows = " and the one-thread-per-slot K7" if parent else ""
+    k7 = walk.closest_walk_misslink(s7ws, s7o, s7d, s7act, 256, 192)
     p7 = walk.misslink_closest_walk_reference(s7ws, s7o, s7d, s7act)
-    k7_exact = all(torch.equal(a, b) for a, b in zip(k7, p7))
+    r7 = walk.closest_walk_misslink_rows(s7ws, s7o, s7d, s7act) if parent else p7
+    k7_exact = all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(k7, p7, r7))
     say(f"[18 K7] K7 closest vs plain, 256x192 primary: same tri "
         f"{bool(torch.equal(k7[1], p7[1]))}, t bit-equal {bool(torch.equal(k7[0], p7[0]))}, "
-        f"all outputs bit-equal {k7_exact}, hits {int((k7[1] >= 0).sum())}")
-    require(torch.equal(k7[1], p7[1]) and torch.equal(k7[0], p7[0]),
-            "K7 closest vs plain (256x192)")
-    k7s_exact = True
+        f"all outputs bit-equal to plain{vs_rows} {k7_exact}, hits "
+        f"{int((k7[1] >= 0).sum())}")
+    require(k7_exact, f"K7 closest vs plain{vs_rows} (256x192)")
     s7hit = walk.decode_hit(s7ws, s7o, s7d, *k7)
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(s7ws, s7hit)):
-        kv, kr = walk.shadow_walk_misslink(s7ws, so, sd, sm, sa)
+        kv, kr = walk.shadow_walk_misslink(s7ws, so, sd, sm, sa, width=256, height=192)
         pv = walk.misslink_shadow_walk_reference(s7ws, so, sd, sm, sa)
-        k7s_exact &= bool(torch.equal(kv, pv))
-        say(f"[18 K7] K7 shadow vs plain, 256x192 light {i}: vis exact "
-            f"{bool(torch.equal(kv, pv))}, {int(kr)} rays, {int((kv < 1).sum())} shadowed")
-        require(torch.equal(kv, pv), f"K7 shadow vs plain (256x192, light {i})")
+        rv = walk.shadow_walk_misslink_rows(s7ws, so, sd, sm, sa) if parent else pv
+        same = bool(torch.equal(kv, pv)) and bool(torch.equal(kv, rv))
+        say(f"[18 K7] K7 shadow vs plain{vs_rows}, 256x192 light {i}: vis "
+            f"exact {same}, {int(kr)} rays, {int((kv < 1).sum())} shadowed")
+        require(same, f"K7 shadow vs plain{vs_rows} (256x192, light {i})")
 
     # K7 at the main path's 1080p primary, shadow and incoherent rays: vs
     # K2/K3, timed in turns with them; the plain walk counts K7's work
@@ -1294,7 +1432,14 @@ def main() -> int:
         return (int(other.sum()), int((other & (a[0] == b[0])).sum()),
                 bool(torch.equal(a[0][same], b[0][same])))
 
-    k7c = walk.closest_walk_misslink(mws, mo, md_, mact)
+    # K7 on whole 1080p waves: the rays taken in warp tiles, as on its path
+    def k7_closest(ws_, o_, d_, a_):
+        return walk.closest_walk_misslink(ws_, o_, d_, a_, 1920, 1080)
+
+    def k7_shadow(ws_, o_, d_, md__, a_):
+        return walk.shadow_walk_misslink(ws_, o_, d_, md__, a_, width=1920, height=1080)
+
+    k7c = k7_closest(mws, mo, md_, mact)
     (p7c, p7c_ms, k7_work) = counted(
         lambda w: walk.misslink_closest_walk_reference(mws, mo, md_, mact, work=w),
         torch, walk)
@@ -1303,8 +1448,7 @@ def main() -> int:
     k2c = walk.closest_walk(mws, mo, md_, mact)
     n_other, n_ties, t_eq = vs_k2(k7c, k2c)
     t7 = [cuda_ms(lambda: fn(mws, mo, md_, mact), 10, torch)
-          for fn in (walk.closest_walk, walk.closest_walk_misslink,
-                     walk.closest_walk_misslink, walk.closest_walk)]
+          for fn in (walk.closest_walk, k7_closest, k7_closest, walk.closest_walk)]
     k7_ms, k2_turn_ms = (t7[1] + t7[2]) / 2, (t7[0] + t7[3]) / 2
     say(f"[18 K7] 1080p primary ({mo.shape[0]} rays) on {kind} ({smi}): K7 "
         f"{k7_ms:.3f} ms, K2 {k2_turn_ms:.3f} ms (in turns: "
@@ -1314,11 +1458,11 @@ def main() -> int:
     require(t_eq and n_other <= 1e-4 * mo.shape[0], "K7 vs K2 at 1080p primary")
     k7s_ms = p7s_ms = None
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(mws, mhit)):
-        kv, _ = walk.shadow_walk_misslink(mws, so, sd, sm, sa)
+        kv, _ = k7_shadow(mws, so, sd, sm, sa)
         v3, _ = walk.shadow_walk_bvh2(mws, so, sd, sm, sa)
         ts = [cuda_ms(lambda: fn(mws, so, sd, sm, sa), 10, torch)
-              for fn in (walk.shadow_walk_bvh2, walk.shadow_walk_misslink,
-                         walk.shadow_walk_misslink, walk.shadow_walk_bvh2)]
+              for fn in (walk.shadow_walk_bvh2, k7_shadow, k7_shadow,
+                         walk.shadow_walk_bvh2)]
         n_vis = int((kv != v3).sum())
         if i == 0:  # the point light: its plain walk counts the work
             pv, p7s_ms, k7s_work = counted(
@@ -1334,17 +1478,21 @@ def main() -> int:
     rd = torch.randn(mo.shape, generator=g7, device=dev)
     rd = rd / rd.norm(dim=1, keepdim=True)
     ro = mhit.point + rd * 1e-3
-    i7, i2 = (fn(mws, ro, rd, mhit.found)
-              for fn in (walk.closest_walk_misslink, walk.closest_walk))
+    i7, i2 = (fn(mws, ro, rd, mhit.found) for fn in (k7_closest, walk.closest_walk))
+    ip = walk.misslink_closest_walk_reference(mws, ro, rd, mhit.found)
+    ir = walk.closest_walk_misslink_rows(mws, ro, rd, mhit.found) if parent else ip
+    in_same = all(bool(torch.equal(a, b)) and bool(torch.equal(a, c))
+                  for a, b, c in zip(i7, ir, ip))
     in_other, in_ties, in_teq = vs_k2(i7, i2)
     ti = [cuda_ms(lambda: fn(mws, ro, rd, mhit.found), 10, torch)
-          for fn in (walk.closest_walk, walk.closest_walk_misslink,
-                     walk.closest_walk_misslink, walk.closest_walk)]
+          for fn in (walk.closest_walk, k7_closest, k7_closest, walk.closest_walk)]
     k7_inc_ms, k2_inc_ms = (ti[1] + ti[2]) / 2, (ti[0] + ti[3]) / 2
     say(f"[18 K7] incoherent rays ({int(mhit.found.sum())} from the primary hits, "
         f"random directions): K7 {k7_inc_ms:.3f} ms, K2 {k2_inc_ms:.3f} ms (in turns: "
-        f"{', '.join(f'{t:.3f}' for t in ti)}); another triangle on {in_other} rays "
+        f"{', '.join(f'{t:.3f}' for t in ti)}); bit for bit the plain version's"
+        f"{vs_rows} {in_same}; vs K2 another triangle on {in_other} rays "
         f"({in_ties} exact-t ties), t bit-equal where the same {in_teq}")
+    require(in_same, f"K7 vs plain{vs_rows} on incoherent rays")
     require(in_teq and in_other <= 1e-4 * mo.shape[0], "K7 vs K2 on incoherent rays")
     k7_standalone = dict(ext.LAUNCHES)
     require(k7_standalone["closest_hit_misslink"] >= 1
@@ -1412,12 +1560,88 @@ def main() -> int:
             "K7 closest: not one launch per live bounce wave per sample")
     frame_gate("18 pallas-ml", "1080p/64 spp frame vs K1's", mlimg, ml_rays_pd,
                kimg, krays)
+    # K7's own time in a 64-spp dispatch: one more dispatch whose K7 entry
+    # point calls each sit between two CUDA events on the launch stream.
+    # The device may wait for the host there (this path is host-bound), and
+    # then the host's time from the first event to the launch counts too.
+    spans = []
+
+    class K7Events:
+        """ext.lib() with each K7 entry point call between two CUDA events."""
+
+        def __init__(self, lib_):
+            self._lib = lib_
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if name not in ("rz_closest_misslink", "rz_shadow_misslink"):
+                return fn
+
+            def run(*args):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                err = fn(*args)
+                ev[1].record()
+                spans.append((name, ev))
+                return err
+            return run
+
+    ext.reset_launches()
+    with using(K7Events(ext.lib())):
+        evimg, evrays = render_radiance_with_stats(marrays, mcam, mlcfg)
+    torch.cuda.synchronize()
+    ev_launches = {k: v for k, v in ext.LAUNCHES.items() if v}
+    require(ev_launches == {k: v // n_disp for k, v in got.items()}
+            and len(spans) == sum(ev_launches.values()),
+            f"the evented pallas-ml dispatch's K7 launches: {ev_launches}")
+    require(bool(torch.equal(evimg, mlimg)) and int(evrays) == ml_rays_pd,
+            "the evented pallas-ml dispatch rendered another frame")
+    # a sample's K7 launches: closest bounce 0, shadow lights 0..L-1, closest
+    # bounces 1..4 (every bounce of this frame has live rays)
+    classes = (["closest bounce 0"] + [f"shadow light {i}" for i in range(n_lights)]
+               + [f"closest bounce {b}" for b in range(1, 5)])
+    require(len(spans) == 64 * len(classes), "a sample's K7 launches are not "
+            f"{len(classes)}: {len(spans)} in 64 samples")
+    k7_dispatch = {c: 0.0 for c in classes}
+    for i, (name, ev) in enumerate(spans):
+        c = classes[i % len(classes)]
+        require(name == ("rz_closest_misslink" if c.startswith("closest")
+                         else "rz_shadow_misslink"), f"K7 launch {i} is not {c}")
+        k7_dispatch[c] += ev[0].elapsed_time(ev[1])
+    k7_dispatch_closest = sum(v for c, v in k7_dispatch.items() if c.startswith("closest"))
+    k7_dispatch_shadow = sum(v for c, v in k7_dispatch.items() if c.startswith("shadow"))
+    say(f"[18 pallas-ml] K7 in one 1080p/64 spp dispatch (CUDA events around each "
+        f"of its {len(spans)} launches) on {kind} ({smi}): closest "
+        f"{k7_dispatch_closest:.2f} ms in {ev_launches['closest_hit_misslink']} "
+        f"launches, shadow {k7_dispatch_shadow:.2f} ms in "
+        f"{ev_launches['shadow_walk_misslink']}; by wave class (64 launches each): "
+        + ", ".join(f"{c} {v:.2f}" for c, v in k7_dispatch.items()))
+    if parent:
+        # the same frame through the one-thread-per-slot K7 over the records:
+        # bit for bit, rays equal
+        real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
+        walk.closest_hit_misslink = lambda ws_, o_, d_, a_, width=0, height=0: (
+            walk.decode_hit(ws_, o_, d_,
+                            *walk.closest_walk_misslink_rows(ws_, o_, d_, a_)))
+        walk.shadow_walk_misslink = lambda ws_, o_, d_, md__, a_, min_visibility=0.05, \
+            t_eps=1e-3, width=0, height=0: (walk.shadow_walk_misslink_rows(
+                ws_, o_, d_, md__, a_, min_visibility, t_eps), a_.sum(dtype=torch.int64))
+        try:
+            pimg, prays = render_radiance_with_stats(marrays, mcam, mlcfg)
+        finally:
+            walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
+        ml_parent_same = bool(torch.equal(pimg, mlimg)) and int(prays) == ml_rays_pd
+        say(f"[18 pallas-ml] 1080p/64 spp frame through the one-thread-per-slot K7: "
+            f"bit for bit {ml_parent_same}, rays {int(prays)} vs {ml_rays_pd}")
+        require(ml_parent_same,
+                "the pallas-ml frame differs from the one-thread-per-slot K7's")
     # the breakdown of a 4-spp dispatch: each sample runs the same walks and
     # glue, and a 64-spp trace holds ~290k kernels, too many to process here
     wall, busy, top = profile_dispatch(
         lambda: render_radiance_with_stats(marrays, mcam, mlcfg.replace(spp=4)),
         torch, out_dir and os.path.join(out_dir, "pallas_ml_trace.json"))
-    k7_rows = [(ms, n) for ms, name, n in top if "MisslinkWalk" in name]
+    k7_rows = [(ms, n) for ms, name, n in top if "misslink_kernel" in name]
     k7_dev = sum(ms for ms, _n in k7_rows)
     ml_profile = dict(spp=4, wall_ms=wall, device_busy_ms=busy, k7_ms=k7_dev,
                       k7_launches=sum(n for _ms, n in k7_rows), glue_ms=busy - k7_dev,
@@ -1428,6 +1652,105 @@ def main() -> int:
         f"{k7_dev:.2f} ms in {ml_profile['k7_launches']} launches, torch glue "
         f"{busy - k7_dev:.2f} ms in {ml_profile['glue_launches']} launches; top: "
         + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top[:8]))
+
+    # K7 at the shapes its path launches: the waves of one sample of the
+    # 1080p pallas-ml dispatch (5 closest, one per bounce; 2 shadow, one per
+    # light), recorded at the wrappers, each walked by the kernel and by the
+    # plain version (bit for bit), the kernel timed (medians of 6) with its
+    # walk-loop lane utilisation; with --parent the same for the
+    # one-thread-per-slot K7 over the records, timed in turns
+    waves = []
+    real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
+
+    def rec_closest(ws_, o_, d_, a_, width=0, height=0):
+        waves.append(dict(kind="closest", o=o_.clone(), d=d_.clone(), a=a_.clone(),
+                          frame=(width, height)))
+        return real_c(ws_, o_, d_, a_, width, height)
+
+    def rec_shadow(ws_, o_, d_, md__, a_, min_visibility=0.05, t_eps=1e-3, width=0,
+                   height=0):
+        waves.append(dict(kind="shadow", o=o_.clone(), d=d_.clone(), a=a_.clone(),
+                          md=md__.contiguous().clone(), mv=min_visibility, te=t_eps,
+                          frame=(width, height)))
+        return real_s(ws_, o_, d_, md__, a_, min_visibility, t_eps, width, height)
+
+    walk.closest_hit_misslink, walk.shadow_walk_misslink = rec_closest, rec_shadow
+    try:
+        render_radiance_with_stats(marrays, mcam, mlcfg.replace(spp=1))
+    finally:
+        walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
+    require([w["kind"] for w in waves] == ["closest", "shadow", "shadow", "closest",
+                                           "closest", "closest", "closest"],
+            f"the pallas-ml sample's K7 waves: {[w['kind'] for w in waves]}")
+    k7_tab = nbytes(mws.ml_nodes, mws.ml_tris)
+    k7_budget = {f: walk.misslink_budget(f) for f in walk.MISSLINK_FORMS
+                 if parent or not f.endswith("_rows")}
+    k7_forms = ("kernel", "parent") if parent else ("kernel",)
+    say(f"[18 K7 waves] budgets: {k7_budget}")
+    k7_waves, n_bounce, n_light = [], 0, 0
+    for w in waves:
+        o_, d_, a_, (fw, fh) = w["o"], w["d"], w["a"], w["frame"]
+        n, live = o_.shape[0], int(a_.sum())
+        require((fw, fh) == (1920, 1080) and n == fw * fh, "K7's wave is not the frame")
+        if w["kind"] == "closest":
+            name = f"closest bounce {n_bounce}"
+            n_bounce += 1
+            new = lambda: walk.closest_walk_misslink(mws, o_, d_, a_, fw, fh)  # noqa: E731
+            old = lambda: walk.closest_walk_misslink_rows(mws, o_, d_, a_)  # noqa: E731
+            plain = lambda wk: walk.misslink_closest_walk_reference(  # noqa: E731
+                mws, o_, d_, a_, work=wk)
+            count = dict(max_dist=None)
+            nb = k7_tab + n * (1 + 24) + live * 24  # act; t, tri, cross, menc; o, d
+        else:
+            name = f"shadow light {n_light}"
+            n_light += 1
+            md__, mv, te = w["md"], w["mv"], w["te"]
+            new = lambda: walk.shadow_walk_misslink(  # noqa: E731
+                mws, o_, d_, md__, a_, mv, te, fw, fh)[0]
+            old = lambda: walk.shadow_walk_misslink_rows(  # noqa: E731
+                mws, o_, d_, md__, a_, mv, te)
+            plain = lambda wk: walk.misslink_shadow_walk_reference(  # noqa: E731
+                mws, o_, d_, md__, a_, mv, te, work=wk)
+            count = dict(max_dist=md__, min_visibility=mv, t_eps=te)
+            nb = k7_tab + n * (1 + 4) + live * (24 + 4)  # act; vis; o, d, maxd
+        runs = {"kernel": new, "parent": old} if parent else {"kernel": new}
+        outs = {form: fn() for form, fn in runs.items()}
+        kn = outs["kernel"]
+        kp, p_ms, work = counted(plain, torch, walk)
+        seq = (lambda x: x) if w["kind"] == "closest" else (lambda x: (x,))
+        same = all(all(bool(torch.equal(a, b)) for a, b in zip(seq(o__), seq(kp)))
+                   for o__ in outs.values())
+        got = {form: [] for form in k7_forms}
+        for order in (k7_forms, k7_forms[::-1]) * 3:
+            for form in order:
+                got[form].append(cuda_ms(runs[form], 10, torch))
+        lanes = {}
+        for form in k7_forms:
+            out_, a__, sl_ = walk.misslink_lane_counts(
+                mws, o_, d_, a_, width=fw, height=fh, rows=form == "parent", **count)
+            require(all(bool(torch.equal(x, y)) for x, y in zip(seq(out_), seq(kn))),
+                    f"the counting K7 ({form}) walked to another result ({name})")
+            lanes[form] = a__ / sl_ if sl_ else None
+        b_ms, b_by = bound(work, nb)
+        med = {k: statistics.median(v) for k, v in got.items()}
+        k7_waves.append(dict(wave=name, slots=n, live=live, ms=med["kernel"],
+                             parent_ms=med.get("parent"), plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, lanes=lanes["kernel"],
+                             parent_lanes=lanes.get("parent"), bitwise=same, work=work))
+        say(f"[18 K7 waves] {name}: {live} of {n} slots live ({live / n * 100:.2f}%); "
+            f"kernel{vs_rows} and plain bit for bit {same}; "
+            + ("in turns" if parent else "alone") + f" on {kind} ({smi}): "
+            + ", ".join(f"{k} {med[k]:.4f} ms" for k in k7_forms) + " ("
+            + ", ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in got.items())
+            + f"); plain {p_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}); walk-loop lane "
+            "utilisation " + ", ".join(f"{k} {lanes[k]}" for k in k7_forms)
+            + f"; the longest walk {work['ml_chain']} node visits "
+            f"({med['kernel'] * 1e6 / max(1, work['ml_chain']):.0f} ns of the kernel's "
+            "time each)")
+        require(same, f"K7 differs from the plain version{vs_rows} ({name})")
+    say(f"[18 K7 waves] one sample's 7 K7 launches alone: " + ", ".join(
+        f"{k} {sum(w[k] for w in k7_waves):.4f} ms"
+        for k in ("ms", "parent_ms", "bound_ms") if k7_waves[0][k] is not None))
 
     # the other staged paths, once each with their launch counts and times
     staged = {}
@@ -1574,7 +1897,12 @@ def main() -> int:
             "rayzen_tpu/ops/megakernel.py:981", xlaunches["sample_wave_phase1"],
             k4_err, ph1_ms, pph1_ms, ph1_work, mtab + R * (sample_b + state_b),
             standalone_launches=split_standalone["sample_wave_phase1"],
-            shape="demo 1080p, 1 sample, split_bounce 2"),
+            shape="demo 1080p, 1 sample, split_bounce 2",
+            schedule="lockstep (sample_kernel) with warp tiles",
+            in_turns_ms=k4p["ms"], parent_ms=k4p["parent_ms"],
+            parent_bitwise=k4p["parent_bitwise"], walk_lane_utilisation=k4p["lanes"],
+            parent_walk_lane_utilisation=k4p["parent_lanes"], budget=ph1_budget,
+            parent_budget=ph1_budget_parent),
         row("K4 continuation", "continuation_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:743", xlaunches["continuation"], k4_err,
             cont_ms, pcont_ms, cont_work, cont_bytes(k4["live"]),
@@ -1603,7 +1931,10 @@ def main() -> int:
             k9_paths["split"]["sample_wave_phase1_octant"], k9x["ph1"][3], k9x["ph1"][0],
             k9x["ph1"][1], k9x["ph1"][2], mtab + R * (sample_b + state_b),
             standalone_launches=k9_standalone["sample_wave_phase1_octant"],
-            shape="demo 1080p, 1 sample, split_bounce 2"),
+            shape="demo 1080p, 1 sample, split_bounce 2", in_turns_ms=k9xp["ms"],
+            parent_ms=k9xp["parent_ms"], parent_bitwise=k9xp["parent_bitwise"],
+            walk_lane_utilisation=k9xp["lanes"],
+            parent_walk_lane_utilisation=k9xp["parent_lanes"]),
         row("K9 continuation_octant", "continuation_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215", k9_paths["split"]["continuation_octant"],
             k9x["cont"][3], k9x["cont"][0], k9x["cont"][1], k9x["cont"][2],
@@ -1626,6 +1957,10 @@ def main() -> int:
          "rayzen_tpu/ops/megakernel.py:519"), walk2_b, mtab,
         dict(phase1_256x192_ms=k6x["ph1"][0], phase1_256x192_plain_ms=k6x["ph1"][1],
              phase1_256x192_err=k6x["ph1"][3],
+             phase1_1080p={sfx or "_plain": dict(
+                 ms=v["ph1"][0], plain_ms=v["ph1"][1], err=v["ph1"][3],
+                 bound_ms=bound(v["ph1"][2], mtab + R * (sample_b + state_b))[0],
+                 vs_parent=v["parent"]) for sfx, v in k6x_1080.items()},
              phase1_standalone_launches=k6x_standalone["sample_wave_phase1_frustum"],
              phase1_split_path_launches=k6x_path.get("sample_wave_phase1_frustum", 0)))
     hit7 = k7c[1] >= 0
@@ -1634,21 +1969,31 @@ def main() -> int:
             "rayzen_tpu/ops/pallas_traverse.py:128",
             ml_launches["closest_hit_misslink"],
             (k7c[0] - p7c[0])[hit7].abs().max().item(), k7_ms, p7c_ms, k7_work,
-            nbytes(mws.records) + R * 49,
+            nbytes(mws.ml_nodes, mws.ml_tris) + R * 49,
             standalone_launches=k7_standalone["closest_hit_misslink"],
             k2_same_rays_ms=k2_turn_ms, rays_other_triangle_than_k2=n_other,
             incoherent_rays_ms=k7_inc_ms, k2_incoherent_rays_ms=k2_inc_ms,
             shape="demo 1080p primary rays",
             main_path="kernels='pallas-ml', demo 1080p/64 spp",
             pallas_ml_dispatch_median_ms=ml_med, pallas_ml_profile=ml_profile,
-            staged_dispatches=staged),
+            staged_dispatches=staged, budget=k7_budget["closest"],
+            parent_budget=k7_budget.get("closest_rows"),
+            pallas_ml_sample_waves=[w for w in k7_waves if w["wave"].startswith("closest")],
+            pallas_ml_dispatch_ms=k7_dispatch_closest,
+            pallas_ml_dispatch_ms_by_wave={
+                c: v for c, v in k7_dispatch.items() if c.startswith("closest")}),
         row("K7 shadow_walk_misslink", "walk_kernels.cu",
             "rayzen_tpu/ops/pallas_traverse.py:189",
             ml_launches["shadow_walk_misslink"], 0.0, k7s_ms, p7s_ms, k7s_work,
-            nbytes(mws.records) + R * 33,
+            nbytes(mws.ml_nodes, mws.ml_tris) + R * 33,
             standalone_launches=k7_standalone["shadow_walk_misslink"],
             k3_same_rays_ms=k3_turn_ms, shape="demo 1080p shadow rays, point light",
-            main_path="kernels='pallas-ml', demo 1080p/64 spp"),
+            main_path="kernels='pallas-ml', demo 1080p/64 spp",
+            budget=k7_budget["shadow"], parent_budget=k7_budget.get("shadow_rows"),
+            pallas_ml_sample_waves=[w for w in k7_waves if w["wave"].startswith("shadow")],
+            pallas_ml_dispatch_ms=k7_dispatch_shadow,
+            pallas_ml_dispatch_ms_by_wave={
+                c: v for c, v in k7_dispatch.items() if c.startswith("shadow")}),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

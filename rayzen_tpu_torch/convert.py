@@ -6,7 +6,8 @@ arrays — ``{f.name: np.asarray(getattr(x, f.name)) for f in
 dataclasses.fields(x)}`` — and return the port's dataclass with tensors on
 ``device``. Every field is carried: the tables of each view (the miss-link
 ``records``, the BVH2, wide and treelet tables) and the static fields
-(``instance_meta``, ``tree_depth``, ``leaf_k``, ``tiered``). The treelet
+(``instance_meta``, ``tree_depth``, ``leaf_k``, ``tiered``); K7's device
+tables, which JAX does not have, are built from them. The treelet
 tables lose JAX's 128-lane padding (``tre_inner`` keeps its 16 columns,
 ``tre_leaf`` the leaf-table width), and the tiered and wide walks' depth
 bounds, which JAX does not keep, are computed from the tables. Tests use this to feed the port exactly the JAX
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from .packing import (
-    InstanceMeta, SceneArrays, WorldArrays, tiered_depths, wide_stack_bound,
+    InstanceMeta, SceneArrays, WorldArrays, misslink_tables, tiered_depths,
+    wide_stack_bound,
 )
 
 
@@ -75,8 +77,11 @@ def world_arrays_from_numpy(d: dict, device) -> WorldArrays:
             kw[f.name] = int(d[f.name])
         elif f.name == "tiered":
             kw[f.name] = bool(d[f.name])
-        else:
+        elif f.name not in ("ml_nodes", "ml_tris"):
             kw[f.name] = _tensor(d[f.name], device).contiguous()
+    kw["ml_nodes"], kw["ml_tris"] = misslink_tables(
+        kw["records"], kw["leaf_k"], kw["tri_v0"], kw["tri_e1"], kw["tri_e2"],
+        kw["tri_mat"], kw["tri_nsign"], kw["materials"])
     return WorldArrays(**kw)
 
 

@@ -82,11 +82,13 @@ RZ_DEV bool slab(const Ray& r, const float* b, float& tmin) {
   return hi >= fmaxf(lo, 0.0f);
 }
 
-// pallas_traverse._mt_broadcast: one triangle tri = [v0(3) e1(3) e2(3)]
-RZ_DEV bool moller_trumbore(const Ray& r, const float* tri, float& t) {
-  float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-  float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-  float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
+// pallas_traverse._mt_broadcast: one triangle, v0, e1 and e2 in the xyz of
+// three float4s (their w is not read)
+RZ_DEV bool moller_trumbore(const Ray& r, const float4& v0, const float4& e1,
+                            const float4& e2, float& t) {
+  const float v0x = v0.x, v0y = v0.y, v0z = v0.z;
+  const float e1x = e1.x, e1y = e1.y, e1z = e1.z;
+  const float e2x = e2.x, e2y = e2.y, e2z = e2.z;
   float hx = r.dy * e2z - r.dz * e2y;
   float hy = r.dz * e2x - r.dx * e2z;
   float hz = r.dx * e2y - r.dy * e2x;
@@ -102,6 +104,70 @@ RZ_DEV bool moller_trumbore(const Ray& r, const float* tri, float& t) {
   t = f * ((e2x * qx + e2y * qy) + e2z * qz);
   return valid && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
          (u + v <= 1.0f) && (t > T_EPS);
+}
+
+// The same test on a triangle row tri = [v0(3) e1(3) e2(3)]
+RZ_DEV bool moller_trumbore(const Ray& r, const float* tri, float& t) {
+  const float4 v0 = make_float4(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2), 0.0f);
+  const float4 e1 = make_float4(__ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5), 0.0f);
+  const float4 e2 = make_float4(__ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8), 0.0f);
+  return moller_trumbore(r, v0, e1, e2, t);
+}
+
+// ---- the warp map of K1 and K7 ----
+//
+// A launch over n slots (pixels, or rays of a wave) of a width x height
+// frame, in blocks of kThreads: block tile ``tile`` is a kTileW x
+// (kThreads / kTileW) screen tile, its warps 8 x 4 pixels, two across, and
+// the tiles are clipped at the right and bottom edges; any other wave (n !=
+// width x height) is mapped linearly. Either map gives each slot exactly
+// one lane, and a slot's result does not depend on its lane, so the map
+// changes only which rays share a warp. The plain form is
+// ops/megakernel.py tile_pixels.
+constexpr int kTileW = 16;
+
+// Block tiles of a launch over n slots.
+template <int kThreads>
+__host__ __device__ inline int tile_blocks(int n, int width, int height) {
+  static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
+  constexpr int kTileH = kThreads / kTileW;
+  if ((long long)width * height != n) return (n + kThreads - 1) / kThreads;
+  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+}
+
+// The slot of lane ``lane`` of warp ``warp`` in block tile ``tile``, -1 for
+// none.
+template <int kThreads>
+RZ_DEV int tile_pixel(int tile, int warp, int lane, int n, int width,
+                      int height) {
+  if ((long long)width * height != n) {
+    const int i = tile * kThreads + warp * 32 + lane;
+    return i < n ? i : -1;
+  }
+  constexpr int kTileH = kThreads / kTileW;
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int x = (tile % tiles_x) * kTileW + (warp & 1) * 8 + (lane & 7);
+  const int y = (tile / tiles_x) * kTileH + (warp >> 1) * 4 + (lane >> 3);
+  return x < width && y < height ? y * width + x : -1;
+}
+
+// The compiled budget of a kernel launched with ``threads`` threads: out =
+// {threads per block, registers per thread, local memory per thread in bytes
+// (the walk stacks and any spills), resident warps per SM}.
+template <class Kernel>
+inline int budget_of(Kernel kernel, int threads, int* out) {
+  cudaFuncAttributes a{};
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      0);
+  }
+  out[0] = threads;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks * (threads / 32);
+  return static_cast<int>(e);
 }
 
 // ---- RNG (megakernel._ref_rand, _hash_u32, _u32_to_unit_float) ----

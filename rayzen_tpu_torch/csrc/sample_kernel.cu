@@ -22,10 +22,10 @@
 // bounces on K2/K3. All instantiations share every line of shading, RNG and
 // bounce code (shade.cuh).
 //
-// Phase 1 of the split-bounce wavefront (K4, megakernel.py:976-992) is this
-// kernel with one sample, b_stop = split_bounce and a state output: it also
-// writes the 13 continuation rows (stop_bounce / emit_state, :486-490,
-// :706-711) that continuation_kernel.cu resumes from.
+// Phase 1 of the split-bounce wavefront (K4, megakernel.py:976-992) is K1
+// with one sample, b_stop = split_bounce and a state output: it also writes
+// the 13 continuation rows (stop_bounce / emit_state, :486-490, :706-711)
+// that continuation_kernel.cu resumes from.
 //
 // What bounds it on an H100: the BVH walks (walk.cuh), dependent loads from
 // L2-resident tables (~0.5 MB for the demo scene; 37 MB of treelet tables
@@ -51,21 +51,22 @@
 //   resident warps per SM, where the lockstep K1's 128-157 registers left
 //   12-16 to hide the walks' load latency. (4) Over the tiered view the
 //   warps are persistent: each takes warp tiles from a counter until none
-//   is left.
+//   is left. K4's plain phase 1 (rz_sample_wave_phase1) runs the same loop
+//   for one sample with a state output (regen_phase1_kernel).
 // - sample_kernel, the lockstep loop: a thread runs its samples in turn,
 //   each through the primary walk, the shadow walks of direct_lighting and
-//   trace_bounces, at separate call sites. K9's votes (kOctant), K6's packet
-//   walk (kFrustum) and K4's phase 1 (one sample and its state rows) need
-//   the whole warp at each of those calls, so they run it. K1's K9 and K6
-//   forms (rz_sample_wave_octant, _tiered_octant, _wide_octant, _frustum,
-//   _frustum_octant) run it with regen_kernel's warp tiles and register
-//   budget (kTiles) and, for K6, one packet stack per warp in shared memory;
-//   phase 1 in scanline order. A warp-synchronous form of regen_kernel for
-//   K9 and K6 (every lane in the loop until its warp is done, one call site
-//   that votes) measured slower or no faster on every form: the octant
-//   groups serialise the bounce walks that regeneration overlaps, and the
-//   packet waits each sample for the warp's longest path, which the
-//   lockstep loop does anyway (PERF.md §6).
+//   trace_bounces, at separate call sites. K9's votes (kOctant) and K6's
+//   packet walk (kFrustum) need the whole warp at each of those calls, so
+//   K1's K9 and K6 forms (rz_sample_wave_octant, _tiered_octant,
+//   _wide_octant, _frustum, _frustum_octant) and phase 1's (_phase1_octant,
+//   _frustum, _frustum_octant, the same instantiations with a state output)
+//   run it, with regen_kernel's warp tiles and register budget (kTiles) and,
+//   for K6, one packet stack per warp in shared memory. A warp-synchronous
+//   form of regen_kernel for K9 and K6 (every lane in the loop until its
+//   warp is done, one call site that votes) measured slower or no faster on
+//   every form: the octant groups serialise the bounce walks that
+//   regeneration overlaps, and the packet waits each sample for the warp's
+//   longest path, which the lockstep loop does anyway (PERF.md §6).
 // The K9 and K6 forms replace rayzen_tpu/ops/megakernel.py:215
 // (_octant_masked_walk, used by _make_bounce_body :251-257, :697) and
 // :515-525, :576-585 (the frustum primary, pallas_traverse.py:1002). What
@@ -102,60 +103,29 @@ constexpr int kThreads = RZ_K1_THREADS;
 static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
 constexpr int kWarps = kThreads / 32;
 
-// The screen tile of a block: two warps across, each warp 8 x 4 pixels.
-constexpr int kTileW = 16, kTileH = kThreads / kTileW;
+// K4's phase 1 runs K1's warp tiles and register budget: its plain form on
+// the regenerating loop (regen_phase1_kernel), its K9 and K6 forms on the
+// tiled lockstep loop (kTiles). Built with -DRZ_PHASE1_SCANLINE every form
+// runs the earlier schedule instead, the lockstep loop over scanline pixels
+// in blocks of kBlock with no register budget: the anchor that
+// chip_smoke.py and scripts/k1_schedule.py hold phase 1 to and time it
+// against.
+#ifdef RZ_PHASE1_SCANLINE
+constexpr bool kPhase1Tiles = false;
+#else
+constexpr bool kPhase1Tiles = true;
+#endif
 
-// Block tiles of a launch over n pixels of a width x height frame.
-__host__ __device__ int tile_blocks(int n, int width, int height) {
-  if ((long long)width * height != n) return (n + kThreads - 1) / kThreads;
-  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+// K1's warp map over a launch (common.cuh): block tiles of kThreads
+__host__ __device__ inline int tile_blocks(int n, int width, int height) {
+  return rz::tile_blocks<kThreads>(n, width, height);
 }
-
-// The pixel of lane ``lane`` of warp ``warp`` in block tile ``tile``, -1
-// for none. A full frame (n = width x height, row after row) is cut into
-// kTileW x kTileH tiles, clipped at the right and bottom edges; any other
-// wave is mapped linearly. Either map gives each pixel exactly one lane,
-// and a pixel's result does not depend on its lane, so the map changes only
-// which rays share a warp (and so the K6 forms' packets). The plain form is
-// ops/megakernel.py tile_pixels.
 __device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
                                           int width, int height) {
-  if ((long long)width * height != n) {
-    const int i = tile * kThreads + warp * 32 + lane;
-    return i < n ? i : -1;
-  }
-  const int tiles_x = (width + kTileW - 1) / kTileW;
-  const int x = (tile % tiles_x) * kTileW + (warp & 1) * 8 + (lane & 7);
-  const int y = (tile / tiles_x) * kTileH + (warp >> 1) * 4 + (lane >> 3);
-  return x < width && y < height ? y * width + x : -1;
+  return rz::tile_pixel<kThreads>(tile, warp, lane, n, width, height);
 }
 
-// The walk-loop lane counter of the counting K1 forms (the _count entry
-// points): at every step of a walk's node loop the lowest active lane of
-// the warp adds the active lanes and 32 to one of kCountSlots pairs of
-// 64-bit sums (spread over slots by warp, so that the atomics do not queue
-// on one address). active / slots over a launch is the walk loop's lane
-// utilisation. In a step of K6's packet walk every lane of the warp takes
-// the step, and the lanes with a ray in the packet count as active.
-constexpr int kCountSlots = 1024;
-__device__ unsigned long long g_walk_lanes[2 * kCountSlots];
-
-struct LaneCount {
-  __device__ __forceinline__ void add(unsigned active) const {
-    const unsigned slot =
-        (blockIdx.x * kWarps + (threadIdx.x >> 5)) % kCountSlots;
-    atomicAdd(&g_walk_lanes[2 * slot], (unsigned long long)active);
-    atomicAdd(&g_walk_lanes[2 * slot + 1], 32ull);
-  }
-  __device__ __forceinline__ void step() const {
-    const unsigned m = __activemask();
-    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) add(__popc(m));
-  }
-  __device__ __forceinline__ void packet(bool on) const {
-    const unsigned m = __ballot_sync(rz::kFullMask, on);
-    if ((threadIdx.x & 31) == 0) add(__popc(m));
-  }
-};
+using rz::LaneCount;
 
 // The walks of the counting K9 and K6 forms: Walk's closest and shadow
 // walks as its kEither walk (trace, the regenerating K1's, which takes the
@@ -177,7 +147,8 @@ struct Counted : Walk {
 
 // kTiles: K1's warp tiles and register budget (tile_pixel,
 // __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)) and K6's packet stack in
-// shared memory; otherwise scanline pixels in blocks of kBlock (phase 1).
+// shared memory; otherwise scanline pixels in blocks of kBlock (phase 1 of a
+// -DRZ_PHASE1_SCANLINE build).
 // Count: LaneCount in the counting forms (Walk is then Counted<...>), which
 // also counts K6's packet steps.
 template <class Walk, bool kOctant, bool kFrustum, bool kTiles,
@@ -361,11 +332,12 @@ __device__ __forceinline__ void regen_pixel(
     const float* __restrict__ lights, const float* __restrict__ cam,
     const float* __restrict__ uv, const uint8_t* __restrict__ act,
     const SampleParams& p, float* __restrict__ color_out,
-    int* __restrict__ rays_out) {
+    int* __restrict__ rays_out, int n, float* __restrict__ state_out) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) color_out[3 * i + c] = 0.0f;
   if (act[i] == 0 || p.n_samples <= 0) {
     rays_out[i] = 0;
+    if (state_out) rz::store_state(state_out, n, i, Path{}, 0.0f, 0.0f);
     return;
   }
   const Count cnt{};
@@ -465,7 +437,9 @@ __device__ __forceinline__ void regen_pixel(
     }
     if (!done) continue;
 
-    // ---- the sample ends: fold it in, and start the next
+    // ---- the sample ends: fold it in, and start the next; phase 1 (one
+    // sample) writes the path where it stopped, and its seeds
+    if (state_out) rz::store_state(state_out, n, i, path, smp.s0, smp.s1);
     if (hit0) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) acc[c] = acc[c] + path.c[c];
@@ -498,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)
     const int i = tile_pixel(blockIdx.x, warp, lane, n, p.width, p.height);
     if (i >= 0) {
       regen_pixel<Count>(i, w, mats, lights, cam, uv, act, p, color_out,
-                         rays_out);
+                         rays_out, n, nullptr);
     }
   } else {
     const int n_items = tile_blocks(n, p.width, p.height) * kWarps;
@@ -511,9 +485,36 @@ __global__ void __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)
           tile_pixel(item / kWarps, item % kWarps, lane, n, p.width, p.height);
       if (i >= 0) {
         regen_pixel<Count>(i, w, mats, lights, cam, uv, act, p, color_out,
-                           rays_out);
+                           rays_out, n, nullptr);
       }
     }
+  }
+}
+
+// K4's plain phase 1 on the regenerating loop: regen_kernel's warp tiles,
+// one pixel a lane and one sample, which writes the pixel's state rows when
+// its path stops (b_stop = split_bounce). One walk call site serves the
+// primary, shadow and bounce rays of a warp's lanes, so a lane no longer
+// idles through its neighbours' walks of another kind, as in the lockstep
+// loop (0.74 vs 0.82 ms at 1080p on an H100, PERF.md §6). Lanes that went
+// on to the same lane slot of their warp's next tiles (2, 4, 8 tiles a
+// warp) lost: a warp then runs as long as its lanes' longest chain of
+// pixels.
+template <class Walk, class Count>
+__global__ void __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)
+    regen_phase1_kernel(Walk w, const float* __restrict__ mats,
+                        const float* __restrict__ lights,
+                        const float* __restrict__ cam,
+                        const float* __restrict__ uv,
+                        const uint8_t* __restrict__ act, int n, SampleParams p,
+                        float* __restrict__ color_out,
+                        int* __restrict__ rays_out,
+                        float* __restrict__ state_out) {
+  const int i = tile_pixel(blockIdx.x, threadIdx.x >> 5, threadIdx.x & 31, n,
+                           p.width, p.height);
+  if (i >= 0) {
+    regen_pixel<Count>(i, w, mats, lights, cam, uv, act, p, color_out,
+                       rays_out, n, state_out);
   }
 }
 
@@ -544,23 +545,35 @@ int launch_regen(Walk w, const float* mats, const float* lights,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's phase 1, plain form: regen_phase1_kernel (the scanline lockstep loop
+// in a -DRZ_PHASE1_SCANLINE build).
+template <class Count = rz::NoCount, class Walk>
+int launch_phase1(Walk w, const float* mats, const float* lights,
+                  const float* cam, const float* uv, const uint8_t* act, int n,
+                  const SampleParams* params, float* color_out, int* rays_out,
+                  float* state_out, void* stream) {
+#ifdef RZ_PHASE1_SCANLINE
+  return launch_sample<false, false, false, Count>(
+      w, mats, lights, cam, uv, act, n, params, color_out, rays_out, state_out,
+      stream);
+#else
+  if (n > 0) {
+    regen_phase1_kernel<Walk, Count>
+        <<<tile_blocks(n, params->width, params->height), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(w, mats, lights, cam, uv, act,
+                                                n, *params, color_out,
+                                                rays_out, state_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
 // The compiled budget of a K1 kernel launched with kThreads threads: out =
 // {threads per block, registers per thread, local memory per thread in bytes
 // (the walk stacks and any spills), resident warps per SM}.
 template <class Kernel>
 int budget_of(Kernel kernel, int* out) {
-  cudaFuncAttributes a{};
-  int blocks = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      kThreads, 0);
-  }
-  out[0] = kThreads;
-  out[1] = a.numRegs;
-  out[2] = (int)a.localSizeBytes;
-  out[3] = blocks * (kThreads / 32);
-  return static_cast<int>(e);
+  return rz::budget_of(kernel, kThreads, out);
 }
 
 }  // namespace
@@ -612,14 +625,13 @@ int rz_sample_wave_tiered_octant(RZ_TIERED_ARGS, void* stream) {
 }
 
 int rz_sample_wave_phase1(RZ_BVH2_ARGS, float* state_out, void* stream) {
-  return launch_sample<false, false, false>(RZ_BVH2_WALK, RZ_REST, state_out,
-                                            stream);
+  return launch_phase1(RZ_BVH2_WALK, RZ_REST, state_out, stream);
 }
 
 int rz_sample_wave_phase1_octant(RZ_BVH2_ARGS, float* state_out,
                                  void* stream) {
-  return launch_sample<true, false, false>(RZ_BVH2_WALK, RZ_REST, state_out,
-                                           stream);
+  return launch_sample<true, false, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+                                                  state_out, stream);
 }
 
 int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
@@ -643,14 +655,14 @@ int rz_sample_wave_frustum_octant(RZ_BVH2_ARGS, void* stream) {
 
 int rz_sample_wave_phase1_frustum(RZ_BVH2_ARGS, float* state_out,
                                   void* stream) {
-  return launch_sample<false, true, false>(RZ_BVH2_WALK, RZ_REST, state_out,
-                                           stream);
+  return launch_sample<false, true, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+                                                  state_out, stream);
 }
 
 int rz_sample_wave_phase1_frustum_octant(RZ_BVH2_ARGS, float* state_out,
                                          void* stream) {
-  return launch_sample<true, true, false>(RZ_BVH2_WALK, RZ_REST, state_out,
-                                          stream);
+  return launch_sample<true, true, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+                                                 state_out, stream);
 }
 
 // The counting K1 forms: each form with LaneCount at every walk step (the
@@ -695,28 +707,42 @@ int rz_sample_wave_frustum_octant_count(RZ_BVH2_ARGS, void* stream) {
                                                     nullptr, stream);
 }
 
+// The counting forms of K4's phase 1 (the octant and frustum ones are the
+// same instantiations as K1's K9 and K6 counting forms).
+int rz_sample_wave_phase1_count(RZ_BVH2_ARGS, float* state_out, void* stream) {
+  return launch_phase1<LaneCount>(RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+int rz_sample_wave_phase1_octant_count(RZ_BVH2_ARGS, float* state_out,
+                                       void* stream) {
+  return launch_sample<true, false, kPhase1Tiles, LaneCount>(
+      RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+int rz_sample_wave_phase1_frustum_count(RZ_BVH2_ARGS, float* state_out,
+                                        void* stream) {
+  return launch_sample<false, true, kPhase1Tiles, LaneCount>(
+      RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
+int rz_sample_wave_phase1_frustum_octant_count(RZ_BVH2_ARGS, float* state_out,
+                                               void* stream) {
+  return launch_sample<true, true, kPhase1Tiles, LaneCount>(
+      RZ_BVH2_WALK, RZ_REST, state_out, stream);
+}
+
 // out[0] = active lane-steps, out[1] = warp-steps x 32 over the counting
 // launches since the last reset (synchronises the device); reset != 0 then
 // zeroes the sums.
 int rz_walk_lanes(unsigned long long* out, int reset) {
-  static unsigned long long h[2 * kCountSlots];
-  cudaError_t e = cudaMemcpyFromSymbol(h, g_walk_lanes, sizeof(h));
-  out[0] = out[1] = 0;
-  for (int k = 0; k < kCountSlots; ++k) {
-    out[0] += h[2 * k];
-    out[1] += h[2 * k + 1];
-  }
-  if (e == cudaSuccess && reset) {
-    static const unsigned long long zeros[2 * kCountSlots] = {};
-    e = cudaMemcpyToSymbol(g_walk_lanes, zeros, sizeof(zeros));
-  }
-  return static_cast<int>(e);
+  return rz::read_walk_lanes(out, reset);
 }
 
 // The compiled budget (budget_of) of a K1 form: policy 0 the whole tree, 1
 // the tiered view, 2 the wide tables (regen_kernel); 3-5 the same with K9
 // bounce walks, 6 the K6 primary, 7 the K6 primary with K9 bounce walks
-// (the tiled sample_kernel).
+// (the tiled sample_kernel); 8 K4's plain phase 1 (its K9 and K6 forms are
+// 3, 6 and 7 of a build with its tiles).
 int rz_sample_budget(int policy, int* out) {
   using rz::Bvh2Walk;
   using rz::Bvh8Walk;
@@ -730,6 +756,13 @@ int rz_sample_budget(int policy, int* out) {
     case 5: return budget_of(sample_kernel<Bvh8Walk, true, false, true>, out);
     case 6: return budget_of(sample_kernel<Bvh2Walk, false, true, true>, out);
     case 7: return budget_of(sample_kernel<Bvh2Walk, true, true, true>, out);
+#ifdef RZ_PHASE1_SCANLINE
+    case 8:
+      return rz::budget_of(sample_kernel<Bvh2Walk, false, false, false>,
+                           kBlock, out);
+#else
+    case 8: return budget_of(regen_phase1_kernel<Bvh2Walk, NoCount>, out);
+#endif
     default: return budget_of(regen_kernel<Bvh2Walk, NoCount>, out);
   }
 }

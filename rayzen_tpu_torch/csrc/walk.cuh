@@ -2,10 +2,10 @@
 // functions behind K2 (closest hit) and K3 (shadow transmission), the
 // tiered walks of K8 over top_table / tre_inner / tre_leaf, the wide
 // walks of K5 over inner8_table / leaf8_table, and the stackless miss-link
-// walks of K7 over records (standalone kernels only), shared by the standalone
-// kernels (walk_kernels.cu) and the sample kernel (sample_kernel.cu)
-// through the walk policies at the end of this file. (K6, the warp-packet
-// frustum walk, is in frustum.cuh.)
+// walks of K7 over ml_nodes / ml_tris (standalone kernels only), shared by
+// the standalone kernels (walk_kernels.cu) and the sample kernel
+// (sample_kernel.cu) through the walk policies at the end of this file. (K6,
+// the warp-packet frustum walk, is in frustum.cuh.)
 //
 // Replaces rayzen_tpu/ops/pallas_traverse.py::bvh2_walk_closest (:243) and
 // ::bvh2_walk_shadow (:454), single-pop form, and ::tiered_walk_closest
@@ -149,13 +149,62 @@ RZ_DEV bool push_children(int* stack, int& sp, bool push_l, bool push_r,
 // same result bit for bit in any mode.
 enum WalkMode { kClosest, kShadow, kEither };
 
-// Walk-loop step counters: NoCount for every kernel but the counting K1
-// forms, which count with LaneCount (sample_kernel.cu): step() at a step of
-// a per-lane walk, packet(on) at a step of K6's packet walk (frustum.cuh).
+// Walk-loop step counters: NoCount for every kernel but the counting forms
+// of K1 and K7, which count with LaneCount: step() at a step of a per-lane
+// walk, packet(on) at a step of K6's packet walk (frustum.cuh).
 struct NoCount {
   RZ_DEV void step() const {}
   RZ_DEV void packet(bool) const {}
 };
+
+// The walk-loop lane counter: at every step of a walk's node loop the
+// lowest active lane of the warp adds the active lanes and 32 to one of
+// kCountSlots pairs of 64-bit sums (spread over slots by warp, so that the
+// atomics do not queue on one address). active / slots over a launch is the
+// walk loop's lane utilisation. In a step of K6's packet walk every lane of
+// the warp takes the step, and the lanes with a ray in the packet count as
+// active. Each source file has its own sums (no relocatable device code),
+// read by its own entry point through read_walk_lanes: all three have
+// internal linkage.
+namespace {
+constexpr int kCountSlots = 1024;
+__device__ unsigned long long g_walk_lanes[2 * kCountSlots];
+
+struct LaneCount {
+  RZ_DEV void add(unsigned active) const {
+    const unsigned slot =
+        (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) % kCountSlots;
+    atomicAdd(&g_walk_lanes[2 * slot], (unsigned long long)active);
+    atomicAdd(&g_walk_lanes[2 * slot + 1], 32ull);
+  }
+  RZ_DEV void step() const {
+    const unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) add(__popc(m));
+  }
+  RZ_DEV void packet(bool on) const {
+    const unsigned m = __ballot_sync(kFullMask, on);
+    if ((threadIdx.x & 31) == 0) add(__popc(m));
+  }
+};
+
+// out[0] = active lane-steps, out[1] = warp-steps x 32 over this source
+// file's counting launches since the last reset (synchronises the device);
+// reset != 0 then zeroes the sums.
+inline int read_walk_lanes(unsigned long long* out, int reset) {
+  static unsigned long long h[2 * kCountSlots];
+  cudaError_t e = cudaMemcpyFromSymbol(h, g_walk_lanes, sizeof(h));
+  out[0] = out[1] = 0;
+  for (int k = 0; k < kCountSlots; ++k) {
+    out[0] += h[2 * k];
+    out[1] += h[2 * k + 1];
+  }
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zeros[2 * kCountSlots] = {};
+    e = cudaMemcpyToSymbol(g_walk_lanes, zeros, sizeof(zeros));
+  }
+  return static_cast<int>(e);
+}
+}  // namespace
 
 // The closest or shadow leaf procedure, per lane: bvh2_walk_closest's and
 // bvh2_walk_shadow's leaf_proc in one triangle loop.
@@ -508,27 +557,105 @@ RZ_DEV float walk_shadow_bvh8(const Tables8& tb, const Ray& r, float maxd,
 // ---- K7: the stackless miss-link walks ----
 //
 // Replaces pallas_traverse.py::_make_closest_kernel (:128) and
-// ::_make_shadow_kernel (:189). WorldArrays.records holds one row per node of
-// the unified tree (TLAS and BLAS copies stitched, packing._build_unified):
-// [bmin(3) bmax(3) | left_first, count, miss (float-encoded ints) | K leaf
-// triangles x 9 | K transparencies | K encoded materials | pad]. The packet
-// kernel moves 4096 rays with one scalar node pointer: at node cur each ray
+// ::_make_shadow_kernel (:189). The unified tree (TLAS and BLAS copies
+// stitched, packing._build_unified) is walked in pre-order: the packet
+// kernel moves 4096 rays with one scalar node pointer; at node cur each ray
 // tests the node's own box (hit = box & active & tmin <= its bound); if any
-// ray hits an internal node the packet goes to its left child, otherwise (and
-// after a leaf) to the node's miss link; -1 ends the walk. Here each thread
-// follows its own pointer, and its own hit decides. A node's box holds its
-// subtree's boxes, so a ray that misses it would hit nothing the packet
+// ray hits an internal node the packet goes to its left child, otherwise
+// (and after a leaf) to the node's miss link; -1 ends the walk. Here each
+// thread follows its own pointer, and its own hit decides. A node's box holds
+// its subtree's boxes, so a ray that misses it would hit nothing the packet
 // walks below it; the nodes a ray processes are the packet walk's in the
 // same pre-order, with the same strict t < t_best in the leaves, so the
 // thread finds the packet's triangle and t, ties included, and multiplies the
 // same transparencies in the same order. No stack: a ray's state is one int.
 //
-// What bounds it on an H100: as the BVH2 walk, the latency of dependent
-// loads (node -> next node) and divergence, not bandwidth; one slab test per
-// node visited (the BVH2 walk makes two) but more nodes per walk, and a
-// 416-byte row per node (K = 8) of which a miss reads 36 bytes and only a
-// hit leaf reads its triangles. The tables (~0.7 MB for the demo) stay in L2.
+// What bounds it on an H100: the tables (~0.3 MB for the demo) stay in L2,
+// so a walk is bound by the latency of its dependent loads (node -> next
+// node, node -> its triangles), one slab test per node, not by bandwidth or
+// operations (its bound, PERF.md §6, is a few percent of its time). A full
+// wave is bound by how much of that latency the resident warps hide; a
+// sparse one (the bounce waves after the first: 6.6% of the rays live and
+// fewer) by its longest walk, a chain of a few hundred dependent node loads,
+// ~0.1 ms on the demo whatever the number of live rays. What the design
+// does about it: (1) the tables are cut to the loads a step needs
+// (packing.misslink_tables): a node is one 32-byte sector, two 16-byte loads
+// (box; left/first, and count with miss packed in one word), where a record
+// row spread a visit's 36 bytes over two sectors of 416; a leaf triangle is
+// three 16-byte loads of a 48-byte row (v0, e1, e2, with the transparency and
+// the encoded material in the w words), where a record row took nine scalar
+// loads and reloaded e1 and e2 on a hit. (2) The kernel (walk_kernels.cu)
+// walks only the live rays: each block compacts its own 128 wave slots, so
+// its dead warps retire at once, and a whole-frame wave's rays are taken in
+// K1's 8 x 4 warp tiles. Gathering the live rays of more slots per block
+// into full warps (2-16 passes of 128, or persistent blocks) measured
+// slower: fewer warps in flight hid less of the latency. (3) 128 x 8 keeps
+// its 62 registers and 32 resident warps; 40 or 32 registers spilled and
+// lost (PERF.md §6).
 
+// K7's device tables (packing.misslink_tables): per unified node two float4s
+// [bmin.xyz bmax.x | bmax.yz, left_first, (count + 1) << 24 | (miss + 1)]
+// (the last two words int bits: exact below 2^24 as the records are), per
+// world triangle three [v0 transparency | e1 encoded material | e2 0].
+struct MisslinkTables {
+  const float4* nodes;  // (Nu, 2)
+  const float4* tris;   // (Tw, 3)
+  int leaf_k;
+};
+
+// K7 in mode kClosest or kShadow (walk_bvh2's contract): a closest ray from
+// ``h`` (h.t = T_FAR: no bound); a shadow ray with h.t = maxd multiplies into
+// vis the transparencies of the triangles it hits within (t_eps, maxd), in
+// record order, and stops once vis <= min_vis after a leaf.
+template <int kMode, class Count>
+RZ_DEV void walk_misslink(const MisslinkTables& tb, const Ray& r,
+                          float min_vis, float t_eps, HitRec& h, float& vis,
+                          const Count& cnt) {
+  static_assert(kMode != kEither, "K7 walks one kind of ray per launch");
+  constexpr bool kShadowRay = kMode == kShadow;
+  if (kShadowRay && !(vis > min_vis)) return;
+  const int K = tb.leaf_k;
+  int cur = 0;  // the root
+  while (cur >= 0) {
+    cnt.step();
+    const float4 a = __ldg(tb.nodes + 2 * (size_t)cur);
+    const float4 b = __ldg(tb.nodes + 2 * (size_t)cur + 1);
+    const float box[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+    const int left = __float_as_int(b.z);
+    const unsigned meta = __float_as_uint(b.w);
+    const int count = (int)(meta >> 24) - 1;
+    const int miss = (int)(meta & 0xffffffu) - 1;
+    float tmin;
+    const bool hit = slab(r, box, tmin) && (tmin <= h.t);
+    if (hit && count >= 0) {  // a leaf: its triangles, in record order
+      const int n = count < K ? count : K;
+      const float4* tri = tb.tris + 3 * (size_t)left;
+      for (int k = 0; k < n; ++k, tri += 3) {
+        const float4 v0 = __ldg(tri), e1 = __ldg(tri + 1), e2 = __ldg(tri + 2);
+        float t;
+        if (!moller_trumbore(r, v0, e1, e2, t)) continue;
+        if constexpr (kShadowRay) {
+          if (t >= t_eps && t < h.t) vis = vis * v0.w;  // 0 = opaque
+        } else if (t < h.t) {
+          h.t = t;
+          h.tri = left + k;
+          h.cx = e1.y * e2.z - e1.z * e2.y;
+          h.cy = e1.z * e2.x - e1.x * e2.z;
+          h.cz = e1.x * e2.y - e1.y * e2.x;
+          h.menc = e1.w;
+        }
+      }
+      if (kShadowRay && !(vis > min_vis)) return;
+    }
+    cur = (hit && count < 0) ? left : miss;
+  }
+}
+
+// The parent's K7, kept as the anchor that the card checks time and hold
+// the walk above against (walk_kernels.cu rz_*_misslink_rows): one thread per
+// wave slot over WorldArrays.records, whose row is [bmin(3) bmax(3) |
+// left_first, count, miss (float-encoded ints) | K leaf triangles x 9 | K
+// transparencies | K encoded materials | pad].
 struct RecordTables {
   const float* rec;  // (Nu, rec_w), rec_w a multiple of 4
   int rec_w;
@@ -552,11 +679,13 @@ RZ_DEV void load_record_head(const float* row, float box[6], int& left,
 }
 
 // Closest hit from the state ``h`` (h.t = T_FAR: no bound).
-RZ_DEV void walk_closest_misslink(const RecordTables& tb, const Ray& r,
-                                  HitRec& h) {
+template <class Count>
+RZ_DEV void walk_closest_misslink_rows(const RecordTables& tb, const Ray& r,
+                                       HitRec& h, const Count& cnt) {
   const int K = tb.leaf_k;
   int cur = 0;  // the root
   while (cur >= 0) {
+    cnt.step();
     const float* row = tb.rec + (size_t)cur * tb.rec_w;
     float box[6], tmin;
     int left, count, miss;
@@ -586,13 +715,16 @@ RZ_DEV void walk_closest_misslink(const RecordTables& tb, const Ray& r,
 // Transmission visibility within (t_eps, maxd), the walk_shadow contract:
 // blockers multiply in their record's transparency (0 = opaque); the ray
 // stops once vis <= min_vis.
-RZ_DEV float walk_shadow_misslink(const RecordTables& tb, const Ray& r,
-                                  float maxd, float min_vis, float t_eps) {
+template <class Count>
+RZ_DEV float walk_shadow_misslink_rows(const RecordTables& tb, const Ray& r,
+                                       float maxd, float min_vis, float t_eps,
+                                       const Count& cnt) {
   const int K = tb.leaf_k;
   float vis = 1.0f;
   if (!(vis > min_vis)) return vis;
   int cur = 0;
   while (cur >= 0) {
+    cnt.step();
     const float* row = tb.rec + (size_t)cur * tb.rec_w;
     float box[6], tmin;
     int left, count, miss;
@@ -667,14 +799,17 @@ struct Bvh8Walk {
   }
 };
 
-struct MisslinkWalk {
+// The parent's K7 over the records (walk_kernels.cu's one-thread-per-slot
+// kernels), counting its steps with Count.
+template <class Count>
+struct MisslinkRowsWalk {
   RecordTables tb;
   RZ_DEV void closest(const Ray& r, HitRec& h) const {
-    walk_closest_misslink(tb, r, h);
+    walk_closest_misslink_rows(tb, r, h, Count{});
   }
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
-    return walk_shadow_misslink(tb, r, maxd, min_vis, t_eps);
+    return walk_shadow_misslink_rows(tb, r, maxd, min_vis, t_eps, Count{});
   }
 };
 

@@ -17,12 +17,17 @@ ops/walk.py and ops/megakernel.py adds one where it launches its kernel.
 K1, its K9, wide (K5) and frustum (K6) forms and K4's phase 1 are
 instantiations of sample_kernel.cu behind separate entry points, so each
 has its own count: K1 over the whole tree, the tiered view and the wide
-tables runs a ``regen_kernel``; its K9 and K6 forms and K4's phase 1 run
-the lockstep ``sample_kernel``.
+tables runs a ``regen_kernel`` (K4's plain phase 1 ``regen_phase1_kernel``);
+the K9 and K6 forms of both run the warp-tiled lockstep ``sample_kernel``.
+K7 runs ``misslink_kernel``
+over the live rays of its wave; the parent's K7 (``_misslink_rows``)
+stays beside it as the anchor of the card checks.
 
 ``build`` also takes another source tree, output path and ``-D`` defines,
-and ``bind`` loads any such library: scripts/k1_schedule.py builds K1 at
-other register budgets, and an older tree's kernels, beside these.
+and ``bind`` loads any such library: scripts/k1_schedule.py builds K1, K4's
+phase 1 and K7 at other register budgets and schedules, and an older
+tree's kernels, beside these; chip_smoke.py builds the parent's phase-1
+schedule (-DRZ_PHASE1_SCANLINE) as its anchor.
 """
 
 from __future__ import annotations
@@ -50,8 +55,9 @@ STACK_DEPTH = 64
 
 # kernel -> launches made by its wrapper (reset with reset_launches()); the
 # "_octant" entries are the instantiations with K9 bounce walks, "_wide" the
-# K5 ones, "_frustum" those with the K6 primary walk and "_count" the
-# counting K1 (megakernel.walk_lane_counts, a diagnostic)
+# K5 ones, "_frustum" those with the K6 primary walk, "_count" the counting
+# K1, phase 1 and K7 (megakernel.walk_lane_counts, walk.misslink_lane_counts:
+# diagnostics) and "_misslink_rows" the parent's K7 (the card checks' anchor)
 LAUNCHES = {
     "sample_wave": 0, "sample_wave_tiered": 0,
     "sample_wave_octant": 0, "sample_wave_tiered_octant": 0,
@@ -69,6 +75,12 @@ LAUNCHES = {
     "closest_hit_bvh8": 0, "shadow_walk_bvh8": 0,
     "closest_hit_frustum": 0, "shadow_walk_frustum": 0,
     "closest_hit_misslink": 0, "shadow_walk_misslink": 0,
+    "closest_hit_misslink_count": 0, "shadow_walk_misslink_count": 0,
+    "closest_hit_misslink_rows": 0, "shadow_walk_misslink_rows": 0,
+    "closest_hit_misslink_rows_count": 0, "shadow_walk_misslink_rows_count": 0,
+    "sample_wave_phase1_count": 0, "sample_wave_phase1_octant_count": 0,
+    "sample_wave_phase1_frustum_count": 0,
+    "sample_wave_phase1_frustum_octant_count": 0,
 }
 
 _lib = None
@@ -138,7 +150,8 @@ def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
     -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
     ",frustum" for those with the K6 primary walk, ",tiles" for the lockstep
-    loop's warp-tiled forms, ",count" for the counting K1 forms)."""
+    loop's warp-tiled forms, ",count" for the counting forms; K7's kernel is
+    "misslink_kernel<closest>" or "<shadow>")."""
     import re
 
     out, cur = {}, None
@@ -148,18 +161,25 @@ def ptxas_summary(log: str) -> dict:
             # (an anonymous namespace's mangling names the source file, so
             # every kernel of sample_kernel.cu holds "sample_kernel")
             kernel = next((k for k in ("continuation_kernel", "regen_kernel",
+                                       "regen_phase1_kernel", "misslink_kernel",
                                        "sample_kernel",
                                        "closest_frustum_kernel",
                                        "shadow_frustum_kernel",
                                        "closest_kernel", "shadow_kernel")
                            if k in mangled), mangled)
-            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk")
+            count = ",count" if "LaneCount" in mangled else ""
+            if kernel == "misslink_kernel":  # template <int kMode, class Count>
+                mode = "closest" if "misslink_kernelILi0E" in mangled else "shadow"
+                cur = f"{kernel}<{mode}{count}>"
+                out[cur] = {}
+                continue
+            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk",
+                                     "MisslinkRowsWalk")
                          if w in mangled), "Bvh2Walk")
             flags = re.findall(r"Lb([01])E", mangled)
             octant = ",octant" if flags[:1] == ["1"] else ""
             frustum = ",frustum" if flags[1:2] == ["1"] else ""
             tiles = ",tiles" if flags[2:3] == ["1"] else ""
-            count = ",count" if "LaneCount" in mangled else ""
             cur = f"{kernel}<{walk}{octant}{frustum}{tiles}{count}>"
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
@@ -210,6 +230,12 @@ def bind(path: str) -> ctypes.CDLL:
     closest = [p, p, i, i, p, p, p, i, p, p, p, p, p]
     # tables, orig, dir, maxd, act, n, min_vis, t_eps, vis, stream
     shadow = [p, p, i, i, p, p, p, p, i, f, f, p, p]
+    # K7: nodes, tris, leaf_k, orig, dir, (maxd,) act, n, width, height, ...
+    k7_closest = [p, p, i, p, p, p, i, i, i, p, p, p, p, p]
+    k7_shadow = [p, p, i, p, p, p, p, i, i, i, f, f, p, p]
+    # the parent's K7: records, rec_w, leaf_k, orig, dir, (maxd,) act, n, ...
+    rows_closest = [p, i, i, p, p, p, i, p, p, p, p, p]
+    rows_shadow = [p, i, i, p, p, p, p, i, f, f, p, p]
     for name, args, res in (
         ("rz_error_string", [i], ctypes.c_char_p),
         ("rz_stack_depth", [], i),
@@ -220,8 +246,16 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_shadow_bvh8", shadow, i),
         ("rz_closest_frustum", closest, i),
         ("rz_shadow_frustum", shadow, i),
-        ("rz_closest_misslink", [p, i, i, p, p, p, i, p, p, p, p, p], i),
-        ("rz_shadow_misslink", [p, i, i, p, p, p, p, i, f, f, p, p], i),
+        ("rz_closest_misslink", k7_closest, i),
+        ("rz_shadow_misslink", k7_shadow, i),
+        ("rz_closest_misslink_count", k7_closest, i),
+        ("rz_shadow_misslink_count", k7_shadow, i),
+        ("rz_closest_misslink_rows", rows_closest, i),
+        ("rz_shadow_misslink_rows", rows_shadow, i),
+        ("rz_closest_misslink_rows_count", rows_closest, i),
+        ("rz_shadow_misslink_rows_count", rows_shadow, i),
+        ("rz_misslink_lanes", [p, i], i),
+        ("rz_misslink_budget", [i, p], i),
         ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p], i),
         ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p], i),
         ("rz_sample_wave", bvh2 + [p], i),
@@ -236,6 +270,10 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_sample_wave_phase1_octant", bvh2 + [p, p], i),
         ("rz_sample_wave_phase1_frustum", bvh2 + [p, p], i),
         ("rz_sample_wave_phase1_frustum_octant", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_count", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_octant_count", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_frustum_count", bvh2 + [p, p], i),
+        ("rz_sample_wave_phase1_frustum_octant_count", bvh2 + [p, p], i),
         ("rz_sample_wave_count", bvh2 + [p], i),
         ("rz_sample_wave_tiered_count", tiered + [p], i),
         ("rz_sample_wave_wide_count", bvh2 + [p], i),

@@ -57,6 +57,7 @@ walk, as in JAX; the megakernel path ignores them, as JAX's does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -99,8 +100,11 @@ def select_kernels(cfg: RenderConfig, tracer: str = "bvh"):
     check_config(cfg, tracer)
     if tracer == "brute":
         return brute_force_world, shadow_brute, None, False
-    if cfg.kernels == "pallas-ml":  # the miss-link kernels (K7)
-        return walk.closest_hit_misslink, walk.shadow_walk_misslink, None, False
+    if cfg.kernels == "pallas-ml":  # the miss-link kernels (K7), warp-tiled
+        frame = dict(width=cfg.width, height=cfg.height)  # on a whole frame
+        return (functools.partial(walk.closest_hit_misslink, **frame),
+                functools.partial(walk.shadow_walk_misslink, **frame), None,
+                False)
     if cfg.kernels == "pallas-bvh2":
         return walk.closest_hit_bvh2, walk.shadow_walk_bvh2, None, False
     if cfg.kernels == "pallas-nomega":  # the frustum walk for the primary hit

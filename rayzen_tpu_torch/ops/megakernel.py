@@ -9,10 +9,10 @@ over the whole tree (K2/K3 walks), or, when the pack built the treelet view
 (``ws.tiered``), its tiered instantiation (K8 walks), as the JAX package
 does (:1097-1135). These and the wide form run the regenerating schedule
 (warps of 8x4 screen pixels, one ray per lane per step, a lane starting its
-next sample as soon as its path ends); the K9 and K6 forms run the lockstep
-loop with the same warp tiles and register budget, and K4's phase 1 the
-lockstep loop in scanline order. Both give each pixel the same result bit
-for bit. The walk
+next sample as soon as its path ends), K4's plain phase 1 too (one sample);
+the K9 and K6 forms, of K1 and of phase 1, run the lockstep loop with the
+same warp tiles and register budget. Both give each pixel the same result
+bit for bit. The walk
 knobs follow JAX's rules (:503-525, :1101-1105):
 ``wide_nodes`` runs the wide instantiation (K5 walks everywhere) and is
 ignored, with an info log, on a tiered scene; ``frustum_primary`` runs the
@@ -704,29 +704,37 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
 
 def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,
                      camera_params: dict, samp, rng_key, max_bounces: int,
-                     n_samples: int = 1):
+                     n_samples: int = 1, phase1: bool = False):
     """A diagnostic of a K1 form (the one sample_wave launches for ``ws``
-    and ``cfg``) on CUDA tensors: its counting instantiation renders the wave
-    and sums, over every step of every walk's node loop, the lanes of the
-    warp that take the step and 32 (in a step of K6's packet walk, the lanes
-    with a ray in the packet). Returns (color (R, 3), rays () int64, active
-    lane-steps, warp-steps x 32); their ratio is the walk loop's lane
-    utilisation. No render path calls it."""
+    and ``cfg``; with ``phase1``, of the K4 phase-1 form sample_wave_phase1
+    launches, one sample) on CUDA tensors: its counting instantiation
+    renders the wave and sums, over every step of every walk's node loop,
+    the lanes of the warp that take the step and 32 (in a step of K6's
+    packet walk, the lanes with a ray in the packet). Returns (color (R, 3),
+    rays () int64, active lane-steps, warp-steps x 32); their ratio is the
+    walk loop's lane utilisation. No render path calls it."""
     if not uv.is_cuda:
         raise ValueError("the counting K1 runs on CUDA tensors only")
-    c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
+    if phase1:
+        b_stop = _split_point(ws, cfg, max_bounces)
+        c = _consts(cfg, samp, rng_key, max_bounces, 1)
+    else:
+        b_stop = max_bounces
+        c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
     sums = (ctypes.c_ulonglong * 2)()
     torch.cuda.synchronize(uv.device)
     ext.check(ext.lib().rz_walk_lanes(sums, 1), "rz_walk_lanes")  # zero them
-    color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
-                                    max_bounces, phase1=False, count=True)
+    color, rays, _ = _launch_sample(ws, c, uv, active, camera_params, b_stop,
+                                    phase1=phase1, count=True)
     torch.cuda.synchronize(uv.device)
     ext.check(ext.lib().rz_walk_lanes(sums, 1), "rz_walk_lanes")
     return color, rays.sum(dtype=torch.int64), int(sums[0]), int(sums[1])
 
 
 # the K1 forms, by their rz_sample_budget policy id: the regenerating ones,
-# then the K9 and K6 forms (the warp-tiled lockstep loop)
+# then the K9 and K6 forms (the warp-tiled lockstep loop); K4's plain phase
+# 1 is id 8 ("phase1"; its K9 and K6 forms are K1's "octant", "frustum" and
+# "frustum_octant" instantiations)
 BUDGET_POLICIES = ("bvh2", "tiered", "wide", "octant", "tiered_octant",
                    "wide_octant", "frustum", "frustum_octant")
 
@@ -734,13 +742,13 @@ BUDGET_POLICIES = ("bvh2", "tiered", "wide", "octant", "tiered_octant",
 def sample_budget(policy: str) -> dict:
     """The compiled budget of a K1 form (a name of BUDGET_POLICIES: the walk
     policy "bvh2", "tiered" or "wide", with K9 bounce walks "..._octant",
-    the K6 primary "frustum", with K9 "frustum_octant"): threads
-    per block, registers per thread, local memory per thread in bytes (walk
-    stacks and spills) and resident warps per SM (the CUDA occupancy
-    calculator)."""
+    the K6 primary "frustum", with K9 "frustum_octant") or of K4's plain
+    phase 1 ("phase1"): threads per block, registers per thread, local
+    memory per thread in bytes (walk stacks and spills) and resident warps
+    per SM (the CUDA occupancy calculator)."""
     out = (ctypes.c_int * 4)()
-    ext.check(ext.lib().rz_sample_budget(BUDGET_POLICIES.index(policy), out),
-              "rz_sample_budget")
+    pid = 8 if policy == "phase1" else BUDGET_POLICIES.index(policy)
+    ext.check(ext.lib().rz_sample_budget(pid, out), "rz_sample_budget")
     return dict(threads=out[0], regs=out[1], local_bytes=out[2],
                 warps_per_sm=out[3])
 
@@ -778,18 +786,20 @@ def sample_wave_phase1_reference(ws: WorldArrays, cfg: RenderConfig, uv,
                                  max_bounces: int,
                                  work: walk.Work | None = None):
     """Plain version of K4's phase 1: one sample through bounce
-    cfg.split_bounce - 1 (the primary hit on K6 under cfg.frustum_primary).
-    Returns (color (R, 3), rays () int64, state (13, R)). ``work`` counts
-    the walks' steps."""
+    cfg.split_bounce - 1 (the primary hit on K6 under cfg.frustum_primary,
+    its packets the kernel's warps, as in sample_wave_reference). Returns
+    (color (R, 3), rays () int64, state (13, R)). ``work`` counts the walks'
+    steps."""
     split_b = _split_point(ws, cfg, max_bounces)
     walk.check_walks(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, 1)
     n, dev = uv.shape[0], uv.device
     idx = active.nonzero()[:, 0]
     u, v = uv[idx, 0], uv[idx, 1]
+    packets = pixel_warps(n, c.width, c.height, dev)[idx] if c.frustum else None
     col, rays, sel, path, (s0, s1) = _one_sample(
         ws, c, _pack_camera(camera_params, dev), u, v, None, 0, split_b, work,
-        idx // walk.PACKET)
+        packets)
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     color[idx] = color[idx] + col
     state = torch.zeros((STATE_ROWS, n), dtype=torch.float32, device=dev)

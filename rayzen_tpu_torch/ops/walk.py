@@ -27,11 +27,14 @@ walk does the same over the 8-wide nodes (csrc/walk.cuh says in which
 order). The frustum walk is a packet walk, as csrc/frustum.cuh: one stack
 per packet of ``packet`` consecutive ray ids (a warp on the card), all
 packets advancing one node per step. The miss-link walk needs no stack: a
-ray's state is its node, and all unfinished rays advance one node per step.
+ray's state is its node, and all unfinished rays advance one node per step;
+its kernel walks only the live rays (each ray's walk is its own, so the
+order in which a kernel takes them changes no result).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable
 
@@ -51,19 +54,23 @@ class Work:
     popped node; the wide-node visits of a ray (K5: 8 child boxes each);
     the frustum node visits of a packet (K6: two interval box tests each,
     done once per packet); the miss-link node visits of a ray (K7: one box
-    test each); and the triangle tests, one per triangle of each leaf a ray
-    walks (min(count, K), as the kernels loop)."""
+    test each), and the most of them that one ray makes (``ml_chain``: the
+    length of the longest chain of dependent node loads of a K7 walk); and
+    the triangle tests, one per triangle of each leaf a ray walks (min(count,
+    K), as the kernels loop)."""
 
     nodes: int = 0
     nodes8: int = 0
     packet_nodes: int = 0
     ml_nodes: int = 0
+    ml_chain: int = 0  # a maximum over the walks, not a sum
     tris: int | torch.Tensor = 0  # summed on the walk's device
 
     def counts(self) -> dict:
         return {"nodes": int(self.nodes), "nodes8": int(self.nodes8),
                 "packet_nodes": int(self.packet_nodes),
-                "ml_nodes": int(self.ml_nodes), "tris": int(self.tris)}
+                "ml_nodes": int(self.ml_nodes), "ml_chain": int(self.ml_chain),
+                "tris": int(self.tris)}
 
 
 @dataclasses.dataclass
@@ -788,7 +795,9 @@ def _walk_misslink(w: _Walk, records, K, r_all, rays):
     one node per step."""
     live = rays
     cur = torch.zeros_like(rays)
+    steps = 0
     while live.numel():
+        steps += 1
         row = records[cur]
         r = r_all[live]
         tmin, box = _slab(r, row[:, 0:6])
@@ -804,6 +813,8 @@ def _walk_misslink(w: _Walk, records, K, r_all, rays):
         nxt = torch.where(hit & (count < 0), left, miss)
         keep = (nxt >= 0) & ~w.stop(live)
         live, cur = live[keep], nxt[keep]
+    if w.work is not None:
+        w.work.ml_chain = max(w.work.ml_chain, steps)
 
 
 def check_records(ws: WorldArrays) -> None:
@@ -888,12 +899,14 @@ def plain_walks(ws: WorldArrays, wide: bool = False):
 # ---- kernel launches -------------------------------------------------------
 
 # the tables a kernel walks ("view"): "bvh2" (K2/K3, and K6 over the same
-# rows), "tiered" (K8), "bvh8" (K5) or "misslink" (K7)
+# rows), "tiered" (K8), "bvh8" (K5), "misslink" (K7) or "misslink_rows" (the
+# parent's K7, over the records)
 def _table_tensors(ws: WorldArrays, view: str):
     return {"bvh2": (ws.inner_table, ws.leaf_table),
             "tiered": (ws.top_table, ws.tre_inner, ws.tre_leaf),
             "bvh8": (ws.inner8_table, ws.leaf8_table),
-            "misslink": (ws.records,)}[view]
+            "misslink": (ws.ml_nodes, ws.ml_tris),
+            "misslink_rows": (ws.records,)}[view]
 
 
 def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
@@ -901,7 +914,7 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
     contiguous, the table layouts the kernels index (None entries are
     skipped). ``view``: the tables the launch walks."""
     {"bvh2": check_depth, "tiered": check_tiered, "bvh8": check_wide,
-     "misslink": check_records}[view](ws)
+     "misslink": check_records, "misslink_rows": check_records}[view](ws)
     tables = _table_tensors(ws, view)
     for t in tables + tensors:
         if t is None:
@@ -911,6 +924,13 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     if view == "misslink":
+        nodes, tris = ws.ml_nodes, ws.ml_tris
+        if (nodes.dtype != torch.float32 or tris.dtype != torch.float32
+                or nodes.dim() != 2 or nodes.shape[1] != 8 or tris.dim() != 2
+                or tris.shape[1] != 12):
+            raise ValueError("K7's tables must be (Nu, 8) and (Tw, 12) float32")
+        return
+    if view == "misslink_rows":
         rec = ws.records
         if (rec.dtype != torch.float32 or rec.dim() != 2
                 or rec.shape[1] < 9 + 11 * ws.leaf_k or rec.shape[1] % 4):
@@ -935,9 +955,12 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
 def table_args(ws: WorldArrays, view: str) -> tuple:
     """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k)
     for "bvh2" and "bvh8", (top, tre_inner, tre_leaf, si, sl, leaf_w,
-    leaf_k) for "tiered", (records, record_w, leaf_k) for "misslink"."""
+    leaf_k) for "tiered", (nodes, tris, leaf_k) for "misslink", (records,
+    record_w, leaf_k) for "misslink_rows"."""
     ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, view))
     if view == "misslink":
+        return ptrs + (ws.leaf_k,)
+    if view == "misslink_rows":
         return ptrs + (ws.records.shape[1], ws.leaf_k)
     if view == "tiered":
         return ptrs + (ws.tre_inner.shape[1], ws.tre_leaf.shape[1],
@@ -969,11 +992,18 @@ _KERNELS = {
                 "rz_shadow_frustum", "shadow_walk_frustum"),
     "misslink": ("misslink", "rz_closest_misslink", "closest_hit_misslink",
                  "rz_shadow_misslink", "shadow_walk_misslink"),
+    "misslink_rows": ("misslink_rows", "rz_closest_misslink_rows",
+                      "closest_hit_misslink_rows", "rz_shadow_misslink_rows",
+                      "shadow_walk_misslink_rows"),
 }
 
 
-def _closest_cuda(ws, origin, direction, active, t_init, kind):
+def _closest_cuda(ws, origin, direction, active, t_init, kind, frame=(),
+                  count=False):
+    """Launch a closest walk; K7 ("misslink") takes the frame (width,
+    height) its wave covers; ``count``: its counting form."""
     view, entry, name, _, _ = _KERNELS[kind]
+    entry, name = (entry + "_count", name + "_count") if count else (entry, name)
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
     ti = None if t_init is None else t_init.to(torch.float32).contiguous()
@@ -986,8 +1016,8 @@ def _closest_cuda(ws, origin, direction, active, t_init, kind):
     # only K2 takes a t_init (as only the JAX BVH2 walk does)
     ti_arg = (None if ti is None else ti.data_ptr(),) if kind == "bvh2" else ()
     err = getattr(ext.lib(), entry)(
-        *table_args(ws, view), *rays, *ti_arg, n, t.data_ptr(), tri.data_ptr(),
-        cross.data_ptr(), menc.data_ptr(),
+        *table_args(ws, view), *rays, *ti_arg, n, *frame, t.data_ptr(),
+        tri.data_ptr(), cross.data_ptr(), menc.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream)
     ext.check(err, name)
     ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
@@ -995,8 +1025,9 @@ def _closest_cuda(ws, origin, direction, active, t_init, kind):
 
 
 def _shadow_cuda(ws, origin, direction, max_dist, active, min_visibility,
-                 t_eps, kind):
+                 t_eps, kind, frame=(), count=False):
     view, _, _, entry, name = _KERNELS[kind]
+    entry, name = (entry + "_count", name + "_count") if count else (entry, name)
     o, d, a = _ray_operands(origin, direction, active)
     n = o.shape[0]
     md = _max_dist(max_dist, n, o.device).contiguous()
@@ -1004,14 +1035,15 @@ def _shadow_cuda(ws, origin, direction, max_dist, active, min_visibility,
     vis = torch.empty((n,), dtype=torch.float32, device=o.device)
     err = getattr(ext.lib(), entry)(
         *table_args(ws, view), o.data_ptr(), d.data_ptr(), md.data_ptr(),
-        a.data_ptr(), n, float(min_visibility), float(t_eps), vis.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream,
+        a.data_ptr(), n, *frame, float(min_visibility), float(t_eps),
+        vis.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream,
     )
     ext.check(err, name)
     ext.LAUNCHES[name] += n > 0
     return vis
 
 
+# the plain walks of the CPU path
 _PLAIN_CLOSEST = {
     "bvh2": lambda ws, o, d, a, ti: closest_walk_reference(ws, o, d, a, ti),
     "tiered": lambda ws, o, d, a, ti: tiered_closest_walk_reference(ws, o, d, a),
@@ -1028,9 +1060,9 @@ _NAMES = {"bvh2": ("K2", "K3"), "tiered": ("K8", "K8"), "bvh8": ("K5", "K5"),
           "frustum": ("K6", "K6"), "misslink": ("K7", "K7")}
 
 
-def _closest(ws, origin, direction, active, t_init, kind):
+def _closest(ws, origin, direction, active, t_init, kind, frame=()):
     if origin.is_cuda:
-        return _closest_cuda(ws, origin, direction, active, t_init, kind)
+        return _closest_cuda(ws, origin, direction, active, t_init, kind, frame)
     if origin.device.type != "cpu":
         raise ValueError(f"no {_NAMES[kind][0]} for device {origin.device}")
     return _PLAIN_CLOSEST[kind](ws, origin, direction, active, t_init)
@@ -1060,10 +1092,13 @@ def closest_walk_frustum(ws: WorldArrays, origin, direction, active):
     return _closest(ws, origin, direction, active, None, "frustum")
 
 
-def closest_walk_misslink(ws: WorldArrays, origin, direction, active):
-    """Raw stackless miss-link closest-hit walk over ``records``: K7 on
-    CUDA tensors, the plain version on CPU tensors."""
-    return _closest(ws, origin, direction, active, None, "misslink")
+def closest_walk_misslink(ws: WorldArrays, origin, direction, active,
+                          width: int = 0, height: int = 0):
+    """Raw stackless miss-link closest-hit walk: K7 on CUDA tensors (the
+    live rays only, in the warp tiles of the width x height frame when the
+    wave is a whole one), the plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, None, "misslink",
+                    (width, height))
 
 
 def decode_hit(ws: WorldArrays, origin, direction, t, tri, cross, menc) -> Hit:
@@ -1114,18 +1149,21 @@ def closest_hit_frustum(ws: WorldArrays, origin, direction, active) -> Hit:
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
-def closest_hit_misslink(ws: WorldArrays, origin, direction, active) -> Hit:
+def closest_hit_misslink(ws: WorldArrays, origin, direction, active,
+                         width: int = 0, height: int = 0) -> Hit:
     """Closest hit per ray by the stackless miss-link walk (K7,
-    pallas_closest_hit): the same triangle and t as closest_hit_bvh2."""
-    t, tri, cross, menc = closest_walk_misslink(ws, origin, direction, active)
+    pallas_closest_hit): the same triangle and t as closest_hit_bvh2.
+    ``width`` x ``height``: the frame a whole-frame wave covers."""
+    t, tri, cross, menc = closest_walk_misslink(ws, origin, direction, active,
+                                                width, height)
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
 def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
-            kind):
+            kind, frame=()):
     if origin.is_cuda:
         vis = _shadow_cuda(ws, origin, direction, max_dist, active,
-                           min_visibility, t_eps, kind)
+                           min_visibility, t_eps, kind, frame)
     elif origin.device.type == "cpu":
         vis = _PLAIN_SHADOW[kind](ws, origin, direction, max_dist, active,
                                   min_visibility, t_eps)
@@ -1170,9 +1208,72 @@ def shadow_walk_frustum(ws: WorldArrays, origin, direction, max_dist, active,
 
 
 def shadow_walk_misslink(ws: WorldArrays, origin, direction, max_dist, active,
-                         min_visibility: float = 0.05, t_eps: float = 1e-3):
+                         min_visibility: float = 0.05, t_eps: float = 1e-3,
+                         width: int = 0, height: int = 0):
     """shadow_walk_bvh2 by the stackless miss-link walk (K7,
-    pallas_shadow_walk), with the blockers' transparencies read from
-    ``records``."""
+    pallas_shadow_walk), with the blockers' transparencies those of the
+    records (closest_walk_misslink's schedule)."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
-                   t_eps, "misslink")
+                   t_eps, "misslink", (width, height))
+
+
+# ---- K7's diagnostics: the parent's form, lane counts, budgets -------------
+
+
+def closest_walk_misslink_rows(ws: WorldArrays, origin, direction, active):
+    """The parent's K7 closest walk on CUDA tensors: one thread per wave
+    slot, in wave order, over ``records``. The anchor that the card checks
+    time closest_walk_misslink against and hold it to; no render path calls
+    it."""
+    return _closest_cuda(ws, origin, direction, active, None, "misslink_rows")
+
+
+def shadow_walk_misslink_rows(ws: WorldArrays, origin, direction, max_dist,
+                              active, min_visibility: float = 0.05,
+                              t_eps: float = 1e-3):
+    """The parent's K7 shadow walk on CUDA tensors (closest_walk_misslink_rows'
+    schedule). Returns vis (R,)."""
+    return _shadow_cuda(ws, origin, direction, max_dist, active,
+                        min_visibility, t_eps, "misslink_rows")
+
+
+def misslink_lane_counts(ws: WorldArrays, origin, direction, active,
+                         max_dist=None, min_visibility: float = 0.05,
+                         t_eps: float = 1e-3, width: int = 0, height: int = 0,
+                         rows: bool = False):
+    """A diagnostic of K7 on CUDA tensors (``rows``: the parent's form): its
+    counting instantiation walks the wave (closest rays, or shadow rays
+    when ``max_dist`` is given) and sums, over every step of every walk's
+    node loop, the lanes of the warp that take the step and 32. Returns
+    (the walk's outputs, active lane-steps, warp-steps x 32)."""
+    if not origin.is_cuda:
+        raise ValueError("the counting K7 runs on CUDA tensors only")
+    kind = "misslink_rows" if rows else "misslink"
+    frame = () if rows else (width, height)
+    sums = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize(origin.device)
+    ext.check(ext.lib().rz_misslink_lanes(sums, 1), "rz_misslink_lanes")
+    if max_dist is None:
+        out = _closest_cuda(ws, origin, direction, active, None, kind, frame,
+                            count=True)
+    else:
+        out = _shadow_cuda(ws, origin, direction, max_dist, active,
+                           min_visibility, t_eps, kind, frame, count=True)
+    torch.cuda.synchronize(origin.device)
+    ext.check(ext.lib().rz_misslink_lanes(sums, 1), "rz_misslink_lanes")
+    return out, int(sums[0]), int(sums[1])
+
+
+# K7's forms, by their rz_misslink_budget id
+MISSLINK_FORMS = ("closest", "shadow", "closest_rows", "shadow_rows")
+
+
+def misslink_budget(form: str) -> dict:
+    """The compiled budget of a K7 form (a name of MISSLINK_FORMS; "_rows":
+    the parent's): threads per block, registers per thread, local memory
+    per thread in bytes and resident warps per SM."""
+    out = (ctypes.c_int * 4)()
+    ext.check(ext.lib().rz_misslink_budget(MISSLINK_FORMS.index(form), out),
+              "rz_misslink_budget")
+    return dict(threads=out[0], regs=out[1], local_bytes=out[2],
+                warps_per_sm=out[3])

@@ -17,9 +17,11 @@ packages walk the same view under the same config; on the H100 the treelet
 view is walked by K8 (csrc/walk.cuh) inside the tiered K1.
 
 ``world_geometry`` also packs the miss-link ``records`` (:1014-1041), one
-row per unified node, which the portable walks (ops/traverse.py) and K7
-read. The BLAS disk cache is left out: the port keeps only the in-process
-memo, so packing reads and writes no files.
+row per unified node, which the portable walks (ops/traverse.py) and K7's
+plain version read, and beside them K7's device form of the same data
+(``misslink_tables``: a 32-byte row per node, a 48-byte row per triangle).
+The BLAS disk cache is left out: the port keeps only the in-process memo, so
+packing reads and writes no files.
 """
 
 from __future__ import annotations
@@ -892,7 +894,12 @@ class WorldArrays:
     miss (float-encoded, exact below 2^24) | K leaf triangles x (v0 e1 e2) |
     K transparencies | K sign-encoded materials | pad to a multiple of 8],
     one per unified node (TLAS and BLAS copies stitched, packing
-    ._build_unified); internal nodes have count -1 and zero triangles."""
+    ._build_unified); internal nodes have count -1 and zero triangles.
+    K7's device form of them (``misslink_tables``): ``ml_nodes`` row =
+    [bmin(3) bmax(3) | left_first, (count + 1) << 24 | (miss + 1)], the last
+    two int32 bit patterns stored in the float32 row; ``ml_tris`` row (per
+    world triangle) = [v0(3) transparency | e1(3) encoded material | e2(3)
+    0]. A leaf's triangles are rows left_first .. left_first + count - 1."""
 
     tri_v0: torch.Tensor  # (Tw, 3) f32 world space
     tri_e1: torch.Tensor  # (Tw, 3) f32
@@ -917,6 +924,8 @@ class WorldArrays:
     leaf8_table: Optional[torch.Tensor] = None  # (L8, W2) f32
     wide_depth: int = 0  # levels of the wide tree (0 = unknown)
     wide_stack: int = 0  # stack entries the wide walks can need (0 = unknown)
+    ml_nodes: Optional[torch.Tensor] = None  # (Nu, 8) f32, see above
+    ml_tris: Optional[torch.Tensor] = None  # (Tw, 12) f32, see above
 
     @property
     def num_lights(self) -> int:
@@ -964,6 +973,30 @@ def _det3_sign(m):
         + a[:, 0, 2] * (a[:, 1, 0] * a[:, 2, 1] - a[:, 1, 1] * a[:, 2, 0])
     )
     return det
+
+
+def misslink_tables(records, leaf_k: int, tri_v0, tri_e1, tri_e2, tri_mat,
+                    tri_nsign, materials):
+    """K7's device tables (WorldArrays.ml_nodes, .ml_tris), each row a whole
+    number of 16-byte loads: per unified node its record's box and its
+    left_first, count and miss as int32 bit patterns (count and miss packed
+    in one word); per world triangle v0, e1 and e2 with its transparency (the
+    instance's material override applied) and its sign-encoded material in
+    the w words: the values the records inline for the leaf's triangles
+    left_first + k (a leaf holds at most ``leaf_k``)."""
+    if records.shape[0] >= 1 << 24 or leaf_k >= 255:
+        raise ValueError("K7's node rows encode node ids < 2^24 and counts < 255")
+    meta = records[:, 6:9].to(torch.int64)  # float-encoded, exact below 2^24
+    left, count, miss = meta.unbind(1)
+    word = ((count + 1) << 24) | (miss + 1)
+    nodes = torch.cat([records[:, :6],
+                       torch.stack([left, word], 1).to(torch.int32)
+                       .view(torch.float32)], dim=1)
+    transp = materials[tri_mat.long(), 6]  # TRANSPARENCY column
+    menc = (tri_mat.float() + 1.0) * tri_nsign
+    tris = torch.cat([tri_v0, transp[:, None], tri_e1, menc[:, None], tri_e2,
+                      torch.zeros_like(transp)[:, None]], dim=1)
+    return nodes.contiguous(), tris.contiguous()
 
 
 def world_geometry(arrays: SceneArrays) -> WorldArrays:
@@ -1020,6 +1053,8 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         [node_bounds, arrays.uni_meta.float(), leaf_block, transp_block,
          mat_block], dim=1)
     records = torch.nn.functional.pad(records, (0, (-records.shape[1]) % 8))
+    ml_nodes, ml_tris = misslink_tables(records, leaf_k, v0, e1, e2, tri_mat,
+                                        tri_nsign, arrays.materials)
 
     # BVH2 inner table: both children's boxes + refs + counts; padding
     # children (node id -1) get an inverted box
@@ -1112,4 +1147,6 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
         wide_depth=int(arrays.wide_depth),
         wide_stack=int(arrays.wide_stack),
         records=records.contiguous(),
+        ml_nodes=ml_nodes,
+        ml_tris=ml_tris,
     )

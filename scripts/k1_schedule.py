@@ -21,6 +21,21 @@ then times each form's kernel alone and the demo and field dispatches
 (render_radiance_with_stats, refit included), every timed build in turns
 (a b c, c b a) x 3, one call each, with CUDA events.
 
+K4's phase 1 and K7 the same way, where --forms names them ("p1", "k7"):
+  - p1: the four phase-1 forms (plain, K9, K6, K6 + K9) on the demo at
+    1920x1080, one sample, split_bounce 2: colour, rays and the 13 state
+    rows against the first build's (bit for bit, and the pixels that
+    differ), the plain form's budget, each form's lane utilisation (where
+    the build has the counting phase 1), each form alone and the split
+    dispatch (demo 1080p/64 spp, split_bounce 2, octant rebin) timed;
+  - k7: the K7 waves of one sample of the 1080p/64 spp kernels="pallas-ml"
+    dispatch (5 closest, 2 shadow), recorded once at the wrappers; in each
+    build that has the live-ray K7 (rz_misslink_budget) the kernel and the
+    parent's one-thread-per-slot K7 over the records walk every wave (bit
+    for bit against each other and the first such build), with both
+    forms' budgets and lane utilisation, and both are timed (20 launches a
+    call).
+
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
     python scripts/k1_schedule.py [--tree NAME=DIR[:DEFINE,...]]...
@@ -73,7 +88,9 @@ def _lib_path(name: str, csrc: str) -> str:
 
 def build_all(specs) -> dict:
     """Build every spec, one process each, all at once; returns name -> the
-    nvcc log (ptxas report)."""
+    nvcc log (ptxas report) of each build that succeeded. A build that
+    fails is reported and left out, unless it is the first (the
+    reference)."""
     procs = {}
     for name, csrc, defines in specs:
         out = _lib_path(name, csrc)
@@ -82,10 +99,17 @@ def build_all(specs) -> dict:
              *defines], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
     logs = {}
-    for name, proc in procs.items():
-        logs[name] = proc.communicate()[0]
+    for k, (name, proc) in enumerate(procs.items()):
+        log_ = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"build {name} failed:\n{logs[name][-4000:]}")
+            errors = [ln for ln in log_.splitlines()
+                      if "error" in ln.lower() and "ptxas info" not in ln]
+            msg = f"build {name} failed:\n" + "\n".join(errors[:40])
+            if k == 0:
+                raise RuntimeError(msg + f"\n{log_[-2000:]}")
+            print(msg, flush=True)
+            continue
+        logs[name] = log_
     return logs
 
 
@@ -108,7 +132,7 @@ def main() -> int:
     from rayzen_tpu_torch.config import RenderConfig
     from rayzen_tpu_torch.demo import build_demo_scene
     from rayzen_tpu_torch.integrator import render_radiance_with_stats
-    from rayzen_tpu_torch.ops import megakernel
+    from rayzen_tpu_torch.ops import megakernel, walk
     from rayzen_tpu_torch.ops.camera_rays import pixel_grid
     from rayzen_tpu_torch.packing import pack_scene, world_geometry
 
@@ -148,6 +172,8 @@ def main() -> int:
     kind, smi = torch.cuda.get_device_name(0), nvidia_smi_line()
     say(f"[device] {kind} | {smi}")
     logs = build_all(trees + counts)
+    trees = [t for t in trees if t[0] in logs]
+    counts = [t for t in counts if t[0] in logs]
     say(f"[build] {len(logs)} builds")
     libs = {}
     for name, csrc, _defs in trees + counts:
@@ -194,10 +220,66 @@ def main() -> int:
                               "k1_field_whole"),
     }
 
+    # K4's phase 1: form name -> its config (demo 1080p, one sample)
+    xcfg = mcfg.replace(split_bounce=2, split_rebin="octant")
+    p1_forms = {"p1_plain": xcfg, "p1_k9": xcfg.replace(**k9),
+                "p1_k6": xcfg.replace(**k6), "p1_k6_k9": xcfg.replace(**k6, **k9)}
     if prefixes:
         keep = {f for f in forms if f.startswith(prefixes)}
         keep |= {forms[f][4] for f in keep if forms[f][4]}
         forms = {f: v for f, v in forms.items() if f in keep}
+        p1_forms = {f: v for f, v in p1_forms.items() if f.startswith(prefixes)}
+    k7_on = not prefixes or any("k7".startswith(p) for p in prefixes)
+
+    def p1(cfg):
+        return lambda: megakernel.sample_wave_phase1(mws, cfg, uv, act, mcam, 0, 0, 5)
+
+    # the K7 waves of one pallas-ml sample, recorded at the wrappers with this
+    # tree's kernels (the first build that has the live-ray K7)
+    waves = []
+    new_k7 = [n for n, *_ in trees + counts if hasattr(libs[n], "rz_misslink_budget")]
+    if k7_on and new_k7:
+        ext._lib = libs[new_k7[0]]
+        real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
+
+        def rec_c(ws_, o, d, a, width=0, height=0):
+            waves.append(("closest", (o.clone(), d.clone(), a.clone()), (width, height)))
+            return real_c(ws_, o, d, a, width, height)
+
+        def rec_s(ws_, o, d, md, a, min_visibility=0.05, t_eps=1e-3, width=0,
+                  height=0):
+            waves.append(("shadow", (o.clone(), d.clone(), md.contiguous().clone(),
+                                     a.clone(), min_visibility, t_eps),
+                          (width, height)))
+            return real_s(ws_, o, d, md, a, min_visibility, t_eps, width, height)
+
+        walk.closest_hit_misslink, walk.shadow_walk_misslink = rec_c, rec_s
+        try:
+            render_radiance_with_stats(marrays, mcam,
+                                       mcfg.replace(kernels="pallas-ml", spp=1))
+        finally:
+            walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
+        ext._lib = None
+        names = [f"k7_closest{b}" for b in range(5)]
+        names[1:1] = ["k7_shadow0", "k7_shadow1"]
+        waves = [(nm, *w) for nm, w in zip(names, waves)]
+        say(f"[k7] recorded {len(waves)} waves: " + ", ".join(
+            f"{nm} {int(args[-1 if kind == 'closest' else 3].sum())} live"
+            for nm, kind, args, _f in waves))
+
+    def k7(kind, args, frame, rows=False, reps=1):
+        """One K7 form's walk of a wave (``reps`` launches; the last's
+        result)."""
+        def run():
+            for _ in range(reps):
+                if kind == "closest":
+                    out = (walk.closest_walk_misslink_rows(mws, *args) if rows else
+                           walk.closest_walk_misslink(mws, *args, *frame))
+                else:
+                    out = ((walk.shadow_walk_misslink_rows(mws, *args),) if rows else
+                           walk.shadow_walk_misslink(mws, *args, *frame)[:1])
+            return out
+        return run
 
     def k1(ws, cfg, cam, spp, _k1=None):
         return lambda: megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
@@ -221,7 +303,9 @@ def main() -> int:
                                   defines=list(defines),
                                   timed=any(t[0] == name for t in trees))
         rep["ptxas"] = {k: v for k, v in ext.ptxas_summary(logs[name]).items()
-                        if k.startswith("regen_kernel")}
+                        if k.startswith(("regen_", "misslink_kernel",
+                                         "sample_kernel<Bvh2Walk,tiles",
+                                         "sample_kernel<Bvh2Walk>"))}
         if hasattr(libs[name], "rz_sample_budget"):
             # an older build knows policies 0-2 (the regenerating forms)
             n_pol = (len(megakernel.BUDGET_POLICIES)
@@ -244,6 +328,36 @@ def main() -> int:
                 own[fname] = dict(equal=eq, max_abs=mx, pixels_differ=npx,
                                   rays=int(r), k1_rays=frames[k1_of][1])
         del frames
+        for fname, pcfg in p1_forms.items():
+            c, r, st = p1(pcfg)()
+            if fname not in ref:
+                ref[fname] = (c, int(r), st)
+            eq, mx, npx = differ(c, ref[fname][0])
+            bit[fname] = dict(equal=eq and torch.equal(st, ref[fname][2]), max_abs=mx,
+                              pixels_differ=int(((c != ref[fname][0]).any(-1)
+                                                 | (st != ref[fname][2]).any(0)).sum()),
+                              rays=int(r), ref_rays=ref[fname][1])
+        p1_count = hasattr(libs[name], "rz_sample_wave_phase1_count")
+        if p1_forms and p1_count:
+            rep["budget_phase1"] = megakernel.sample_budget("phase1")
+        if name in new_k7:
+            rep["budget_k7"] = {f: walk.misslink_budget(f) for f in walk.MISSLINK_FORMS}
+            for wname, kind, args, frame in waves:
+                kn, kr = k7(kind, args, frame)(), k7(kind, args, frame, rows=True)()
+                if wname not in ref:
+                    ref[wname] = kn
+                same = all(torch.equal(a, b) and torch.equal(a, c)
+                           for a, b, c in zip(kn, kr, ref[wname]))
+                lanes_ = {}
+                for form, rows_ in (("kernel", False), ("parent", True)):
+                    cargs = dict(max_dist=args[2], min_visibility=args[4],
+                                 t_eps=args[5]) if kind == "shadow" else {}
+                    o, d, a = (args[0], args[1], args[3] if kind == "shadow" else args[2])
+                    _out, la, ls = walk.misslink_lane_counts(
+                        mws, o, d, a, width=frame[0], height=frame[1], rows=rows_,
+                        **cargs)
+                    lanes_[form] = la / ls if ls else None
+                bit[wname] = dict(equal=same, lanes=lanes_)
         lanes = rep["lanes"] = {}
         for fname, (ws, cfg, cam, spp, _k1) in forms.items():
             if fname == "k1_demo_threefry" or not hasattr(libs[name],
@@ -253,6 +367,11 @@ def main() -> int:
                                                       5, spp)
             lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
                                 frame_equal=bool(torch.equal(c, k1(ws, cfg, cam, spp)()[0])))
+        for fname, pcfg in p1_forms.items() if p1_count else ():
+            c, r, a, sl = megakernel.walk_lane_counts(mws, pcfg, uv, act, mcam, 0, 0,
+                                                      5, phase1=True)
+            lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
+                                frame_equal=bool(torch.equal(c, p1(pcfg)()[0])))
         say(f"[build {name}] " + json.dumps({k: rep[k] for k in rep if k != "tree"}))
     del ref
 
@@ -263,16 +382,30 @@ def main() -> int:
             "dispatch_demo_ms": lambda: render_radiance_with_stats(marrays, mcam, mcfg),
             "dispatch_field_ms": lambda: render_radiance_with_stats(farrays, fcam, fcfg),
         })
+    quantities.update({f"{f}_ms": p1(c) for f, c in p1_forms.items()})
+    if p1_forms:
+        quantities["dispatch_split_ms"] = lambda: render_radiance_with_stats(
+            marrays, mcam, xcfg)
+    # K7: 20 launches a call, so the time is per launch / 20
+    reps = 20
+    for wname, kind, args, frame in waves:
+        quantities[f"{wname}_ms"] = k7(kind, args, frame, reps=reps)
+        quantities[f"{wname}_rows_ms"] = k7(kind, args, frame, rows=True, reps=reps)
+        # the kernel without the warp tiles: the wave's slots in order
+        quantities[f"{wname}_linear_ms"] = k7(kind, args, (0, 0), reps=reps)
+    per_call = {q: (reps if q.startswith("k7_") else 1) for q in quantities}
     times = {}
     for q, fn in quantities.items():
-        got = {n: [] for n in timed_names}
-        for n in timed_names:  # warm-up
+        names_q = [n for n in timed_names
+                   if not q.startswith("k7_") or n in new_k7]
+        got = {n: [] for n in names_q}
+        for n in names_q:  # warm-up
             ext._lib = libs[n]
             fn()
-        for order in (timed_names, timed_names[::-1]) * 3:
+        for order in (names_q, names_q[::-1]) * 3:
             for n in order:
                 ext._lib = libs[n]
-                got[n].append(timed(fn, torch)[1])
+                got[n].append(timed(fn, torch)[1] / per_call[q])
         times[q] = {n: dict(median=statistics.median(v), all=v) for n, v in got.items()}
         say(f"[turns {q}] " + "; ".join(
             f"{n} {statistics.median(v):.3f}" for n, v in got.items()))

@@ -2,8 +2,10 @@
 frustum K1, K1 with sample fusion, K4's phase 1 and continuation, and the
 K9 instantiations) against their plain PyTorch versions on the card, the
 regenerating K1 also bit for bit against the lockstep loop (K4's phase 1
-once per sample) and its (warp-tiled lockstep) K9 form, and the per-wave
-path's staged variants against their plain runs. Marked ``cuda``: they skip
+once per sample) and its (warp-tiled lockstep) K9 form, K7 and K4's phase
+1 bit for bit against their parents' schedules (the one-thread-per-slot K7
+over the records, the scanline phase 1 of a -DRZ_PHASE1_SCANLINE build),
+and the per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip
 where torch sees no CUDA device, and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -12,7 +14,9 @@ where torch sees no CUDA device, and run on the GPU machine with
 and that machine need not have; the kernels are built from
 rayzen_tpu_torch/csrc at first use)."""
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -360,6 +364,127 @@ def test_k7_matches_plain_and_k2(setup):
     assert (kv[~hit.found] == 1).all()
 
 
+# K7's waves: the share of slots that are live (None: a wave of no slots)
+# and whether the wave is a whole W x H frame, whose rays the kernel takes in
+# warp tiles; 6.6% is the demo's share of paths alive after bounce 1.
+K7_WAVES = [(0.0, True), (0.066, True), (0.5, True), (1.0, True),
+            (0.5, False), (None, True)]
+
+
+@pytest.mark.parametrize("wave", K7_WAVES, ids=["dead", "live6.6", "live50",
+                                                 "live100", "live50_linear",
+                                                 "empty"])
+def test_k7_live_rays_match_parent_and_plain(setup, wave):
+    """K7 walks only the live rays of its wave (compacted in each block, in
+    warp tiles on a whole frame) and gives every slot the result of the
+    parent's one-thread-per-slot K7 over the records and of the plain
+    version, bit for bit: closest (t, tri, cross, menc; dead slots T_FAR, -1,
+    0, 0) and shadow (vis; dead slots 1); its counting form walks to the
+    same results and counts at most 32 active lanes per warp step."""
+    share, tiled = wave
+    ws, o, d = setup["ws"], setup["o"], setup["d"]
+    n = 0 if share is None else o.shape[0]
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    act = torch.from_numpy(np.random.RandomState(11).uniform(size=n) < (share or 0))
+    act = act.to(o.device)
+    frame = (W, H) if tiled else (0, 0)
+    before = dict(ext.LAUNCHES)
+    k = walk.closest_walk_misslink(ws, o, d, act, *frame)
+    assert ext.LAUNCHES["closest_hit_misslink"] == before["closest_hit_misslink"] + (n > 0)
+    rows = walk.closest_walk_misslink_rows(ws, o, d, act)
+    p = walk.misslink_closest_walk_reference(ws, o, d, act)
+    for a, b, c in zip(k, rows, p):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (k[1][~act] == -1).all() and (k[3][~act] == 0).all()
+    counted, lanes, slots = walk.misslink_lane_counts(ws, o, d, act, width=frame[0],
+                                                      height=frame[1])
+    assert all(torch.equal(a, b) for a, b in zip(counted, k))
+    assert 0 <= lanes <= slots and slots % 32 == 0 and (lanes > 0) == bool(act.any())
+    hit = walk.decode_hit(ws, o, d, *k)
+    ldir = torch.tensor([0.3, 0.9, 0.1], device=o.device)
+    ldir = (ldir / ldir.norm()).expand_as(o).contiguous()
+    so = hit.point + ldir * 1e-3
+    kv, kr = walk.shadow_walk_misslink(ws, so, ldir, 50.0, hit.found, width=frame[0],
+                                       height=frame[1])
+    rv = walk.shadow_walk_misslink_rows(ws, so, ldir, 50.0, hit.found)
+    pv = walk.misslink_shadow_walk_reference(ws, so, ldir, 50.0, hit.found)
+    assert torch.equal(kv, rv) and torch.equal(kv, pv)
+    assert int(kr) == int(hit.found.sum()) and (kv[~hit.found] == 1).all()
+    cv, lanes, slots = walk.misslink_lane_counts(ws, so, ldir, hit.found, max_dist=50.0,
+                                                 width=frame[0], height=frame[1])
+    assert torch.equal(cv, kv) and 0 <= lanes <= slots
+
+
+def test_k7_budget():
+    """Every K7 form compiles; the kernel holds its register budget
+    (__launch_bounds__: at least 32 resident warps per SM)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    for form in walk.MISSLINK_FORMS:
+        b = walk.misslink_budget(form)
+        assert b["threads"] > 0 and 0 < b["regs"] <= 255 and b["warps_per_sm"] > 0
+    for form in ("closest", "shadow"):
+        assert walk.misslink_budget(form)["warps_per_sm"] >= 32
+
+
+@pytest.fixture(scope="module")
+def scanline(setup):
+    """This tree's kernels built with -DRZ_PHASE1_SCANLINE: K4's phase 1 on
+    the earlier schedule (scanline pixels in blocks of 128, no register
+    budget), the anchor of the phase-1 checks."""
+    out = os.path.join(ext.BUILD_DIR, "phase1-scanline", "librayzen_kernels.so")
+    return ext.bind(ext.build(out=out, defines=("RZ_PHASE1_SCANLINE",)))
+
+
+@contextlib.contextmanager
+def _using(lib):
+    saved = ext.lib()
+    ext._lib = lib
+    try:
+        yield
+    finally:
+        ext._lib = saved
+
+
+PHASE1_FORMS = [{}, dict(octant_bounce_walks=True), dict(frustum_primary=True),
+                dict(frustum_primary=True, octant_bounce_walks=True)]
+
+
+@pytest.mark.parametrize("wave", [(48, 32, False), (37, 23, True)],
+                         ids=["48x32", "ragged_holes"])
+@pytest.mark.parametrize("knobs", PHASE1_FORMS,
+                         ids=["plain", "octant", "frustum", "frustum_octant"])
+def test_phase1_matches_parent_and_plain(setup, scanline, knobs, wave):
+    """K4's phase 1 on K1's warp tiles: its 13 state rows equal the plain
+    version's exactly and its colour within the split tests' bar (rays
+    equal); the plain and K9 forms' colour, rays and state rows equal the
+    parent's scanline phase 1 bit for bit (the K6 forms' packets are now the
+    warp tiles, so the parent's walk other packets); the counting form
+    writes the same colour, rays and rows."""
+    w, h, holes = wave
+    cfg = setup["cfg"].replace(width=w, height=h, rng="reference", split_bounce=2,
+                               **knobs)
+    _, uv = pixel_grid(w, h, setup["dev"])
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=uv.device)
+    if holes:
+        act = torch.arange(uv.shape[0], device=uv.device) % 11 != 4
+    args = (setup["ws"], cfg, uv, act, setup["cam"], 3, 0, 5)
+    kc, kr, ks = megakernel.sample_wave_phase1(*args)
+    pc, pr, ps = megakernel.sample_wave_phase1_reference(*args)
+    assert torch.equal(ks, ps) and int(kr) == int(pr)
+    assert ((kc - pc).abs() / pc.abs().clamp_min(1.0)).max().item() <= 1e-6
+    with _using(scanline):
+        oc, orr, os_ = megakernel.sample_wave_phase1(*args)
+    if not knobs.get("frustum_primary"):
+        assert torch.equal(kc, oc) and int(kr) == int(orr) and torch.equal(ks, os_)
+    cc, cr, lanes, slots = megakernel.walk_lane_counts(*args, phase1=True)
+    assert torch.equal(cc, kc) and int(cr) == int(kr) and 0 < lanes <= slots
+    if not knobs:
+        b = megakernel.sample_budget("phase1")
+        assert b["threads"] == megakernel.K1_THREADS
+        assert 0 < b["regs"] <= 64 and b["warps_per_sm"] == 32
+
+
 @pytest.mark.parametrize("kernels", ["pallas-ml", "pallas-bvh2", "pallas-nomega"])
 def test_staged_variants_launch_their_kernels(setup, kernels):
     """Each staged variant on CUDA tensors launches its walks (and no K1)
@@ -403,7 +528,7 @@ def test_fused_k1_matches_plain(setup):
 # frame is held to the plain version (relative 1e-6 of max(1, |plain|), the
 # split tests' bar; rays equal), to a second launch bit for bit, to the same
 # view's K9 form bit for bit (the warp-tiled lockstep loop), and, without
-# fusion, to the scanline lockstep loop bit for bit (_lockstep_k1).
+# fusion, to the lockstep loop of K4's phase 1 bit for bit (_lockstep_k1).
 REGEN_CASES = [
     dict(size=(37, 23), spp=1, fuse=1, rng="threefry", holes=False, part=False),
     dict(size=(37, 23), spp=3, fuse=3, rng="reference", holes=True, part=False),
@@ -439,11 +564,12 @@ def _regen_inputs(setup, view, case):
 
 
 def _lockstep_k1(ws, cfg, uv, act, cam, rng_key, spp):
-    """The lockstep loop's K1 frame without fusion: K4's phase-1 form (the
-    lockstep sample_kernel over the whole tree) launched once per sample
-    with b_stop = max_bounces, the samples summed in order, which is the
-    lockstep K1's sum at sample_fuse 1 (held once on the card against the
-    scanline lockstep K9 form that the warp-tiled lockstep K9 form replaced)."""
+    """The lockstep loop's K1 frame without fusion: K4's phase-1 form of a
+    -DRZ_PHASE1_SCANLINE build (the scanline lockstep sample_kernel over the
+    whole tree; run it under _using(scanline)) launched once per sample with
+    b_stop = max_bounces, the samples summed in order, which is the lockstep
+    K1's sum at sample_fuse 1 (held once on the card against the scanline
+    lockstep K9 form that the warp-tiled lockstep K9 form replaced)."""
     whole = dataclasses.replace(ws, tiered=False)
     cfg = cfg.replace(wide_nodes=False, octant_bounce_walks=False,
                       frustum_primary=False)
@@ -460,7 +586,7 @@ def _lockstep_k1(ws, cfg, uv, act, cam, rng_key, spp):
                          ids=["ragged", "holes_fuse3", "spp8_fuse2", "full_tiles",
                               "part_wave", "holes"])
 @pytest.mark.parametrize("view", ["bvh2", "tiered", "wide"])
-def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
+def test_regen_k1_matches_plain_and_lockstep(setup, scanline, view, case):
     ws, cfg, uv, act = _regen_inputs(setup, view, case)
     cam, spp = setup["cam"], case["spp"]
     name = "sample_wave" + {"bvh2": "", "tiered": "_tiered", "wide": "_wide"}[view]
@@ -477,7 +603,8 @@ def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
                                      act, cam, 0, 3, 5, spp)
     assert torch.equal(kc, oc) and int(kr) == int(orr)
     if case["fuse"] == 1:
-        lc, lr = _lockstep_k1(ws, cfg, uv, act, cam, 3, spp)
+        with _using(scanline):
+            lc, lr = _lockstep_k1(ws, cfg, uv, act, cam, 3, spp)
         assert torch.equal(kc, lc) and int(kr) == lr
 
 

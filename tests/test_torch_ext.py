@@ -2,13 +2,15 @@
 instantiation. An anonymous namespace's mangling names the source file, so
 every kernel of sample_kernel.cu holds "sample_kernel"; the regenerating K1
 must still be told from the lockstep one, the counting K1 forms from both,
-and the K9 and K6 forms (the lockstep loop with warp tiles) from phase
-1's."""
+the K9 and K6 forms (the lockstep loop with warp tiles) from phase 1's,
+and K7's kernel from the parent's K7."""
 
 from rayzen_tpu_torch import ext
 
 _PFX = "_ZN49_GLOBAL__N__9c999aa8_16_sample_kernel_cu_1bedf115"
 _TAIL = "EEEvT_PKfS6_S6_S6_PKhiNS1_12SampleParamsEPfPi"
+_WANON = "_GLOBAL__N__1347192c_15_walk_kernels_cu_1ce61403"
+_WPFX = f"_ZN48{_WANON}"
 LOG = "\n".join([
     f"ptxas info    : Compiling entry function '{_PFX}12regen_kernelIN2rz8Bvh2Walk"
     f"ENS_9LaneCount{_TAIL}' for 'sm_90a'",
@@ -48,6 +50,22 @@ LOG = "\n".join([
     "ptxas info    : Function properties for x",
     "    640 bytes stack frame, 520 bytes spill stores, 520 bytes spill loads",
     "ptxas info    : Used 64 registers, used 0 barriers, 640 bytes cumulative stack size",
+    # K7 (template <int kMode, class Count>: 0 closest, 1 shadow), the
+    # parent's K7 over the records, and K4's regenerating phase 1
+    *(line for mangled, regs in (
+        (f"{_WPFX}15misslink_kernelILi1EN2rz48{_WANON}9LaneCountEEEvNS1_14"
+         "MisslinkTablesENS_6K7RaysEiiiff", 58),
+        (f"{_WPFX}15misslink_kernelILi0EN2rz7NoCountEEEvNS1_14MisslinkTablesENS_6"
+         "K7RaysEiiiff", 57),
+        (f"{_WPFX}13shadow_kernelIN2rz16MisslinkRowsWalkINS1_48{_WANON}9"
+         "LaneCountEEEEEvT_PKfS8_S8_PKhiffPf", 56),
+        (f"{_PFX}19regen_phase1_kernelIN2rz8Bvh2WalkENS1_7NoCount{_TAIL}S5_", 55))
+      for line in (
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"ptxas info    : Used {regs} registers, used 0 barriers, 0 bytes "
+        "cumulative stack size")),
 ])
 
 
@@ -67,4 +85,8 @@ def test_ptxas_summary_tells_the_k1_schedules_apart():
         "regen_kernel<Bvh8Walk,count>": {"stack": 512, "spill": 400, "regs": 59},
         "sample_kernel<Bvh2Walk,octant,frustum,tiles,count>": {
             "stack": 640, "spill": 520, "regs": 64},
+        "misslink_kernel<shadow,count>": {"stack": 0, "spill": 0, "regs": 58},
+        "misslink_kernel<closest>": {"stack": 0, "spill": 0, "regs": 57},
+        "shadow_kernel<MisslinkRowsWalk,count>": {"stack": 0, "spill": 0, "regs": 56},
+        "regen_phase1_kernel<Bvh2Walk>": {"stack": 0, "spill": 0, "regs": 55},
     }

@@ -155,12 +155,15 @@ def test_convert_round_trip(tmp_path):
     wa = convert.world_arrays_from_numpy(wd, "cpu")
     back = convert.to_numpy(wa)
     # the treelet tables come across without JAX's 128-lane padding, and the
-    # tiered and wide walks' depth bounds, which JAX does not keep, are computed
+    # tiered and wide walks' depth bounds and K7's device tables, which JAX
+    # does not keep, are computed (tests/test_torch_misslink_layout.py holds
+    # K7's tables to the records)
     w2 = wd["leaf_table"].shape[1]
     expect = {**wd, "tre_inner": wd["tre_inner"][..., :16],
               "tre_leaf": wd["tre_leaf"][..., :w2], "top_depth": wa.top_depth,
               "treelet_depth": wa.treelet_depth, "wide_depth": wa.wide_depth,
-              "wide_stack": wa.wide_stack}
+              "wide_stack": wa.wide_stack, "ml_nodes": wa.ml_nodes.numpy(),
+              "ml_tris": wa.ml_tris.numpy()}
     assert not wa.tiered and wa.top_depth == 1
     assert (wa.wide_depth, wa.wide_stack) == (sa.wide_depth, sa.wide_stack)
     for f in dataclasses.fields(tpack.WorldArrays):

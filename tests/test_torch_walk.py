@@ -161,7 +161,7 @@ def test_work_counts_the_steps_and_changes_no_hit(setup):
     idle = walk.Work()
     walk.shadow_walk_reference(tws, _t(o), _t(d), 50.0, ~act, work=idle)
     assert idle.counts() == {"nodes": 0, "nodes8": 0, "packet_nodes": 0,
-                             "ml_nodes": 0, "tris": 0}
+                             "ml_nodes": 0, "ml_chain": 0, "tris": 0}
 
 
 def test_100_rays_padding(setup):
