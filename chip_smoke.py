@@ -7,10 +7,11 @@ view by the tiered K1), the split-bounce wavefront (K4) and the
 octant-masked bounce walks (K9) on the demo frame, the wide-node walks (K5,
 wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and the per-wave path
 (the portable torch walks and the staged kernels= variants, with the
-miss-link walks K7 for "pallas-ml"), and time them.
+miss-link walks K7 for "pallas-ml" and the live-ray K2/K3 for
+"pallas-bvh2"), and time them.
 
 Run from the root of a checkout:
-    python3 chip_smoke.py [--out-dir DIR] [--parent]
+    python3 chip_smoke.py [--out-dir DIR]
 It needs a CUDA device and nvcc (the kernels are built from csrc/ at first
 use); it exits non-zero, printing no result, without them. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels with
@@ -21,16 +22,12 @@ the plain walks on the same inputs; library_ms null: no PyTorch call
 computes a BVH walk).
 With --out-dir, the compiler's full register report and torch.profiler
 traces of one main-path and one field-path dispatch are written there.
-With --parent, K7 and K4's phase 1 are also held bit for bit to their
-earlier forms and timed in turns with them: K7's one-thread-per-slot walk
-over the records (walk.*_misslink_rows) and phase 1 on the scanline
-lockstep schedule (a second build of csrc/ with -DRZ_PHASE1_SCANLINE).
+A timing against an earlier tree's kernels goes through
+scripts/k1_schedule.py --tree.
 
 Phases (each prints its own lines and stops the run when it fails):
   1 device        card name and power limit
-  2 build         nvcc build of csrc/ with its wall time (with --parent, and
-                  beside it the same sources with -DRZ_PHASE1_SCANLINE: K4's
-                  phase 1 on the earlier scanline schedule)
+  2 build         nvcc build of csrc/ with its wall time
   3 walks         K2/K3 vs plain on the demo scene's 256x192 primary rays and
                   shadow rays toward both lights
   4 sample        K1 vs plain at 256x192, spp 1, 5 bounces, both RNG flows
@@ -59,21 +56,25 @@ Phases (each prints its own lines and stops the run when it fails):
                   on the same scene (tiered="off")
  13 split         K4 (phase 1 + compaction + continuation) vs its plain
                   version at 256x192, spp 1, split_bounce 2, in the rank,
-                  octant and octcell modes and with split_every
+                  octant and octcell modes and with split_every; the
+                  continuation alone vs plain at 256x192 (split_bounce 1
+                  and 2), with its budget
  14 split path    the 1080p/64 spp frame with split_bounce=2,
                   split_rebin="octant": vs K1's frame, launch counts (64
                   phase-1 and 64 continuation launches), timed dispatches in
-                  turns with K1, one profiled dispatch; phase 1, compaction and
-                  continuation alone at 1080p vs plain; phase 1 timed alone
-                  with its lane utilisation and budget (with --parent: vs
-                  the scanline phase 1, colour, rays, state rows bit for
-                  bit, both timed in turns); split_bounce=3 and split_every
+                  turns with K1, one profiled dispatch (the torch gathers
+                  and scans summed); phase 1, compaction and continuation
+                  alone at 1080p vs plain (split_bounce 2 and 1), the
+                  compaction and continuation run under CUDA's sync debug
+                  mode (no count comes back to the host); phase 1 and the
+                  continuation timed alone (medians of 6) with their lane
+                  utilisation and budgets; split_bounce=3 and split_every
                   at 4 spp vs K1
  15 K9            the 1080p/64 spp frame with octant_bounce_walks: vs K1's
                   frame, launch counts, timed in turns with K1; K9 vs plain at
                   256x192 (both RNG flows) and 1080p/1 spp; K9's phase 1 and
                   continuation (split + octant walks) alone vs plain at 256x192
-                  and 1080p (its phase 1 timed as in 14), and
+                  and 1080p (timed as in 14), and
                   its tiered instantiation (field 320x180) vs
                   plain; the K9 forms' budget and the walk-loop lane
                   utilisation of K9 (1080p/64 spp) and the tiered K9 (field
@@ -91,9 +92,7 @@ Phases (each prints its own lines and stops the run when it fails):
  17 K6            frustum_primary: the same set for K6 and the frustum K1,
                   plus the frustum phase 1 and frustum + octant phase 1
                   (split_bounce 2) vs plain at 256x192 and 1080p (timed as
-                  in 14; with --parent bit for bit the scanline form's,
-                  though its packets are now the warp tiles), and the
-                  frustum + octant K1 once
+                  in 14), and the frustum + octant K1 once
  18 per-wave      K7 closest/shadow vs plain at 256x192 (bit for bit) and
                   the incoherent rays, vs plain at the
                   1080p primary and point-light rays, vs K2/K3 at the 1080p
@@ -101,9 +100,9 @@ Phases (each prints its own lines and stops the run when it fails):
                   counted), timed in turns with them; the
                   7 K7 waves of one 1080p pallas-ml sample (5 closest, 2
                   shadow, recorded at the wrappers): the kernel and the plain
-                  version bit for bit, the kernel timed alone, its lane
-                  utilisation, each wave's bound (with --parent, the same
-                  for the one-thread-per-slot K7, timed in turns); K1
+                  version bit for bit, the kernel timed alone (medians of
+                  6), its lane utilisation, each wave's bound; the same for
+                  the 7 K2/K3 waves of one 1080p pallas-bvh2 sample; K1
                   with sample_fuse=2 vs plain (256x192, 4 spp); the golden
                   gates for kernels="xla" and "pallas-ml"; "pallas-ml",
                   "pallas-bvh2", "pallas-nomega" and "xla" vs K1's frame at
@@ -111,8 +110,7 @@ Phases (each prints its own lines and stops the run when it fails):
                   (3 timed dispatches after a warm-up, launch counts: K7
                   only, vs K1's frame, one more dispatch with K7's own time
                   summed from CUDA events around each of its launches, one
-                  profiled 4-spp dispatch; with --parent the same frame
-                  through the one-thread-per-slot K7 bit for bit); "pallas-bvh2"
+                  profiled 4-spp dispatch); "pallas-bvh2"
                   and "pallas-nomega" at 1080p/4 spp and "xla" at 1080p/1
                   spp once each, timed, with launch counts
 """
@@ -127,6 +125,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_R05_RAYS = 351_031_968  # BENCH_r05: rays per 1080p/64 spp dispatch (f32-summed)
@@ -348,7 +347,6 @@ def main() -> int:
     if "--out-dir" in sys.argv[1:]:
         out_dir = sys.argv[sys.argv.index("--out-dir") + 1]
         os.makedirs(out_dir, exist_ok=True)
-    parent = "--parent" in sys.argv[1:]
 
     # ---- 1 device ----
     kind = torch.cuda.get_device_name(0)
@@ -357,38 +355,16 @@ def main() -> int:
     print(smi, flush=True)
 
     # ---- 2 build ----
-    # the kernels, and with --parent beside them (one more build, started
-    # first, run at the same time) the anchor of the phase-1 checks: this
-    # tree's sources with -DRZ_PHASE1_SCANLINE, K4's phase 1 on its earlier
-    # scanline schedule
     t0 = time.perf_counter()
-    anchor = anchor_build = None
-    if parent:
-        anchor_path = os.path.join(ext.BUILD_DIR, "phase1-scanline",
-                                   "librayzen_kernels.so")
-        anchor_build = subprocess.Popen(
-            [sys.executable, "-c", "import sys; from rayzen_tpu_torch import ext; "
-             "ext.build(force=True, out=sys.argv[1], defines=('RZ_PHASE1_SCANLINE',))",
-             anchor_path], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    try:
-        ext.build(force=True)
-        ext.lib()
-    finally:
-        if anchor_build is not None:
-            anchor_log = anchor_build.communicate()[0]
-    if anchor_build is not None:
-        require(anchor_build.returncode == 0,
-                f"the phase-1 anchor build failed: {anchor_log[-2000:]}")
-        anchor = ext.bind(anchor_path)
+    ext.build(force=True)
+    ext.lib()
     build_s = time.perf_counter() - t0
     if out_dir:
         with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
             f.write(ext.build_log)
     ptxas = ext.ptxas_summary(ext.build_log)
     say(f"[2 build] nvcc sm_90a build {build_s:.1f} s (one nvcc per source, in "
-        "parallel" + (", and the phase-1 anchor build beside it" if parent else "")
-        + "); ptxas: " + " | ".join(
+        "parallel); ptxas: " + " | ".join(
             f"{k} {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill')} B spill" for k, v in sorted(ptxas.items())))
 
@@ -400,11 +376,11 @@ def main() -> int:
     form_label = {
         "bvh2": "regen_kernel<Bvh2Walk>", "tiered": "regen_kernel<TieredWalk>",
         "wide": "regen_kernel<Bvh8Walk>",
-        "octant": "sample_kernel<Bvh2Walk,octant,tiles>",
-        "tiered_octant": "sample_kernel<TieredWalk,octant,tiles>",
-        "wide_octant": "sample_kernel<Bvh8Walk,octant,tiles>",
-        "frustum": "sample_kernel<Bvh2Walk,frustum,tiles>",
-        "frustum_octant": "sample_kernel<Bvh2Walk,octant,frustum,tiles>"}
+        "octant": "sample_kernel<Bvh2Walk,octant>",
+        "tiered_octant": "sample_kernel<TieredWalk,octant>",
+        "wide_octant": "sample_kernel<Bvh8Walk,octant>",
+        "frustum": "sample_kernel<Bvh2Walk,frustum>",
+        "frustum_octant": "sample_kernel<Bvh2Walk,octant,frustum>"}
     # and of each form's counting instantiation (walk_lane_counts)
     count_label = {f: lab[:-1] + ",count>" for f, lab in form_label.items()}
     lockstep = {k for k in ptxas if k.startswith("sample_kernel")}
@@ -417,9 +393,22 @@ def main() -> int:
             "K6 forms (and their counting forms), which K4's phase 1 shares")
     require({"regen_phase1_kernel<Bvh2Walk>", "regen_phase1_kernel<Bvh2Walk,count>"}
             <= set(ptxas), "K4's plain phase 1 (regenerating) was not compiled")
-    k7_labels = {f"misslink_kernel<{m}{c}>" for m in ("closest", "shadow")
-                 for c in ("", ",count")}
-    require(k7_labels <= set(ptxas), "a K7 kernel or its counting form was not compiled")
+    # the standalone walks: one live-ray template over the walk (K7 and K2/K3
+    # with their counting forms; K8 and K5's harness launchers)
+    live_labels = {f"live_walk_kernel<{m},{w}{c}>" for m in ("closest", "shadow")
+                   for w in ("MisslinkWalk", "Bvh2Walk") for c in ("", ",count")}
+    live_labels |= {f"live_walk_kernel<{m},{w}>" for m in ("closest", "shadow")
+                    for w in ("TieredWalk", "Bvh8Walk")}
+    require(live_labels <= set(ptxas),
+            "a live-ray walk (K2/K3, K5, K7, K8) or its counting form was not compiled")
+    require(not {k for k in ptxas if k.startswith(("closest_kernel", "shadow_kernel",
+                                                   "misslink_kernel"))},
+            "a standalone walk kernel outside the live-ray template was compiled")
+    # K4's continuation: the plain and K9 forms, each with its counting form
+    cont_label = {"continuation": "continuation_kernel<Bvh2Walk>",
+                  "continuation_octant": "continuation_kernel<Bvh2Walk,octant>"}
+    require(set(cont_label.values()) | {v[:-1] + ",count>" for v in cont_label.values()}
+            <= set(ptxas), "a continuation form or its counting form was not compiled")
 
     @contextlib.contextmanager
     def using(lib_):
@@ -846,7 +835,10 @@ def main() -> int:
     def split_kernels(ws, cfg, uv, act, cam, tag):
         """K4's phase 1, the compaction and the continuation of one sample,
         each alone, against the plain versions on the same inputs: errors,
-        times and the plain walks' work."""
+        times and the plain walks' work. The compaction and the continuation
+        run once as the split runs them, under CUDA's sync debug mode: the
+        permutation and the live count stay on the device, so no call of
+        theirs may wait for it."""
         n, sb = uv.shape[0], cfg.split_bounce
         c1, r1, st = megakernel.sample_wave_phase1(ws, cfg, uv, act, cam, 0, 0, 5)
         (pc1, pr1, pst), p_ph1, w_ph1 = counted(
@@ -856,18 +848,33 @@ def main() -> int:
             ws, cfg, uv, act, cam, 0, 0, 5), 5, torch)
 
         def compact():
-            _dest, order = megakernel._compaction_permutation(
+            return megakernel._compaction_permutation(
                 st[10] > 0.5, st[3], st[4], st[5], cfg.split_rebin,
                 origins=(st[0], st[1], st[2]))
-            return st[:, order.long()]
 
-        cst, comp_ms = compact(), cuda_ms(compact, 5, torch)
-        c2, r2, _ = megakernel.continuation(ws, cfg, cst, 0, 0, 5, sb, 5, False)
-        (pc2, pr2, _), p_cont, w_cont = counted(
-            lambda w: megakernel.continuation_reference(
-                ws, cfg, cst, 0, 0, 5, sb, 5, False, work=w), torch, walk)
-        k_cont = cuda_ms(lambda: megakernel.continuation(
-            ws, cfg, cst, 0, 0, 5, sb, 5, False), 5, torch)
+        def cont(fn, col_, rays_, work=None):
+            kw = {} if work is None else dict(work=work)
+            fn(ws, cfg, st, order, live, col_, rays_, 0, 0, 5, sb, 5, False, **kw)
+            return col_, rays_
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _dest, order, live = compact()
+                c2, r2 = cont(megakernel.continuation, c1.clone(), r1.clone())
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (the mode's own notice, that it is a prototype that may miss some
+        # synchronising calls, is not one)
+        n_sync = sum("called a synchronizing" in str(w_.message) for w_ in syncs)
+        comp_ms = cuda_ms(compact, 5, torch)
+        (pc2, pr2), p_cont, w_cont = counted(
+            lambda w: cont(megakernel.continuation_reference, c1.clone(), r1.clone(),
+                           w), torch, walk)
+        scratch = (c1.clone(), r1.clone())  # the timed calls add into these
+        k_cont = cuda_ms(lambda: cont(megakernel.continuation, *scratch), 5, torch)
         # one sample's raw colour exceeds 1 where the lights are strong, so
         # each element is held relative to max(1, |plain|), and the largest
         # error to 4 ulps of the largest |plain|: ulps, at any magnitude
@@ -877,83 +884,85 @@ def main() -> int:
         m1, m2 = pc1.abs().max().item(), pc2.abs().max().item()
         u1, u2 = (float(np.spacing(np.float32(m))) for m in (m1, m2))
         st_err = (st - pst).abs().max().item()
-        live = int((st[10] > 0.5).sum())
+        n_live = int(live)
         say(f"[{tag}] phase 1 alone, {n} rays, split_bounce {sb}, octant walks "
             f"{cfg.octant_bounce_walks}: vs plain max abs {e1:.3e} ({e1 / u1:.1f} ulps "
             f"of max |plain| {m1:.4g}; relative to max(1, |plain|) {r1_:.3e}), rays "
             f"{int(r1)} vs {int(pr1)}, state rows max abs {st_err:.3e}; "
-            f"{k_ph1:.3f} ms vs plain {p_ph1:.2f} ms; {live} live rays after it "
-            f"({live / n * 100:.2f}%); compaction ({cfg.split_rebin}) {comp_ms:.3f} ms")
-        say(f"[{tag}] continuation alone: vs plain max abs {e2:.3e} ({e2 / u2:.1f} "
-            f"ulps of max |plain| {m2:.4g}; relative {r2_:.3e}), rays {int(r2)} vs "
-            f"{int(pr2)}; {k_cont:.3f} ms vs plain {p_cont:.2f} ms")
+            f"{k_ph1:.3f} ms vs plain {p_ph1:.2f} ms; {n_live} live rays after it "
+            f"({n_live / n * 100:.2f}%); compaction ({cfg.split_rebin}) {comp_ms:.3f} ms")
+        say(f"[{tag}] continuation alone (phase 1's colour and rays added in): vs "
+            f"plain max abs {e2:.3e} ({e2 / u2:.1f} ulps of max |plain| {m2:.4g}; "
+            f"relative {r2_:.3e}), bit for bit {bool(torch.equal(c2, pc2))}, rays "
+            f"{int(r2)} vs {int(pr2)}; {k_cont:.3f} ms vs plain {p_cont:.2f} ms; "
+            f"synchronising calls in the compaction and continuation: {n_sync}")
         require(r1_ <= 1e-6 and e1 <= 4 * u1 and int(r1) == int(pr1),
                 f"phase 1 vs plain ({tag})")
         require(st_err == 0.0, f"phase 1 state rows differ from plain ({tag})")
         require(r2_ <= 1e-6 and e2 <= 4 * u2 and int(r2) == int(pr2),
                 f"continuation vs plain ({tag})")
+        require(n_live == int((st[10] > 0.5).sum()), f"the live count ({tag})")
+        require(n_sync == 0, f"the compaction or continuation synchronised ({tag})")
         return dict(ph1=(k_ph1, p_ph1, w_ph1, e1), cont=(k_cont, p_cont, w_cont, e2),
-                    comp_ms=comp_ms, live=live)
+                    comp_ms=comp_ms, live=n_live, order=order, live_t=live, ph1_out=(
+                        c1, r1, st))
 
     def frame_diff(a, b):
         d = (a - b).abs()
         return d.max().item(), d.mean().item()
 
+    def median_ms(fn, reps=5):
+        """The median of 6 per-call times (CUDA events, ``reps`` calls each)."""
+        got = [cuda_ms(fn, reps, torch) for _ in range(6)]
+        return statistics.median(got), got
+
     def phase1_1080p(tag, cfg_):
         """K4's phase 1 (the form cfg_ selects) at the demo's 1080p, one
         sample: its time alone (median of 6) and its walk-loop lane
         utilisation (the counting form, which must write the same colour and
-        rays). With --parent, against the scanline phase 1 (the anchor
-        build) too: colour, rays and the 13 state rows bit for bit (the K6
-        forms too, though their packets are now the warp tiles), both timed
-        in turns and counted."""
+        rays)."""
         args = (mws, cfg_, muv, mact, mcam, 0, 0, 5)
-        libs = {"kernel": ext.lib()}
-        if anchor is not None:
-            libs["parent"] = anchor
-        out = {}
-        for name, lib_ in libs.items():
-            with using(lib_):
-                out[name] = megakernel.sample_wave_phase1(*args)
-        got = {name: [] for name in libs}
-        for order in ((list(libs), list(libs)[::-1]) * 3):
-            for name in order:
-                with using(libs[name]):
-                    got[name].append(cuda_ms(
-                        lambda: megakernel.sample_wave_phase1(*args), 5, torch))
-        lanes = {}
-        for name, lib_ in libs.items():
-            with using(lib_):
-                lc, lr, a_, sl_ = megakernel.walk_lane_counts(*args, phase1=True)
-            require(bool(torch.equal(lc, out[name][0]))
-                    and int(lr) == int(out[name][1]),
-                    f"{tag}: the counting phase 1 ({name}) wrote another colour")
-            lanes[name] = a_ / sl_
-        med = {k: statistics.median(v) for k, v in got.items()}
+        out = megakernel.sample_wave_phase1(*args)
+        ms, got = median_ms(lambda: megakernel.sample_wave_phase1(*args))
+        lc, lr, a_, sl_ = megakernel.walk_lane_counts(*args, phase1=True)
+        require(bool(torch.equal(lc, out[0])) and int(lr) == int(out[1]),
+                f"{tag}: the counting phase 1 wrote another colour")
         form = dict(split_bounce=cfg_.split_bounce, octant=cfg_.octant_bounce_walks,
                     frustum=cfg_.frustum_primary)
-        res = dict(ms=med["kernel"], lanes=lanes["kernel"], parent_ms=None,
-                   parent_lanes=None, parent_bitwise=None, parent_pixels_differ=None)
-        vs = ""
-        if anchor is not None:
-            (kc, kr, ks), (oc, orr, os_) = out["kernel"], out["parent"]
-            same = (bool(torch.equal(kc, oc)) and int(kr) == int(orr)
-                    and bool(torch.equal(ks, os_)))
-            npx = int(((kc != oc).any(-1) | (ks != os_).any(0)).sum())
-            res.update(parent_ms=med["parent"], parent_lanes=lanes["parent"],
-                       parent_bitwise=same, parent_pixels_differ=npx)
-            vs = (f"vs the scanline phase 1 colour, rays and state rows bit for bit "
-                  f"{same} ({npx} pixels differ); ")
-        say(f"[{tag}] phase 1 at 1080p {form}: {vs}"
-            + ("in turns" if anchor is not None else "alone") + f" on {kind} ({smi}): "
-            + ", ".join(f"{k} {med[k]:.4f} ms" for k in libs) + " ("
-            + ", ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in got.items())
-            + "); walk-loop lane utilisation "
-            + ", ".join(f"{k} {lanes[k]:.4f}" for k in libs))
-        require(res["parent_bitwise"] is not False,
-                f"{tag}: phase 1 differs from the scanline form's "
-                f"({res['parent_pixels_differ']} pixels)")
-        return res
+        say(f"[{tag}] phase 1 at 1080p {form} alone on {kind} ({smi}): {ms:.4f} ms "
+            f"({' '.join(f'{t:.4f}' for t in got)}); walk-loop lane utilisation "
+            f"{a_ / sl_:.4f}")
+        return dict(ms=ms, lanes=a_ / sl_)
+
+    def cont_1080p(tag, cfg_, k4_):
+        """K4's continuation (the form cfg_ selects) at the demo's 1080p on
+        split_kernels' phase-1 rows: its time alone (median of 6), its
+        walk-loop lane utilisation (the counting form, which must add the
+        same colour and rays) and its compiled budget."""
+        c1, r1, st = k4_["ph1_out"]
+        order, live = k4_["order"], k4_["live_t"]
+        sb = cfg_.split_bounce
+        scratch = (c1.clone(), r1.clone())
+        ms, got = median_ms(lambda: megakernel.continuation(
+            mws, cfg_, st, order, live, *scratch, 0, 0, 5, sb, 5, False))
+        kc, kr = c1.clone(), r1.clone()
+        megakernel.continuation(mws, cfg_, st, order, live, kc, kr, 0, 0, 5, sb, 5,
+                                False)
+        cc, cr = c1.clone(), r1.clone()
+        a_, sl_ = megakernel.continuation_lane_counts(
+            mws, cfg_, st, order, live, cc, cr, 0, 0, 5, sb, 5, False)
+        require(bool(torch.equal(cc, kc)) and int(cr) == int(kr),
+                f"{tag}: the counting continuation added another colour")
+        form = "continuation" + ("_octant" if cfg_.octant_bounce_walks else "")
+        budget_ = megakernel.sample_budget(form)
+        label = cont_label[form]
+        say(f"[{tag}] {form} at 1080p (split_bounce {sb}, {k4_['live']} live rays) "
+            f"alone on {kind} ({smi}): {ms:.4f} ms ({' '.join(f'{t:.4f}' for t in got)})"
+            f"; walk-loop lane utilisation {a_ / sl_:.4f} ({a_} of {sl_}); budget "
+            f"{budget_} (ptxas {label}: {ptxas.get(label)})")
+        require(budget_["threads"] == 128 and budget_["regs"] <= 64
+                and budget_["warps_per_sm"] == 32, f"{tag}: {form}'s budget")
+        return dict(ms=ms, lanes=a_ / sl_, budget=budget_)
 
     # ---- 13 split: K4 (phase 1 + compaction + continuation) vs plain ----
     ext.reset_launches()
@@ -980,6 +989,10 @@ def main() -> int:
     require(split_standalone["sample_wave_phase1"] == 4
             and split_standalone["continuation"] == 6,
             "phase 13 launched phase 1 / the continuation a wrong number of times")
+    # the continuation alone at 256x192, after phase 1 at bounce 1 and 2
+    for sb in (1, 2):
+        split_kernels(sws, scfg.replace(split_bounce=sb, split_rebin="octant"), suv,
+                      sact, scam, "13 split")
 
     # ---- 14 split path: the 1080p/64 spp frame through K4 ----
     xcfg = mcfg.replace(split_bounce=2, split_rebin="octant")
@@ -1018,19 +1031,31 @@ def main() -> int:
     wall, busy, top = profile_dispatch(
         lambda: render_radiance_with_stats(marrays, mcam, xcfg), torch,
         out_dir and os.path.join(out_dir, "split_path_trace.json"))
+    # the torch glue around the kernels: gathers and scatters (indexing
+    # kernels; not arange's elementwise_kernel_with_index) and the
+    # compaction's scans
+    glue = {g: [(ms, n) for ms, name, n in top if any(k in name.lower() for k in keys)]
+            for g, keys in (("gathers", ("index_elementwise", "gather")),
+                            ("scans", ("scan", "cumsum")))}
+    x_profile = dict(wall_ms=wall, device_busy_ms=busy, **{
+        f"{g}_ms": sum(ms for ms, _n in v) for g, v in glue.items()}, **{
+        f"{g}_launches": sum(n for _ms, n in v) for g, v in glue.items()},
+        kernels={name[:60]: (ms, n) for ms, name, n in top[:12]})
     say(f"[14 split path] one dispatch under torch.profiler: wall {wall:.2f} ms, "
-        f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%); top: "
+        f"device busy {busy:.2f} ms ({busy / wall * 100:.1f}%); torch gathers "
+        f"{x_profile['gathers_ms']:.3f} ms in {x_profile['gathers_launches']} launches, "
+        f"scans {x_profile['scans_ms']:.3f} ms in {x_profile['scans_launches']}; top: "
         + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top))
     ext.reset_launches()
     k4 = split_kernels(mws, xcfg, muv, mact, mcam, "14 split path")
     k4p = phase1_1080p("14 split path", xcfg)
-    ph1_budget_parent = None
-    if anchor is not None:
-        with using(anchor):
-            ph1_budget_parent = megakernel.sample_budget("phase1")
+    k4c = cont_1080p("14 split path", xcfg, k4)
+    # split_bounce 1: ~1.07M live rays, more than the persistent grid's lanes
+    x1 = xcfg.replace(split_bounce=1)
+    k4b1 = split_kernels(mws, x1, muv, mact, mcam, "14 split path")
+    k4b1c = cont_1080p("14 split path", x1, k4b1)
     ph1_budget = megakernel.sample_budget("phase1")
-    say(f"[14 split path] phase 1's budget: {ph1_budget}"
-        + (f" (the scanline form's {ph1_budget_parent})" if anchor is not None else ""))
+    say(f"[14 split path] phase 1's budget: {ph1_budget}")
     require(ph1_budget["threads"] == megakernel.K1_THREADS,
             "phase 1's block is not megakernel.K1_THREADS")
     c4 = mcfg.replace(spp=4)
@@ -1115,6 +1140,7 @@ def main() -> int:
     k9x = split_kernels(mws, xcfg.replace(octant_bounce_walks=True), muv, mact,
                         mcam, "15 K9")
     k9xp = phase1_1080p("15 K9", xcfg.replace(octant_bounce_walks=True))
+    k9xc = cont_1080p("15 K9", xcfg.replace(octant_bounce_walks=True), k9x)
     # the tiered K9 at phase 11's 320x180 (guv, gact)
     t9 = fcfg.replace(width=320, height=180, spp=1, octant_bounce_walks=True)
     k = megakernel.sample_wave(fws, t9, guv, gact, fcam, 0, 0, 5, 1)
@@ -1378,7 +1404,7 @@ def main() -> int:
     for sfx, kn in (("", {}), ("_octant", dict(octant_bounce_walks=True))):
         c6 = xcfg.replace(frustum_primary=True, **kn)
         k6x_1080[sfx] = dict(split_kernels(mws, c6, muv, mact, mcam, "17 K6"),
-                             parent=phase1_1080p("17 K6", c6))
+                             alone=phase1_1080p("17 K6", c6))
     k6x_standalone = dict(ext.LAUNCHES)
     require(k6x_standalone["sample_wave_phase1_frustum"] >= 1
             and k6x_standalone["sample_wave_phase1_frustum_octant"] >= 1,
@@ -1400,27 +1426,21 @@ def main() -> int:
     s7o, s7d = primary_rays(256, 192, s7cam)
     s7act = torch.ones(s7o.shape[0], dtype=torch.bool, device=dev)
     _, s7uv = pixel_grid(256, 192, dev)
-    # (with --parent also vs the one-thread-per-slot K7 over the records)
-    vs_rows = " and the one-thread-per-slot K7" if parent else ""
     k7 = walk.closest_walk_misslink(s7ws, s7o, s7d, s7act, 256, 192)
     p7 = walk.misslink_closest_walk_reference(s7ws, s7o, s7d, s7act)
-    r7 = walk.closest_walk_misslink_rows(s7ws, s7o, s7d, s7act) if parent else p7
-    k7_exact = all(torch.equal(a, b) and torch.equal(a, c)
-                   for a, b, c in zip(k7, p7, r7))
+    k7_exact = all(torch.equal(a, b) for a, b in zip(k7, p7))
     say(f"[18 K7] K7 closest vs plain, 256x192 primary: same tri "
         f"{bool(torch.equal(k7[1], p7[1]))}, t bit-equal {bool(torch.equal(k7[0], p7[0]))}, "
-        f"all outputs bit-equal to plain{vs_rows} {k7_exact}, hits "
-        f"{int((k7[1] >= 0).sum())}")
-    require(k7_exact, f"K7 closest vs plain{vs_rows} (256x192)")
+        f"all outputs bit-equal to plain {k7_exact}, hits {int((k7[1] >= 0).sum())}")
+    require(k7_exact, "K7 closest vs plain (256x192)")
     s7hit = walk.decode_hit(s7ws, s7o, s7d, *k7)
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(s7ws, s7hit)):
         kv, kr = walk.shadow_walk_misslink(s7ws, so, sd, sm, sa, width=256, height=192)
         pv = walk.misslink_shadow_walk_reference(s7ws, so, sd, sm, sa)
-        rv = walk.shadow_walk_misslink_rows(s7ws, so, sd, sm, sa) if parent else pv
-        same = bool(torch.equal(kv, pv)) and bool(torch.equal(kv, rv))
-        say(f"[18 K7] K7 shadow vs plain{vs_rows}, 256x192 light {i}: vis "
-            f"exact {same}, {int(kr)} rays, {int((kv < 1).sum())} shadowed")
-        require(same, f"K7 shadow vs plain{vs_rows} (256x192, light {i})")
+        same = bool(torch.equal(kv, pv))
+        say(f"[18 K7] K7 shadow vs plain, 256x192 light {i}: vis exact {same}, "
+            f"{int(kr)} rays, {int((kv < 1).sum())} shadowed")
+        require(same, f"K7 shadow vs plain (256x192, light {i})")
 
     # K7 at the main path's 1080p primary, shadow and incoherent rays: vs
     # K2/K3, timed in turns with them; the plain walk counts K7's work
@@ -1480,19 +1500,17 @@ def main() -> int:
     ro = mhit.point + rd * 1e-3
     i7, i2 = (fn(mws, ro, rd, mhit.found) for fn in (k7_closest, walk.closest_walk))
     ip = walk.misslink_closest_walk_reference(mws, ro, rd, mhit.found)
-    ir = walk.closest_walk_misslink_rows(mws, ro, rd, mhit.found) if parent else ip
-    in_same = all(bool(torch.equal(a, b)) and bool(torch.equal(a, c))
-                  for a, b, c in zip(i7, ir, ip))
+    in_same = all(bool(torch.equal(a, b)) for a, b in zip(i7, ip))
     in_other, in_ties, in_teq = vs_k2(i7, i2)
     ti = [cuda_ms(lambda: fn(mws, ro, rd, mhit.found), 10, torch)
           for fn in (walk.closest_walk, k7_closest, k7_closest, walk.closest_walk)]
     k7_inc_ms, k2_inc_ms = (ti[1] + ti[2]) / 2, (ti[0] + ti[3]) / 2
     say(f"[18 K7] incoherent rays ({int(mhit.found.sum())} from the primary hits, "
         f"random directions): K7 {k7_inc_ms:.3f} ms, K2 {k2_inc_ms:.3f} ms (in turns: "
-        f"{', '.join(f'{t:.3f}' for t in ti)}); bit for bit the plain version's"
-        f"{vs_rows} {in_same}; vs K2 another triangle on {in_other} rays "
+        f"{', '.join(f'{t:.3f}' for t in ti)}); bit for bit the plain version's "
+        f"{in_same}; vs K2 another triangle on {in_other} rays "
         f"({in_ties} exact-t ties), t bit-equal where the same {in_teq}")
-    require(in_same, f"K7 vs plain{vs_rows} on incoherent rays")
+    require(in_same, "K7 vs plain on incoherent rays")
     require(in_teq and in_other <= 1e-4 * mo.shape[0], "K7 vs K2 on incoherent rays")
     k7_standalone = dict(ext.LAUNCHES)
     require(k7_standalone["closest_hit_misslink"] >= 1
@@ -1617,31 +1635,12 @@ def main() -> int:
         f"launches, shadow {k7_dispatch_shadow:.2f} ms in "
         f"{ev_launches['shadow_walk_misslink']}; by wave class (64 launches each): "
         + ", ".join(f"{c} {v:.2f}" for c, v in k7_dispatch.items()))
-    if parent:
-        # the same frame through the one-thread-per-slot K7 over the records:
-        # bit for bit, rays equal
-        real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
-        walk.closest_hit_misslink = lambda ws_, o_, d_, a_, width=0, height=0: (
-            walk.decode_hit(ws_, o_, d_,
-                            *walk.closest_walk_misslink_rows(ws_, o_, d_, a_)))
-        walk.shadow_walk_misslink = lambda ws_, o_, d_, md__, a_, min_visibility=0.05, \
-            t_eps=1e-3, width=0, height=0: (walk.shadow_walk_misslink_rows(
-                ws_, o_, d_, md__, a_, min_visibility, t_eps), a_.sum(dtype=torch.int64))
-        try:
-            pimg, prays = render_radiance_with_stats(marrays, mcam, mlcfg)
-        finally:
-            walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
-        ml_parent_same = bool(torch.equal(pimg, mlimg)) and int(prays) == ml_rays_pd
-        say(f"[18 pallas-ml] 1080p/64 spp frame through the one-thread-per-slot K7: "
-            f"bit for bit {ml_parent_same}, rays {int(prays)} vs {ml_rays_pd}")
-        require(ml_parent_same,
-                "the pallas-ml frame differs from the one-thread-per-slot K7's")
     # the breakdown of a 4-spp dispatch: each sample runs the same walks and
     # glue, and a 64-spp trace holds ~290k kernels, too many to process here
     wall, busy, top = profile_dispatch(
         lambda: render_radiance_with_stats(marrays, mcam, mlcfg.replace(spp=4)),
         torch, out_dir and os.path.join(out_dir, "pallas_ml_trace.json"))
-    k7_rows = [(ms, n) for ms, name, n in top if "misslink_kernel" in name]
+    k7_rows = [(ms, n) for ms, name, n in top if "live_walk_kernel" in name]
     k7_dev = sum(ms for ms, _n in k7_rows)
     ml_profile = dict(spp=4, wall_ms=wall, device_busy_ms=busy, k7_ms=k7_dev,
                       k7_launches=sum(n for _ms, n in k7_rows), glue_ms=busy - k7_dev,
@@ -1653,104 +1652,118 @@ def main() -> int:
         f"{busy - k7_dev:.2f} ms in {ml_profile['glue_launches']} launches; top: "
         + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms" for ms, name, n in top[:8]))
 
-    # K7 at the shapes its path launches: the waves of one sample of the
-    # 1080p pallas-ml dispatch (5 closest, one per bounce; 2 shadow, one per
-    # light), recorded at the wrappers, each walked by the kernel and by the
-    # plain version (bit for bit), the kernel timed (medians of 6) with its
-    # walk-loop lane utilisation; with --parent the same for the
-    # one-thread-per-slot K7 over the records, timed in turns
-    waves = []
-    real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
+    # The live-ray walks at the shapes their paths launch: the waves of one
+    # sample of the 1080p dispatch (5 closest, one per bounce; 2 shadow, one
+    # per light), recorded at the wrappers, each walked by the kernel and by
+    # the plain version (bit for bit), the kernel timed alone (medians of 6)
+    # with its walk-loop lane utilisation and bound: K7 on the pallas-ml
+    # path, K2/K3 on the pallas-bvh2 path
+    def record_waves(closest_name, shadow_name, cfg_):
+        """The waves one 1-spp dispatch of cfg_ passes to walk.<closest_name>
+        and walk.<shadow_name>, in launch order."""
+        waves_ = []
+        real_c, real_s = getattr(walk, closest_name), getattr(walk, shadow_name)
 
-    def rec_closest(ws_, o_, d_, a_, width=0, height=0):
-        waves.append(dict(kind="closest", o=o_.clone(), d=d_.clone(), a=a_.clone(),
-                          frame=(width, height)))
-        return real_c(ws_, o_, d_, a_, width, height)
+        def rec_closest(ws_, o_, d_, a_, *args_, width=0, height=0):
+            waves_.append(dict(kind="closest", o=o_.clone(), d=d_.clone(),
+                               a=a_.clone(), frame=(width, height)))
+            return real_c(ws_, o_, d_, a_, *args_, width=width, height=height)
 
-    def rec_shadow(ws_, o_, d_, md__, a_, min_visibility=0.05, t_eps=1e-3, width=0,
-                   height=0):
-        waves.append(dict(kind="shadow", o=o_.clone(), d=d_.clone(), a=a_.clone(),
-                          md=md__.contiguous().clone(), mv=min_visibility, te=t_eps,
-                          frame=(width, height)))
-        return real_s(ws_, o_, d_, md__, a_, min_visibility, t_eps, width, height)
+        def rec_shadow(ws_, o_, d_, md__, a_, min_visibility=0.05, t_eps=1e-3,
+                       width=0, height=0):
+            waves_.append(dict(kind="shadow", o=o_.clone(), d=d_.clone(),
+                               a=a_.clone(), md=md__.contiguous().clone(),
+                               mv=min_visibility, te=t_eps, frame=(width, height)))
+            return real_s(ws_, o_, d_, md__, a_, min_visibility, t_eps, width=width,
+                          height=height)
 
-    walk.closest_hit_misslink, walk.shadow_walk_misslink = rec_closest, rec_shadow
-    try:
-        render_radiance_with_stats(marrays, mcam, mlcfg.replace(spp=1))
-    finally:
-        walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
-    require([w["kind"] for w in waves] == ["closest", "shadow", "shadow", "closest",
-                                           "closest", "closest", "closest"],
-            f"the pallas-ml sample's K7 waves: {[w['kind'] for w in waves]}")
-    k7_tab = nbytes(mws.ml_nodes, mws.ml_tris)
-    k7_budget = {f: walk.misslink_budget(f) for f in walk.MISSLINK_FORMS
-                 if parent or not f.endswith("_rows")}
-    k7_forms = ("kernel", "parent") if parent else ("kernel",)
-    say(f"[18 K7 waves] budgets: {k7_budget}")
-    k7_waves, n_bounce, n_light = [], 0, 0
-    for w in waves:
-        o_, d_, a_, (fw, fh) = w["o"], w["d"], w["a"], w["frame"]
-        n, live = o_.shape[0], int(a_.sum())
-        require((fw, fh) == (1920, 1080) and n == fw * fh, "K7's wave is not the frame")
-        if w["kind"] == "closest":
-            name = f"closest bounce {n_bounce}"
-            n_bounce += 1
-            new = lambda: walk.closest_walk_misslink(mws, o_, d_, a_, fw, fh)  # noqa: E731
-            old = lambda: walk.closest_walk_misslink_rows(mws, o_, d_, a_)  # noqa: E731
-            plain = lambda wk: walk.misslink_closest_walk_reference(  # noqa: E731
-                mws, o_, d_, a_, work=wk)
-            count = dict(max_dist=None)
-            nb = k7_tab + n * (1 + 24) + live * 24  # act; t, tri, cross, menc; o, d
-        else:
-            name = f"shadow light {n_light}"
-            n_light += 1
-            md__, mv, te = w["md"], w["mv"], w["te"]
-            new = lambda: walk.shadow_walk_misslink(  # noqa: E731
-                mws, o_, d_, md__, a_, mv, te, fw, fh)[0]
-            old = lambda: walk.shadow_walk_misslink_rows(  # noqa: E731
-                mws, o_, d_, md__, a_, mv, te)
-            plain = lambda wk: walk.misslink_shadow_walk_reference(  # noqa: E731
-                mws, o_, d_, md__, a_, mv, te, work=wk)
-            count = dict(max_dist=md__, min_visibility=mv, t_eps=te)
-            nb = k7_tab + n * (1 + 4) + live * (24 + 4)  # act; vis; o, d, maxd
-        runs = {"kernel": new, "parent": old} if parent else {"kernel": new}
-        outs = {form: fn() for form, fn in runs.items()}
-        kn = outs["kernel"]
-        kp, p_ms, work = counted(plain, torch, walk)
-        seq = (lambda x: x) if w["kind"] == "closest" else (lambda x: (x,))
-        same = all(all(bool(torch.equal(a, b)) for a, b in zip(seq(o__), seq(kp)))
-                   for o__ in outs.values())
-        got = {form: [] for form in k7_forms}
-        for order in (k7_forms, k7_forms[::-1]) * 3:
-            for form in order:
-                got[form].append(cuda_ms(runs[form], 10, torch))
-        lanes = {}
-        for form in k7_forms:
-            out_, a__, sl_ = walk.misslink_lane_counts(
-                mws, o_, d_, a_, width=fw, height=fh, rows=form == "parent", **count)
+        setattr(walk, closest_name, rec_closest)
+        setattr(walk, shadow_name, rec_shadow)
+        try:
+            render_radiance_with_stats(marrays, mcam, cfg_.replace(spp=1))
+        finally:
+            setattr(walk, closest_name, real_c)
+            setattr(walk, shadow_name, real_s)
+        require([w["kind"] for w in waves_] == ["closest", "shadow", "shadow", "closest",
+                                                "closest", "closest", "closest"],
+                f"the {cfg_.kernels} sample's waves: {[w['kind'] for w in waves_]}")
+        return waves_
+
+    def time_waves(tag, waves_, kind_, tab_bytes):
+        """Each wave walked by the live-ray kernel of ``kind_`` ("misslink":
+        K7, "bvh2": K2/K3) and by its plain walk, bit for bit; the kernel
+        timed alone (median of 6), its lane utilisation, the wave's bound
+        and the plain walk's work."""
+        k7_ = kind_ == "misslink"
+        new_c = walk.closest_walk_misslink if k7_ else walk.closest_walk
+        new_s = walk.shadow_walk_misslink if k7_ else walk.shadow_walk_bvh2
+        plain_c = (walk.misslink_closest_walk_reference if k7_
+                   else walk.closest_walk_reference)
+        plain_s = (walk.misslink_shadow_walk_reference if k7_
+                   else walk.shadow_walk_reference)
+        rows_, n_bounce, n_light = [], 0, 0
+        for w in waves_:
+            o_, d_, a_, (fw, fh) = w["o"], w["d"], w["a"], w["frame"]
+            n, live = o_.shape[0], int(a_.sum())
+            require((fw, fh) == (1920, 1080) and n == fw * fh,
+                    f"{tag}: the wave is not the frame")
+            if w["kind"] == "closest":
+                name = f"closest bounce {n_bounce}"
+                n_bounce += 1
+                if k7_:
+                    new = lambda: new_c(mws, o_, d_, a_, fw, fh)  # noqa: E731
+                else:
+                    new = lambda: new_c(mws, o_, d_, a_, None, fw, fh)  # noqa: E731
+                plain = lambda wk: plain_c(mws, o_, d_, a_, work=wk)  # noqa: E731
+                count = dict(max_dist=None)
+                nb = tab_bytes + n * (1 + 24) + live * 24  # act; t, tri, cross, menc; o, d
+            else:
+                name = f"shadow light {n_light}"
+                n_light += 1
+                md__, mv, te = w["md"], w["mv"], w["te"]
+                new = lambda: new_s(  # noqa: E731
+                    mws, o_, d_, md__, a_, mv, te, width=fw, height=fh)[0]
+                plain = lambda wk: plain_s(  # noqa: E731
+                    mws, o_, d_, md__, a_, mv, te, work=wk)
+                count = dict(max_dist=md__, min_visibility=mv, t_eps=te)
+                nb = tab_bytes + n * (1 + 4) + live * (24 + 4)  # act; vis; o, d, maxd
+            kn = new()
+            kp, p_ms, work = counted(plain, torch, walk)
+            seq = (lambda x: x) if w["kind"] == "closest" else (lambda x: (x,))
+            same = all(bool(torch.equal(a, b)) for a, b in zip(seq(kn), seq(kp)))
+            ms, got = median_ms(new, 10)
+            out_, a__, sl_ = walk.live_lane_counts(mws, o_, d_, a_, kind=kind_,
+                                                   width=fw, height=fh, **count)
             require(all(bool(torch.equal(x, y)) for x, y in zip(seq(out_), seq(kn))),
-                    f"the counting K7 ({form}) walked to another result ({name})")
-            lanes[form] = a__ / sl_ if sl_ else None
-        b_ms, b_by = bound(work, nb)
-        med = {k: statistics.median(v) for k, v in got.items()}
-        k7_waves.append(dict(wave=name, slots=n, live=live, ms=med["kernel"],
-                             parent_ms=med.get("parent"), plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, lanes=lanes["kernel"],
-                             parent_lanes=lanes.get("parent"), bitwise=same, work=work))
-        say(f"[18 K7 waves] {name}: {live} of {n} slots live ({live / n * 100:.2f}%); "
-            f"kernel{vs_rows} and plain bit for bit {same}; "
-            + ("in turns" if parent else "alone") + f" on {kind} ({smi}): "
-            + ", ".join(f"{k} {med[k]:.4f} ms" for k in k7_forms) + " ("
-            + ", ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in got.items())
-            + f"); plain {p_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}); walk-loop lane "
-            "utilisation " + ", ".join(f"{k} {lanes[k]}" for k in k7_forms)
-            + f"; the longest walk {work['ml_chain']} node visits "
-            f"({med['kernel'] * 1e6 / max(1, work['ml_chain']):.0f} ns of the kernel's "
-            "time each)")
-        require(same, f"K7 differs from the plain version{vs_rows} ({name})")
-    say(f"[18 K7 waves] one sample's 7 K7 launches alone: " + ", ".join(
-        f"{k} {sum(w[k] for w in k7_waves):.4f} ms"
-        for k in ("ms", "parent_ms", "bound_ms") if k7_waves[0][k] is not None))
+                    f"{tag}: the counting walk walked to another result ({name})")
+            lanes = a__ / sl_ if sl_ else None
+            b_ms, b_by = bound(work, nb)
+            rows_.append(dict(wave=name, slots=n, live=live, ms=ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by, nbytes=nb, lanes=lanes,
+                              bitwise=same, work=work))
+            say(f"[{tag}] {name}: {live} of {n} slots live ({live / n * 100:.2f}%); "
+                f"kernel and plain bit for bit {same}; alone on {kind} ({smi}): "
+                f"{ms:.4f} ms ({' '.join(f'{t:.4f}' for t in got)}); plain "
+                f"{p_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}); walk-loop lane "
+                f"utilisation {lanes}; work {work}")
+            require(same, f"{tag}: the kernel differs from the plain version ({name})")
+        say(f"[{tag}] one sample's 7 launches alone: " + ", ".join(
+            f"{k} {sum(w[k] for w in rows_):.4f} ms" for k in ("ms", "bound_ms"))
+            + (f"; the longest walk {max(w['work']['ml_chain'] for w in rows_)} node "
+               "visits" if k7_ else ""))
+        return rows_
+
+    k7_budget = {f: walk.live_budget(f) for f in walk.LIVE_FORMS}
+    say(f"[18 live walks] budgets: {k7_budget}")
+    require(all(b["threads"] == 128 and b["regs"] <= 64 and b["warps_per_sm"] >= 32
+                for b in k7_budget.values()), "a live-ray walk's budget")
+    k7_waves = time_waves("18 K7 waves", record_waves(
+        "closest_hit_misslink", "shadow_walk_misslink", mlcfg), "misslink",
+        nbytes(mws.ml_nodes, mws.ml_tris))
+    b2cfg = mcfg.replace(kernels="pallas-bvh2")
+    k2_waves = time_waves("18 K2/K3 waves", record_waves(
+        "closest_hit_bvh2", "shadow_walk_bvh2", b2cfg), "bvh2",
+        nbytes(mws.inner_table, mws.leaf_table))
 
     # the other staged paths, once each with their launch counts and times
     staged = {}
@@ -1782,10 +1795,10 @@ def main() -> int:
     sample_b, state_b = 25, 52
 
     def cont_bytes(live):
-        """The continuation's bytes: every slot's alive row in and colour +
-        rays out; the other 12 rows only for the live rays (a dead slot's
-        are not needed without a state output)."""
-        return mtab - cam_b + R * (4 + 16) + live * (state_b - 4)
+        """The continuation's bytes: the live rays' 13 rows, their slots of
+        the permutation and their pixels' colour in, the colour out, the
+        live count and the ray total (no state output)."""
+        return mtab - cam_b + live * (state_b + 4 + 12 + 12) + 4 + 16
 
     def row(name, source, replaces, launches, err, ms, plain_ms, work, nbytes_,
             **extra):
@@ -1898,17 +1911,23 @@ def main() -> int:
             k4_err, ph1_ms, pph1_ms, ph1_work, mtab + R * (sample_b + state_b),
             standalone_launches=split_standalone["sample_wave_phase1"],
             shape="demo 1080p, 1 sample, split_bounce 2",
-            schedule="lockstep (sample_kernel) with warp tiles",
-            in_turns_ms=k4p["ms"], parent_ms=k4p["parent_ms"],
-            parent_bitwise=k4p["parent_bitwise"], walk_lane_utilisation=k4p["lanes"],
-            parent_walk_lane_utilisation=k4p["parent_lanes"], budget=ph1_budget,
-            parent_budget=ph1_budget_parent),
+            schedule="regenerating (regen_phase1_kernel) with warp tiles",
+            alone_ms=k4p["ms"], walk_lane_utilisation=k4p["lanes"], budget=ph1_budget),
         row("K4 continuation", "continuation_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:743", xlaunches["continuation"], k4_err,
             cont_ms, pcont_ms, cont_work, cont_bytes(k4["live"]),
             standalone_launches=split_standalone["continuation"],
-            shape="demo 1080p, 1 sample, bounces 2-4 of the compacted wave",
-            live_rays=k4["live"], compaction_ms=k4["comp_ms"]),
+            shape="demo 1080p, 1 sample, bounces 2-4 of the live rays",
+            schedule=f"{cont_label['continuation']}: persistent warps, 32 live rays "
+            "a take, read through the permutation", live_rays=k4["live"],
+            compaction_ms=k4["comp_ms"], alone_ms=k4c["ms"],
+            walk_lane_utilisation=k4c["lanes"], budget=k4c["budget"],
+            split_bounce_1=dict(live_rays=k4b1["live"], ms=k4b1["cont"][0],
+                                plain_ms=k4b1["cont"][1], max_abs_err=k4b1["cont"][3],
+                                alone_ms=k4b1c["ms"], walk_lane_utilisation=k4b1c[
+                                    "lanes"], bound_ms=bound(k4b1["cont"][2], cont_bytes(
+                                        k4b1["live"]))[0]),
+            split_dispatch_profile=x_profile),
         row("K9 sample_wave_octant", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215", olaunches["sample_wave_octant"],
             k9_err, k9_ms, p9_ms, k9_work, mtab + R * sample_b,
@@ -1931,17 +1950,18 @@ def main() -> int:
             k9_paths["split"]["sample_wave_phase1_octant"], k9x["ph1"][3], k9x["ph1"][0],
             k9x["ph1"][1], k9x["ph1"][2], mtab + R * (sample_b + state_b),
             standalone_launches=k9_standalone["sample_wave_phase1_octant"],
-            shape="demo 1080p, 1 sample, split_bounce 2", in_turns_ms=k9xp["ms"],
-            parent_ms=k9xp["parent_ms"], parent_bitwise=k9xp["parent_bitwise"],
-            walk_lane_utilisation=k9xp["lanes"],
-            parent_walk_lane_utilisation=k9xp["parent_lanes"]),
+            shape="demo 1080p, 1 sample, split_bounce 2", alone_ms=k9xp["ms"],
+            walk_lane_utilisation=k9xp["lanes"]),
         row("K9 continuation_octant", "continuation_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215", k9_paths["split"]["continuation_octant"],
             k9x["cont"][3], k9x["cont"][0], k9x["cont"][1], k9x["cont"][2],
             cont_bytes(k9x["live"]),
             standalone_launches=k9_standalone["continuation_octant"],
-            shape="demo 1080p, 1 sample, bounces 2-4 of the compacted wave",
-            live_rays=k9x["live"], compaction_ms=k9x["comp_ms"]),
+            shape="demo 1080p, 1 sample, bounces 2-4 of the live rays",
+            schedule=f"{cont_label['continuation_octant']}: persistent warps, 32 live "
+            "rays a take", live_rays=k9x["live"], compaction_ms=k9x["comp_ms"],
+            alone_ms=k9xc["ms"], walk_lane_utilisation=k9xc["lanes"],
+            budget=k9xc["budget"]),
     ]
     kernels += knob_rows(
         "K5", k5, "walk.cuh",
@@ -1960,7 +1980,7 @@ def main() -> int:
              phase1_1080p={sfx or "_plain": dict(
                  ms=v["ph1"][0], plain_ms=v["ph1"][1], err=v["ph1"][3],
                  bound_ms=bound(v["ph1"][2], mtab + R * (sample_b + state_b))[0],
-                 vs_parent=v["parent"]) for sfx, v in k6x_1080.items()},
+                 alone_1080p=v["alone"]) for sfx, v in k6x_1080.items()},
              phase1_standalone_launches=k6x_standalone["sample_wave_phase1_frustum"],
              phase1_split_path_launches=k6x_path.get("sample_wave_phase1_frustum", 0)))
     hit7 = k7c[1] >= 0
@@ -1976,8 +1996,7 @@ def main() -> int:
             shape="demo 1080p primary rays",
             main_path="kernels='pallas-ml', demo 1080p/64 spp",
             pallas_ml_dispatch_median_ms=ml_med, pallas_ml_profile=ml_profile,
-            staged_dispatches=staged, budget=k7_budget["closest"],
-            parent_budget=k7_budget.get("closest_rows"),
+            staged_dispatches=staged, budget=k7_budget["closest_misslink"],
             pallas_ml_sample_waves=[w for w in k7_waves if w["wave"].startswith("closest")],
             pallas_ml_dispatch_ms=k7_dispatch_closest,
             pallas_ml_dispatch_ms_by_wave={
@@ -1989,12 +2008,35 @@ def main() -> int:
             standalone_launches=k7_standalone["shadow_walk_misslink"],
             k3_same_rays_ms=k3_turn_ms, shape="demo 1080p shadow rays, point light",
             main_path="kernels='pallas-ml', demo 1080p/64 spp",
-            budget=k7_budget["shadow"], parent_budget=k7_budget.get("shadow_rows"),
+            budget=k7_budget["shadow_misslink"],
             pallas_ml_sample_waves=[w for w in k7_waves if w["wave"].startswith("shadow")],
             pallas_ml_dispatch_ms=k7_dispatch_shadow,
             pallas_ml_dispatch_ms_by_wave={
                 c: v for c, v in k7_dispatch.items() if c.startswith("shadow")}),
     ]
+    # the standalone K2/K3 on their own path (kernels="pallas-bvh2", and the
+    # bounces of "pallas-nomega"): the live-ray launch, timed on the waves of
+    # one 1080p sample; launches from the 4-spp pallas-bvh2 dispatch
+    for name, kn_, replaces, waves_ in (
+            ("K2 closest_hit_bvh2", "closest_hit_bvh2",
+             "rayzen_tpu/ops/pallas_traverse.py:428",
+             [w for w in k2_waves if w["wave"].startswith("closest")]),
+            ("K3 shadow_walk_bvh2", "shadow_walk_bvh2",
+             "rayzen_tpu/ops/pallas_traverse.py:580",
+             [w for w in k2_waves if w["wave"].startswith("shadow")])):
+        w0 = waves_[0]
+        kernels.append(row(
+            f"{name} (standalone)", "walk_kernels.cu", replaces,
+            staged["pallas-bvh2"]["launches"][kn_], 0.0,
+            w0["ms"], w0["plain_ms"], w0["work"], w0["nbytes"],
+            shape=f"the {w0['wave']} wave of one 1080p pallas-bvh2 sample",
+            main_path="kernels='pallas-bvh2', demo 1080p/4 spp",
+            schedule="live_walk_kernel<Bvh2Walk>: the live rays, compacted per "
+            "128-slot block, in K1's warp tiles",
+            budget=k7_budget["closest_bvh2" if kn_.startswith("closest")
+                             else "shadow_bvh2"],
+            pallas_bvh2_sample_waves=waves_,
+            pallas_nomega_launches=staged["pallas-nomega"]["launches"].get(kn_, 0)))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,7 @@
 //   K1's K9 and K6 forms (rz_sample_wave_octant, _tiered_octant,
 //   _wide_octant, _frustum, _frustum_octant) and phase 1's (_phase1_octant,
 //   _frustum, _frustum_octant, the same instantiations with a state output)
-//   run it, with regen_kernel's warp tiles and register budget (kTiles) and,
+//   run it, with regen_kernel's warp tiles and register budget and,
 //   for K6, one packet stack per warp in shared memory. A warp-synchronous
 //   form of regen_kernel for K9 and K6 (every lane in the loop until its
 //   warp is done, one call site that votes) measured slower or no faster on
@@ -86,7 +86,6 @@ namespace {
 
 using rz::Path;
 using rz::SampleParams;
-constexpr int kBlock = 128;
 
 // Block size, and the blocks each SM must hold at once (__launch_bounds__;
 // registers per thread <= 65536 / (threads x blocks)): 128 x 8, 64
@@ -103,19 +102,6 @@ constexpr int kThreads = RZ_K1_THREADS;
 static_assert(kThreads % 64 == 0, "a block is whole 16-pixel rows of warps");
 constexpr int kWarps = kThreads / 32;
 
-// K4's phase 1 runs K1's warp tiles and register budget: its plain form on
-// the regenerating loop (regen_phase1_kernel), its K9 and K6 forms on the
-// tiled lockstep loop (kTiles). Built with -DRZ_PHASE1_SCANLINE every form
-// runs the earlier schedule instead, the lockstep loop over scanline pixels
-// in blocks of kBlock with no register budget: the anchor that
-// chip_smoke.py and scripts/k1_schedule.py hold phase 1 to and time it
-// against.
-#ifdef RZ_PHASE1_SCANLINE
-constexpr bool kPhase1Tiles = false;
-#else
-constexpr bool kPhase1Tiles = true;
-#endif
-
 // K1's warp map over a launch (common.cuh): block tiles of kThreads
 __host__ __device__ inline int tile_blocks(int n, int width, int height) {
   return rz::tile_blocks<kThreads>(n, width, height);
@@ -125,58 +111,32 @@ __device__ __forceinline__ int tile_pixel(int tile, int warp, int lane, int n,
   return rz::tile_pixel<kThreads>(tile, warp, lane, n, width, height);
 }
 
+using rz::Counted;
 using rz::LaneCount;
 
-// The walks of the counting K9 and K6 forms: Walk's closest and shadow
-// walks as its kEither walk (trace, the regenerating K1's, which takes the
-// same steps to the same result) with LaneCount at every step.
-template <class Walk>
-struct Counted : Walk {
-  __device__ void closest(const rz::Ray& r, rz::HitRec& h) const {
-    float vis = 1.0f;
-    this->trace(r, false, 0.0f, 0.0f, h, vis, LaneCount{});
-  }
-  __device__ float shadow(const rz::Ray& r, float maxd, float min_vis,
-                          float t_eps) const {
-    rz::HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-    float vis = 1.0f;
-    this->trace(r, true, min_vis, t_eps, h, vis, LaneCount{});
-    return vis;
-  }
-};
-
-// kTiles: K1's warp tiles and register budget (tile_pixel,
+// The lockstep loop with K1's warp tiles and register budget (tile_pixel,
 // __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)) and K6's packet stack in
-// shared memory; otherwise scanline pixels in blocks of kBlock (phase 1 of a
-// -DRZ_PHASE1_SCANLINE build).
+// shared memory.
 // Count: LaneCount in the counting forms (Walk is then Counted<...>), which
 // also counts K6's packet steps.
-template <class Walk, bool kOctant, bool kFrustum, bool kTiles,
-          class Count = rz::NoCount>
-__global__ void __launch_bounds__(kTiles ? kThreads : kBlock,
-                                  kTiles ? RZ_K1_MIN_BLOCKS : 1)
+template <class Walk, bool kOctant, bool kFrustum, class Count = rz::NoCount>
+__global__ void __launch_bounds__(kThreads, RZ_K1_MIN_BLOCKS)
     sample_kernel(Walk w, const float* __restrict__ mats,
                   const float* __restrict__ lights,
                   const float* __restrict__ cam, const float* __restrict__ uv,
                   const uint8_t* __restrict__ act, int n, SampleParams p,
                   float* __restrict__ color_out, int* __restrict__ rays_out,
                   float* __restrict__ state_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;  // -1: no pixel
-  if constexpr (kTiles) {
-    i = tile_pixel(blockIdx.x, threadIdx.x >> 5, threadIdx.x & 31, n, p.width,
-                   p.height);
-  } else if (i >= n) {
-    i = -1;
-  }
+  const int i = tile_pixel(blockIdx.x, threadIdx.x >> 5, threadIdx.x & 31, n,
+                           p.width, p.height);  // -1: no pixel
   // K9's votes and K6's shuffles name the whole warp: with kOctant or
   // kFrustum every lane stays to the end
   constexpr bool kWarp = kOctant || kFrustum;
   if (!kWarp && i < 0) return;
-  // the tiled K6 forms' packet stacks, one per warp
-  constexpr bool kShared = kFrustum && kTiles;
-  __shared__ int stacks[kShared ? kWarps * rz::STACK_DEPTH : 1];
+  // the K6 forms' packet stacks, one per warp
+  __shared__ int stacks[kFrustum ? kWarps * rz::STACK_DEPTH : 1];
   rz::SharedStack stack{stacks +
-                        (kShared ? (threadIdx.x >> 5) * rz::STACK_DEPTH : 0)};
+                        (kFrustum ? (threadIdx.x >> 5) * rz::STACK_DEPTH : 0)};
   const bool on = i >= 0 && act[i] != 0;
   float acc[3] = {0.0f, 0.0f, 0.0f};  // the current sub-block's sum
   int rays = 0;
@@ -219,10 +179,8 @@ __global__ void __launch_bounds__(kTiles ? kThreads : kBlock,
       // ---- bounce 0: primary hit, the only bounce with direct lighting
       rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
       const rz::Ray pr = rz::make_ray(cpx, cpy, cpz, dx, dy, dz);
-      if constexpr (kShared) {  // every lane of the warp
+      if constexpr (kFrustum) {  // every lane of the warp
         rz::frustum_walk_closest(w.tb, pr, on, h, stack, Count{});
-      } else if constexpr (kFrustum) {
-        rz::frustum_closest(w.tb, pr, on, h);  // every lane of the warp
       } else if (on) {
         w.closest(pr, h);
       }
@@ -279,8 +237,7 @@ __global__ void __launch_bounds__(kTiles ? kThreads : kBlock,
   }
 }
 
-template <bool kOctant, bool kFrustum, bool kTiles,
-          class Count = rz::NoCount, class Walk>
+template <bool kOctant, bool kFrustum, class Count = rz::NoCount, class Walk>
 int launch_sample(Walk w, const float* mats, const float* lights,
                   const float* cam, const float* uv, const uint8_t* act, int n,
                   const SampleParams* params, float* color_out, int* rays_out,
@@ -288,11 +245,9 @@ int launch_sample(Walk w, const float* mats, const float* lights,
   using W = std::conditional_t<std::is_same_v<Count, LaneCount>, Counted<Walk>,
                                Walk>;
   if (n > 0) {
-    const int threads = kTiles ? kThreads : kBlock;
-    const int blocks = kTiles ? tile_blocks(n, params->width, params->height)
-                              : (n + kBlock - 1) / kBlock;
-    sample_kernel<W, kOctant, kFrustum, kTiles, Count>
-        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    sample_kernel<W, kOctant, kFrustum, Count>
+        <<<tile_blocks(n, params->width, params->height), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
             W{w}, mats, lights, cam, uv, act, n, *params, color_out, rays_out,
             state_out);
   }
@@ -545,18 +500,12 @@ int launch_regen(Walk w, const float* mats, const float* lights,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4's phase 1, plain form: regen_phase1_kernel (the scanline lockstep loop
-// in a -DRZ_PHASE1_SCANLINE build).
+// K4's phase 1, plain form: regen_phase1_kernel.
 template <class Count = rz::NoCount, class Walk>
 int launch_phase1(Walk w, const float* mats, const float* lights,
                   const float* cam, const float* uv, const uint8_t* act, int n,
                   const SampleParams* params, float* color_out, int* rays_out,
                   float* state_out, void* stream) {
-#ifdef RZ_PHASE1_SCANLINE
-  return launch_sample<false, false, false, Count>(
-      w, mats, lights, cam, uv, act, n, params, color_out, rays_out, state_out,
-      stream);
-#else
   if (n > 0) {
     regen_phase1_kernel<Walk, Count>
         <<<tile_blocks(n, params->width, params->height), kThreads, 0,
@@ -565,7 +514,6 @@ int launch_phase1(Walk w, const float* mats, const float* lights,
                                                 rays_out, state_out);
   }
   return static_cast<int>(cudaGetLastError());
-#endif
 }
 
 // The compiled budget of a K1 kernel launched with kThreads threads: out =
@@ -611,7 +559,7 @@ int rz_sample_wave(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, false, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+  return launch_sample<true, false>(RZ_BVH2_WALK, RZ_REST, nullptr,
                                           stream);
 }
 
@@ -620,7 +568,7 @@ int rz_sample_wave_tiered(RZ_TIERED_ARGS, void* stream) {
 }
 
 int rz_sample_wave_tiered_octant(RZ_TIERED_ARGS, void* stream) {
-  return launch_sample<true, false, true>(RZ_TIERED_WALK, RZ_REST, nullptr,
+  return launch_sample<true, false>(RZ_TIERED_WALK, RZ_REST, nullptr,
                                           stream);
 }
 
@@ -630,7 +578,7 @@ int rz_sample_wave_phase1(RZ_BVH2_ARGS, float* state_out, void* stream) {
 
 int rz_sample_wave_phase1_octant(RZ_BVH2_ARGS, float* state_out,
                                  void* stream) {
-  return launch_sample<true, false, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<true, false>(RZ_BVH2_WALK, RZ_REST,
                                                   state_out, stream);
 }
 
@@ -639,29 +587,29 @@ int rz_sample_wave_wide(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_wide_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, false, true>(RZ_BVH8_WALK, RZ_REST, nullptr,
+  return launch_sample<true, false>(RZ_BVH8_WALK, RZ_REST, nullptr,
                                           stream);
 }
 
 int rz_sample_wave_frustum(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<false, true, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
                                           stream);
 }
 
 int rz_sample_wave_frustum_octant(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, true, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
+  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST, nullptr,
                                          stream);
 }
 
 int rz_sample_wave_phase1_frustum(RZ_BVH2_ARGS, float* state_out,
                                   void* stream) {
-  return launch_sample<false, true, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<false, true>(RZ_BVH2_WALK, RZ_REST,
                                                   state_out, stream);
 }
 
 int rz_sample_wave_phase1_frustum_octant(RZ_BVH2_ARGS, float* state_out,
                                          void* stream) {
-  return launch_sample<true, true, kPhase1Tiles>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<true, true>(RZ_BVH2_WALK, RZ_REST,
                                                  state_out, stream);
 }
 
@@ -683,27 +631,27 @@ int rz_sample_wave_wide_count(RZ_BVH2_ARGS, void* stream) {
 }
 
 int rz_sample_wave_octant_count(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, false, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<true, false, LaneCount>(RZ_BVH2_WALK, RZ_REST,
                                                      nullptr, stream);
 }
 
 int rz_sample_wave_tiered_octant_count(RZ_TIERED_ARGS, void* stream) {
-  return launch_sample<true, false, true, LaneCount>(RZ_TIERED_WALK, RZ_REST,
+  return launch_sample<true, false, LaneCount>(RZ_TIERED_WALK, RZ_REST,
                                                      nullptr, stream);
 }
 
 int rz_sample_wave_wide_octant_count(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, false, true, LaneCount>(RZ_BVH8_WALK, RZ_REST,
+  return launch_sample<true, false, LaneCount>(RZ_BVH8_WALK, RZ_REST,
                                                      nullptr, stream);
 }
 
 int rz_sample_wave_frustum_count(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<false, true, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<false, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
                                                      nullptr, stream);
 }
 
 int rz_sample_wave_frustum_octant_count(RZ_BVH2_ARGS, void* stream) {
-  return launch_sample<true, true, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
+  return launch_sample<true, true, LaneCount>(RZ_BVH2_WALK, RZ_REST,
                                                     nullptr, stream);
 }
 
@@ -715,19 +663,19 @@ int rz_sample_wave_phase1_count(RZ_BVH2_ARGS, float* state_out, void* stream) {
 
 int rz_sample_wave_phase1_octant_count(RZ_BVH2_ARGS, float* state_out,
                                        void* stream) {
-  return launch_sample<true, false, kPhase1Tiles, LaneCount>(
+  return launch_sample<true, false, LaneCount>(
       RZ_BVH2_WALK, RZ_REST, state_out, stream);
 }
 
 int rz_sample_wave_phase1_frustum_count(RZ_BVH2_ARGS, float* state_out,
                                         void* stream) {
-  return launch_sample<false, true, kPhase1Tiles, LaneCount>(
+  return launch_sample<false, true, LaneCount>(
       RZ_BVH2_WALK, RZ_REST, state_out, stream);
 }
 
 int rz_sample_wave_phase1_frustum_octant_count(RZ_BVH2_ARGS, float* state_out,
                                                void* stream) {
-  return launch_sample<true, true, kPhase1Tiles, LaneCount>(
+  return launch_sample<true, true, LaneCount>(
       RZ_BVH2_WALK, RZ_REST, state_out, stream);
 }
 
@@ -751,18 +699,12 @@ int rz_sample_budget(int policy, int* out) {
   switch (policy) {
     case 1: return budget_of(regen_kernel<TieredWalk, NoCount>, out);
     case 2: return budget_of(regen_kernel<Bvh8Walk, NoCount>, out);
-    case 3: return budget_of(sample_kernel<Bvh2Walk, true, false, true>, out);
-    case 4: return budget_of(sample_kernel<TieredWalk, true, false, true>, out);
-    case 5: return budget_of(sample_kernel<Bvh8Walk, true, false, true>, out);
-    case 6: return budget_of(sample_kernel<Bvh2Walk, false, true, true>, out);
-    case 7: return budget_of(sample_kernel<Bvh2Walk, true, true, true>, out);
-#ifdef RZ_PHASE1_SCANLINE
-    case 8:
-      return rz::budget_of(sample_kernel<Bvh2Walk, false, false, false>,
-                           kBlock, out);
-#else
+    case 3: return budget_of(sample_kernel<Bvh2Walk, true, false>, out);
+    case 4: return budget_of(sample_kernel<TieredWalk, true, false>, out);
+    case 5: return budget_of(sample_kernel<Bvh8Walk, true, false>, out);
+    case 6: return budget_of(sample_kernel<Bvh2Walk, false, true>, out);
+    case 7: return budget_of(sample_kernel<Bvh2Walk, true, true>, out);
     case 8: return budget_of(regen_phase1_kernel<Bvh2Walk, NoCount>, out);
-#endif
     default: return budget_of(regen_kernel<Bvh2Walk, NoCount>, out);
   }
 }

@@ -150,8 +150,9 @@ RZ_DEV bool push_children(int* stack, int& sp, bool push_l, bool push_r,
 enum WalkMode { kClosest, kShadow, kEither };
 
 // Walk-loop step counters: NoCount for every kernel but the counting forms
-// of K1 and K7, which count with LaneCount: step() at a step of a per-lane
-// walk, packet(on) at a step of K6's packet walk (frustum.cuh).
+// of K1, the continuation and the standalone walks, which count with
+// LaneCount: step() at a step of a per-lane walk, packet(on) at a step of
+// K6's packet walk (frustum.cuh).
 struct NoCount {
   RZ_DEV void step() const {}
   RZ_DEV void packet(bool) const {}
@@ -651,105 +652,15 @@ RZ_DEV void walk_misslink(const MisslinkTables& tb, const Ray& r,
   }
 }
 
-// The parent's K7, kept as the anchor that the card checks time and hold
-// the walk above against (walk_kernels.cu rz_*_misslink_rows): one thread per
-// wave slot over WorldArrays.records, whose row is [bmin(3) bmax(3) |
-// left_first, count, miss (float-encoded ints) | K leaf triangles x 9 | K
-// transparencies | K encoded materials | pad].
-struct RecordTables {
-  const float* rec;  // (Nu, rec_w), rec_w a multiple of 4
-  int rec_w;
-  int leaf_k;
-};
-
-// The node's box, links and count: two 16-byte loads and one more float.
-RZ_DEV void load_record_head(const float* row, float box[6], int& left,
-                             int& count, int& miss) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
-  box[0] = a.x;
-  box[1] = a.y;
-  box[2] = a.z;
-  box[3] = a.w;
-  box[4] = b.x;
-  box[5] = b.y;
-  left = (int)b.z;
-  count = (int)b.w;
-  miss = (int)__ldg(row + 8);
-}
-
-// Closest hit from the state ``h`` (h.t = T_FAR: no bound).
-template <class Count>
-RZ_DEV void walk_closest_misslink_rows(const RecordTables& tb, const Ray& r,
-                                       HitRec& h, const Count& cnt) {
-  const int K = tb.leaf_k;
-  int cur = 0;  // the root
-  while (cur >= 0) {
-    cnt.step();
-    const float* row = tb.rec + (size_t)cur * tb.rec_w;
-    float box[6], tmin;
-    int left, count, miss;
-    load_record_head(row, box, left, count, miss);
-    const bool hit = slab(r, box, tmin) && (tmin <= h.t);
-    if (hit && count >= 0) {  // a leaf: its inlined triangles, in order
-      const int n = count < K ? count : K;
-      for (int k = 0; k < n; ++k) {
-        const float* tri = row + 9 + 9 * k;
-        float t;
-        if (moller_trumbore(r, tri, t) && t < h.t) {
-          float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-          float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
-          h.t = t;
-          h.tri = left + k;
-          h.cx = e1y * e2z - e1z * e2y;
-          h.cy = e1z * e2x - e1x * e2z;
-          h.cz = e1x * e2y - e1y * e2x;
-          h.menc = __ldg(row + 9 + 10 * K + k);
-        }
-      }
-    }
-    cur = (hit && count < 0) ? left : miss;
-  }
-}
-
-// Transmission visibility within (t_eps, maxd), the walk_shadow contract:
-// blockers multiply in their record's transparency (0 = opaque); the ray
-// stops once vis <= min_vis.
-template <class Count>
-RZ_DEV float walk_shadow_misslink_rows(const RecordTables& tb, const Ray& r,
-                                       float maxd, float min_vis, float t_eps,
-                                       const Count& cnt) {
-  const int K = tb.leaf_k;
-  float vis = 1.0f;
-  if (!(vis > min_vis)) return vis;
-  int cur = 0;
-  while (cur >= 0) {
-    cnt.step();
-    const float* row = tb.rec + (size_t)cur * tb.rec_w;
-    float box[6], tmin;
-    int left, count, miss;
-    load_record_head(row, box, left, count, miss);
-    const bool hit = slab(r, box, tmin) && (tmin <= maxd);
-    if (hit && count >= 0) {
-      const int n = count < K ? count : K;
-      for (int k = 0; k < n; ++k) {
-        float t;
-        if (moller_trumbore(r, row + 9 + 9 * k, t) && t >= t_eps && t < maxd) {
-          vis = vis * __ldg(row + 9 + 9 * K + k);
-        }
-      }
-      if (!(vis > min_vis)) return vis;
-    }
-    cur = (hit && count < 0) ? left : miss;
-  }
-  return vis;
-}
-
 // Walk policies: the tables a kernel walks and how. The standalone kernels
 // and sample_kernel are templates over them, so the tiered K1 shares every
 // line of shading, RNG and bounce code with the whole-tree K1. ``trace`` is
 // the kEither walk of the regenerating K1: a closest ray from ``h`` (h.t =
 // T_FAR) or, with ``is_shadow``, a shadow ray with h.t = maxd and vis = 1.
+// ``walk<kMode>`` is the one-mode walk the live-ray launcher of the
+// standalone walks (walk_kernels.cu live_walk_kernel) runs, counting its
+// steps with Count: a closest ray from ``h``, a shadow ray with h.t = maxd
+// and vis = 1 (closest and shadow are its NoCount forms).
 struct Bvh2Walk {
   Tables tb;
   RZ_DEV void closest(const Ray& r, HitRec& h) const { walk_closest(tb, r, h); }
@@ -762,6 +673,11 @@ struct Bvh2Walk {
                     float t_eps, HitRec& h, float& vis,
                     const Count& cnt) const {
     walk_bvh2<kEither>(tb, r, is_shadow, min_vis, t_eps, h, vis, cnt);
+  }
+  template <int kMode, class Count>
+  RZ_DEV void walk(const Ray& r, float min_vis, float t_eps, HitRec& h,
+                   float& vis, const Count& cnt) const {
+    walk_bvh2<kMode>(tb, r, kMode == kShadow, min_vis, t_eps, h, vis, cnt);
   }
 };
 
@@ -780,6 +696,11 @@ struct TieredWalk {
                     const Count& cnt) const {
     walk_tiered<kEither>(tt, r, is_shadow, min_vis, t_eps, h, vis, cnt);
   }
+  template <int kMode, class Count>
+  RZ_DEV void walk(const Ray& r, float min_vis, float t_eps, HitRec& h,
+                   float& vis, const Count& cnt) const {
+    walk_tiered<kMode>(tt, r, kMode == kShadow, min_vis, t_eps, h, vis, cnt);
+  }
 };
 
 struct Bvh8Walk {
@@ -797,19 +718,39 @@ struct Bvh8Walk {
                     const Count& cnt) const {
     walk_bvh8<kEither>(tb, r, is_shadow, min_vis, t_eps, h, vis, cnt);
   }
+  template <int kMode, class Count>
+  RZ_DEV void walk(const Ray& r, float min_vis, float t_eps, HitRec& h,
+                   float& vis, const Count& cnt) const {
+    walk_bvh8<kMode>(tb, r, kMode == kShadow, min_vis, t_eps, h, vis, cnt);
+  }
 };
 
-// The parent's K7 over the records (walk_kernels.cu's one-thread-per-slot
-// kernels), counting its steps with Count.
-template <class Count>
-struct MisslinkRowsWalk {
-  RecordTables tb;
+// K7's tables: standalone only (no K1 form walks them).
+struct MisslinkWalk {
+  MisslinkTables tb;
+  template <int kMode, class Count>
+  RZ_DEV void walk(const Ray& r, float min_vis, float t_eps, HitRec& h,
+                   float& vis, const Count& cnt) const {
+    walk_misslink<kMode>(tb, r, min_vis, t_eps, h, vis, cnt);
+  }
+};
+
+// The walks of the counting forms of the lockstep sample_kernel (K1's K9
+// and K6 forms) and of the continuation: Walk's closest and shadow walks as
+// its kEither walk (trace, the regenerating K1's, which takes the same
+// steps to the same result) with LaneCount at every step.
+template <class Walk>
+struct Counted : Walk {
   RZ_DEV void closest(const Ray& r, HitRec& h) const {
-    walk_closest_misslink_rows(tb, r, h, Count{});
+    float vis = 1.0f;
+    this->trace(r, false, 0.0f, 0.0f, h, vis, LaneCount{});
   }
   RZ_DEV float shadow(const Ray& r, float maxd, float min_vis,
                       float t_eps) const {
-    return walk_shadow_misslink_rows(tb, r, maxd, min_vis, t_eps, Count{});
+    HitRec h{maxd, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+    float vis = 1.0f;
+    this->trace(r, true, min_vis, t_eps, h, vis, LaneCount{});
+    return vis;
   }
 };
 

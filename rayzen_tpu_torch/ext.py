@@ -19,15 +19,15 @@ instantiations of sample_kernel.cu behind separate entry points, so each
 has its own count: K1 over the whole tree, the tiered view and the wide
 tables runs a ``regen_kernel`` (K4's plain phase 1 ``regen_phase1_kernel``);
 the K9 and K6 forms of both run the warp-tiled lockstep ``sample_kernel``.
-K7 runs ``misslink_kernel``
-over the live rays of its wave; the parent's K7 (``_misslink_rows``)
-stays beside it as the anchor of the card checks.
+K4's continuation runs ``continuation_kernel`` over the live rays of the
+split, read through the compaction's permutation. The standalone walks
+K2, K3, K5, K7 and K8 run ``live_walk_kernel``, one template over the
+walk, over the live rays of their wave.
 
 ``build`` also takes another source tree, output path and ``-D`` defines,
-and ``bind`` loads any such library: scripts/k1_schedule.py builds K1, K4's
-phase 1 and K7 at other register budgets and schedules, and an older
-tree's kernels, beside these; chip_smoke.py builds the parent's phase-1
-schedule (-DRZ_PHASE1_SCANLINE) as its anchor.
+and ``bind`` loads any such library: scripts/k1_schedule.py builds K1, K4
+and the standalone walks at other register budgets and schedules, and an
+older tree's kernels, beside these.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ STACK_DEPTH = 64
 # kernel -> launches made by its wrapper (reset with reset_launches()); the
 # "_octant" entries are the instantiations with K9 bounce walks, "_wide" the
 # K5 ones, "_frustum" those with the K6 primary walk, "_count" the counting
-# K1, phase 1 and K7 (megakernel.walk_lane_counts, walk.misslink_lane_counts:
-# diagnostics) and "_misslink_rows" the parent's K7 (the card checks' anchor)
+# K1, K4 and standalone walks (megakernel.walk_lane_counts,
+# megakernel.continuation_lane_counts, walk.live_lane_counts: diagnostics)
 LAUNCHES = {
     "sample_wave": 0, "sample_wave_tiered": 0,
     "sample_wave_octant": 0, "sample_wave_tiered_octant": 0,
@@ -70,14 +70,14 @@ LAUNCHES = {
     "sample_wave_tiered_octant_count": 0, "sample_wave_wide_octant_count": 0,
     "sample_wave_frustum_count": 0, "sample_wave_frustum_octant_count": 0,
     "continuation": 0, "continuation_octant": 0,
+    "continuation_count": 0, "continuation_octant_count": 0,
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
+    "closest_hit_bvh2_count": 0, "shadow_walk_bvh2_count": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
     "closest_hit_bvh8": 0, "shadow_walk_bvh8": 0,
     "closest_hit_frustum": 0, "shadow_walk_frustum": 0,
     "closest_hit_misslink": 0, "shadow_walk_misslink": 0,
     "closest_hit_misslink_count": 0, "shadow_walk_misslink_count": 0,
-    "closest_hit_misslink_rows": 0, "shadow_walk_misslink_rows": 0,
-    "closest_hit_misslink_rows_count": 0, "shadow_walk_misslink_rows_count": 0,
     "sample_wave_phase1_count": 0, "sample_wave_phase1_octant_count": 0,
     "sample_wave_phase1_frustum_count": 0,
     "sample_wave_phase1_frustum_octant_count": 0,
@@ -149,9 +149,10 @@ def build(force: bool = False, csrc: str = CSRC, out: str = LIB_PATH,
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
     -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
-    ",frustum" for those with the K6 primary walk, ",tiles" for the lockstep
-    loop's warp-tiled forms, ",count" for the counting forms; K7's kernel is
-    "misslink_kernel<closest>" or "<shadow>")."""
+    ",frustum" for those with the K6 primary walk, ",tiles" for an older
+    build's warp-tiled lockstep forms, ",count" for the counting forms; the
+    standalone walks' kernel is "live_walk_kernel<closest,Walk>" or
+    "<shadow,Walk>")."""
     import re
 
     out, cur = {}, None
@@ -161,21 +162,24 @@ def ptxas_summary(log: str) -> dict:
             # (an anonymous namespace's mangling names the source file, so
             # every kernel of sample_kernel.cu holds "sample_kernel")
             kernel = next((k for k in ("continuation_kernel", "regen_kernel",
-                                       "regen_phase1_kernel", "misslink_kernel",
-                                       "sample_kernel",
+                                       "regen_phase1_kernel", "live_walk_kernel",
+                                       "misslink_kernel", "sample_kernel",
                                        "closest_frustum_kernel",
                                        "shadow_frustum_kernel",
                                        "closest_kernel", "shadow_kernel")
                            if k in mangled), mangled)
-            count = ",count" if "LaneCount" in mangled else ""
-            if kernel == "misslink_kernel":  # template <int kMode, class Count>
-                mode = "closest" if "misslink_kernelILi0E" in mangled else "shadow"
-                cur = f"{kernel}<{mode}{count}>"
+            count = (",count" if "LaneCount" in mangled or "Counted" in mangled
+                     else "")
+            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk",
+                                     "MisslinkWalk", "MisslinkRowsWalk")
+                         if w in mangled), "Bvh2Walk")
+            if kernel in ("live_walk_kernel", "misslink_kernel"):
+                # template <int kMode, ...>: 0 closest, 1 shadow
+                mode = "closest" if f"{kernel}ILi0E" in mangled else "shadow"
+                cur = (f"{kernel}<{mode},{walk}{count}>" if kernel == "live_walk_kernel"
+                       else f"{kernel}<{mode}{count}>")
                 out[cur] = {}
                 continue
-            walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk",
-                                     "MisslinkRowsWalk")
-                         if w in mangled), "Bvh2Walk")
             flags = re.findall(r"Lb([01])E", mangled)
             octant = ",octant" if flags[:1] == ["1"] else ""
             frustum = ",frustum" if flags[1:2] == ["1"] else ""
@@ -224,24 +228,29 @@ def bind(path: str) -> ctypes.CDLL:
     # tables, mats, lights, cam, uv, act, n, params, color, rays
     bvh2 = [p, p, i, i, p, p, p, p, p, i, sp, p, p]
     tiered = [p, p, p, i, i, i, i, p, p, p, p, p, i, sp, p, p]
-    # tables, mats, state_in, n, params, color, rays, state_out, stream
-    cont = [p, p, i, i, p, p, i, sp, p, p, p, p]
+    # tables, mats, state, n, order, live, params, color, rays, next, emit,
+    # stream
+    cont = [p, p, i, i, p, p, i, p, p, sp, p, p, p, i, p]
     # tables, orig, dir, act, n, t, tri, cross, menc, stream
     closest = [p, p, i, i, p, p, p, i, p, p, p, p, p]
     # tables, orig, dir, maxd, act, n, min_vis, t_eps, vis, stream
     shadow = [p, p, i, i, p, p, p, p, i, f, f, p, p]
+    # K2: tables, orig, dir, act, t_init, n, width, height, t, tri, cross,
+    # menc, stream; K3: tables, orig, dir, maxd, act, n, width, height,
+    # min_vis, t_eps, vis, stream
+    k2 = [p, p, i, i, p, p, p, p, i, i, i, p, p, p, p, p]
+    k3 = [p, p, i, i, p, p, p, p, i, i, i, f, f, p, p]
     # K7: nodes, tris, leaf_k, orig, dir, (maxd,) act, n, width, height, ...
     k7_closest = [p, p, i, p, p, p, i, i, i, p, p, p, p, p]
     k7_shadow = [p, p, i, p, p, p, p, i, i, i, f, f, p, p]
-    # the parent's K7: records, rec_w, leaf_k, orig, dir, (maxd,) act, n, ...
-    rows_closest = [p, i, i, p, p, p, i, p, p, p, p, p]
-    rows_shadow = [p, i, i, p, p, p, p, i, f, f, p, p]
     for name, args, res in (
         ("rz_error_string", [i], ctypes.c_char_p),
         ("rz_stack_depth", [], i),
         ("rz_sample_params_size", [], i),
-        ("rz_closest_bvh2", [p, p, i, i, p, p, p, p, i, p, p, p, p, p], i),
-        ("rz_shadow_bvh2", shadow, i),
+        ("rz_closest_bvh2", k2, i),
+        ("rz_shadow_bvh2", k3, i),
+        ("rz_closest_bvh2_count", k2, i),
+        ("rz_shadow_bvh2_count", k3, i),
         ("rz_closest_bvh8", closest, i),
         ("rz_shadow_bvh8", shadow, i),
         ("rz_closest_frustum", closest, i),
@@ -250,12 +259,8 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_shadow_misslink", k7_shadow, i),
         ("rz_closest_misslink_count", k7_closest, i),
         ("rz_shadow_misslink_count", k7_shadow, i),
-        ("rz_closest_misslink_rows", rows_closest, i),
-        ("rz_shadow_misslink_rows", rows_shadow, i),
-        ("rz_closest_misslink_rows_count", rows_closest, i),
-        ("rz_shadow_misslink_rows_count", rows_shadow, i),
-        ("rz_misslink_lanes", [p, i], i),
-        ("rz_misslink_budget", [i, p], i),
+        ("rz_live_walk_lanes", [p, i], i),
+        ("rz_live_walk_budget", [i, p], i),
         ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p], i),
         ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p], i),
         ("rz_sample_wave", bvh2 + [p], i),
@@ -286,6 +291,10 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_sample_budget", [i, p], i),
         ("rz_continuation", cont, i),
         ("rz_continuation_octant", cont, i),
+        ("rz_continuation_count", cont, i),
+        ("rz_continuation_octant_count", cont, i),
+        ("rz_continuation_lanes", [p, i], i),
+        ("rz_continuation_budget", [i, p], i),
     ):
         if hasattr(L, name):
             fn = getattr(L, name)

@@ -100,16 +100,18 @@ def select_kernels(cfg: RenderConfig, tracer: str = "bvh"):
     check_config(cfg, tracer)
     if tracer == "brute":
         return brute_force_world, shadow_brute, None, False
-    if cfg.kernels == "pallas-ml":  # the miss-link kernels (K7), warp-tiled
-        frame = dict(width=cfg.width, height=cfg.height)  # on a whole frame
+    # the live-ray walks take a whole frame's wave in K1's warp tiles
+    frame = dict(width=cfg.width, height=cfg.height)
+    if cfg.kernels == "pallas-ml":  # the miss-link kernels (K7)
         return (functools.partial(walk.closest_hit_misslink, **frame),
                 functools.partial(walk.shadow_walk_misslink, **frame), None,
                 False)
-    if cfg.kernels == "pallas-bvh2":
-        return walk.closest_hit_bvh2, walk.shadow_walk_bvh2, None, False
+    bvh2 = (functools.partial(walk.closest_hit_bvh2, **frame),
+            functools.partial(walk.shadow_walk_bvh2, **frame))
+    if cfg.kernels == "pallas-bvh2":  # K2 / K3
+        return (*bvh2, None, False)
     if cfg.kernels == "pallas-nomega":  # the frustum walk for the primary hit
-        return (walk.closest_hit_bvh2, walk.shadow_walk_bvh2,
-                walk.closest_hit_frustum, False)
+        return (*bvh2, walk.closest_hit_frustum, False)
     if cfg.kernels == "xla":
         return None, None, None, False
     return None, None, None, True  # "auto", "pallas": K1

@@ -737,18 +737,25 @@ def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,
 # "frustum_octant" instantiations)
 BUDGET_POLICIES = ("bvh2", "tiered", "wide", "octant", "tiered_octant",
                    "wide_octant", "frustum", "frustum_octant")
+# K4's continuation forms, by their rz_continuation_budget id
+CONTINUATION_FORMS = ("continuation", "continuation_octant")
 
 
 def sample_budget(policy: str) -> dict:
     """The compiled budget of a K1 form (a name of BUDGET_POLICIES: the walk
     policy "bvh2", "tiered" or "wide", with K9 bounce walks "..._octant",
-    the K6 primary "frustum", with K9 "frustum_octant") or of K4's plain
-    phase 1 ("phase1"): threads per block, registers per thread, local
+    the K6 primary "frustum", with K9 "frustum_octant"), of K4's plain
+    phase 1 ("phase1") or of a K4 continuation form (a name of
+    CONTINUATION_FORMS): threads per block, registers per thread, local
     memory per thread in bytes (walk stacks and spills) and resident warps
     per SM (the CUDA occupancy calculator)."""
     out = (ctypes.c_int * 4)()
-    pid = 8 if policy == "phase1" else BUDGET_POLICIES.index(policy)
-    ext.check(ext.lib().rz_sample_budget(pid, out), "rz_sample_budget")
+    if policy in CONTINUATION_FORMS:
+        ext.check(ext.lib().rz_continuation_budget(
+            CONTINUATION_FORMS.index(policy), out), "rz_continuation_budget")
+    else:
+        pid = 8 if policy == "phase1" else BUDGET_POLICIES.index(policy)
+        ext.check(ext.lib().rz_sample_budget(pid, out), "rz_sample_budget")
     return dict(threads=out[0], regs=out[1], local_bytes=out[2],
                 warps_per_sm=out[3])
 
@@ -826,69 +833,130 @@ def sample_wave_phase1(ws: WorldArrays, cfg: RenderConfig, uv, active,
     return color, rays.sum(dtype=torch.int64), state
 
 
-def continuation_reference(ws: WorldArrays, cfg: RenderConfig, state, samp,
-                           rng_key, max_bounces: int, b_start: int,
-                           b_stop: int, emit: bool,
+def continuation_reference(ws: WorldArrays, cfg: RenderConfig, state, order,
+                           live, color, rays, samp, rng_key, max_bounces: int,
+                           b_start: int, b_stop: int, emit: bool,
                            work: walk.Work | None = None):
-    """Plain version of K4's continuation kernel. Returns (color (R, 3) in
-    the state's order, rays () int64, the state after b_stop - 1 (13, R) if
-    ``emit`` else None). ``work`` counts the walks' steps."""
+    """Plain version of K4's continuation kernel on the state's device: the
+    rays of pixels order[:live] (``live`` a count, on any device) resume
+    from their rows of ``state`` (13, R), in pixel order, at bounce b_start
+    and are traced to b_stop. Each ray's colour (from 0) is added into its
+    pixel's row of ``color`` (R, 3) and the rays it traces into ``rays`` (a
+    0-d int64), in place; with ``emit`` its rows after b_stop - 1 are
+    written back into ``state``. Returns None. ``work`` counts the walks'
+    steps."""
     walk.check_depth(ws)
     c = _consts(cfg, samp, rng_key, max_bounces, 1)
-    n, dev = state.shape[1], state.device
-    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.zeros((n,), dtype=torch.int64, device=dev)
-    sel = (state[10] > 0.5).nonzero()[:, 0]
-    s0, s1 = state[11], state[12]
+    dev = state.device
+    pix = order[: int(live)].long()
+    sub = state[:, pix]
+    m = pix.numel()
+    col = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+    r = torch.zeros((m,), dtype=torch.int64, device=dev)
+    sel = (sub[10] > 0.5).nonzero()[:, 0]
+    s0, s1 = sub[11], sub[12]
     samp_f = torch.tensor(c.samp0, dtype=torch.float32, device=dev)
-    sel, path = _bounces(ws, c, sel, tuple(state[k, sel] for k in range(10)),
-                         color, rays, _ref_draws(s0, s1, samp_f), b_start,
-                         b_stop, work)
-    return color, rays.sum(), (_state_rows(n, sel, path, s0, s1) if emit
-                               else None)
+    sel, path = _bounces(ws, c, sel, tuple(sub[k, sel] for k in range(10)),
+                         col, r, _ref_draws(s0, s1, samp_f), b_start, b_stop,
+                         work)
+    color[pix] = color[pix] + col
+    rays += r.sum()
+    if emit:
+        state[:, pix] = _state_rows(m, sel, path, s0, s1)
 
 
-def continuation(ws: WorldArrays, cfg: RenderConfig, state, samp, rng_key,
-                 max_bounces: int, b_start: int, b_stop: int, emit: bool):
-    """K4's continuation kernel (megakernel._make_continuation_kernel
-    :743): resume the rays of ``state`` (13, R) at bounce b_start and trace
-    them to b_stop, with K9 bounce walks under cfg.octant_bounce_walks.
-    Returns (color (R, 3) from 0, in the state's order; rays () int64; with
-    ``emit`` the state after b_stop - 1, else None). The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if state.device.type == "cpu":
-        return continuation_reference(ws, cfg, state, samp, rng_key,
-                                      max_bounces, b_start, b_stop, emit)
-    if not state.is_cuda:
-        raise ValueError(f"no K4 continuation for device {state.device}")
+def _check_split(ws: WorldArrays, cfg: RenderConfig, state, order, live,
+                 color, rays):
+    """What the continuation kernel reads and writes in place."""
     if ws.tiered or cfg.rng != "reference":
         raise ValueError("the continuation runs the reference-RNG single-tree walks")
+    n = state.shape[1] if state.dim() == 2 else -1
     if (state.dtype != torch.float32 or state.dim() != 2
             or state.shape[0] != STATE_ROWS or not state.is_contiguous()):
         raise ValueError("state must be a contiguous (13, R) float32 tensor")
-    walk.check_cuda_inputs(ws, state, ws.materials)
+    if order.dtype != torch.int32 or order.shape != (n,):
+        raise ValueError("order must be an (R,) int32 tensor")
+    if live.dtype != torch.int32 or live.numel() != 1:
+        raise ValueError("live must be one int32")
+    if color.dtype != torch.float32 or color.shape != (n, 3):
+        raise ValueError("color must be an (R, 3) float32 tensor")
+    if rays.dtype != torch.int64 or rays.numel() != 1:
+        raise ValueError("rays must be one int64")
+    walk.check_cuda_inputs(ws, state, order, live, color, rays, ws.materials)
     _check_tables(ws)
+
+
+def _launch_continuation(ws: WorldArrays, cfg: RenderConfig, state, order,
+                         live, color, rays, samp, rng_key, max_bounces: int,
+                         b_start: int, b_stop: int, emit: bool,
+                         count: bool = False):
+    """Launch K4's continuation (with ``count``, its counting form) in the
+    instantiation cfg.octant_bounce_walks asks for."""
+    _check_split(ws, cfg, state, order, live, color, rays)
     c = _consts(cfg, samp, rng_key, max_bounces, 1)
     n, dev = state.shape[1], state.device
-    color = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((n,), dtype=torch.int32, device=dev)
-    out = torch.empty_like(state) if emit else None
-    name = "continuation" + ("_octant" if c.octant else "")
+    nxt = torch.empty((1,), dtype=torch.int32, device=dev)  # the slot counter
+    name = ("continuation" + ("_octant" if c.octant else "")
+            + ("_count" if count else ""))
     params = _sample_params(c, ws, b_start, b_stop)
     err = getattr(ext.lib(), "rz_" + name)(
         *walk.table_args(ws, "bvh2"), ws.materials.data_ptr(), state.data_ptr(),
-        n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
-        None if out is None else out.data_ptr(),
+        n, order.data_ptr(), live.data_ptr(), ctypes.byref(params),
+        color.data_ptr(), rays.data_ptr(), nxt.data_ptr(), int(emit),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     ext.check(err, name)
-    ext.LAUNCHES[name] += n > 0
-    return color, rays.sum(dtype=torch.int64), out
+    ext.LAUNCHES[name] += n > 0  # the entry point skips n == 0
+
+
+def continuation(ws: WorldArrays, cfg: RenderConfig, state, order, live,
+                 color, rays, samp, rng_key, max_bounces: int, b_start: int,
+                 b_stop: int, emit: bool):
+    """K4's continuation kernel (megakernel._make_continuation_kernel
+    :743), continuation_reference's contract: resume the rays of pixels
+    order[:live] from their rows of ``state`` (13, R) at bounce b_start and
+    trace them to b_stop, with K9 bounce walks under
+    cfg.octant_bounce_walks; add their colour into ``color`` (R, 3) and
+    their rays into ``rays`` (0-d int64) in place, and with ``emit`` write
+    their rows back into ``state``. ``order`` (R,) int32 and ``live`` (one
+    int32) stay on the device: the kernel reads the count there. The kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    if state.device.type == "cpu":
+        return continuation_reference(ws, cfg, state, order, live, color, rays,
+                                      samp, rng_key, max_bounces, b_start,
+                                      b_stop, emit)
+    if not state.is_cuda:
+        raise ValueError(f"no K4 continuation for device {state.device}")
+    _launch_continuation(ws, cfg, state, order, live, color, rays, samp,
+                         rng_key, max_bounces, b_start, b_stop, emit)
+
+
+def continuation_lane_counts(ws: WorldArrays, cfg: RenderConfig, state, order,
+                             live, color, rays, samp, rng_key,
+                             max_bounces: int, b_start: int, b_stop: int,
+                             emit: bool):
+    """A diagnostic of K4's continuation on CUDA tensors (continuation's
+    contract, in place): its counting form traces the rays and sums, over
+    every step of every walk's node loop, the lanes of the warp that take
+    the step and 32. Returns (active lane-steps, warp-steps x 32). No render
+    path calls it."""
+    if not state.is_cuda:
+        raise ValueError("the counting continuation runs on CUDA tensors only")
+    sums = (ctypes.c_ulonglong * 2)()
+    torch.cuda.synchronize(state.device)
+    ext.check(ext.lib().rz_continuation_lanes(sums, 1), "rz_continuation_lanes")
+    _launch_continuation(ws, cfg, state, order, live, color, rays, samp,
+                         rng_key, max_bounces, b_start, b_stop, emit,
+                         count=True)
+    torch.cuda.synchronize(state.device)
+    ext.check(ext.lib().rz_continuation_lanes(sums, 1), "rz_continuation_lanes")
+    return int(sums[0]), int(sums[1])
 
 
 def _stable_partition(bucket, n_buckets: int):
-    """dest[i] = slot of ray i under a stable partition by bucket id
-    (megakernel.py:847), without argsort: one 1-D cumsum over the
+    """(dest, first): dest[i] = slot of ray i under a stable partition by
+    bucket id (megakernel.py:847), without argsort, and the first slot of
+    the last bucket (one int32 on the device): one 1-D cumsum over the
     bucket-major one-hot (n_buckets, R), flattened, counts for ray i in
     bucket k the rays of the buckets before k plus those of bucket k up to
     i. (A cumsum along dim 0 of an (R, n_buckets) one-hot runs as PyTorch's
@@ -898,17 +966,21 @@ def _stable_partition(bucket, n_buckets: int):
     onehot = (ids[:, None] == bucket[None, :]).to(torch.int32).reshape(-1)
     csum = torch.cumsum(onehot, 0, dtype=torch.int32)
     at = bucket.long() * n + torch.arange(n, device=bucket.device)
-    return csum[at] - 1
+    first = (csum[(n_buckets - 1) * n - 1] if n else
+             torch.zeros((), dtype=torch.int32, device=bucket.device))
+    return csum[at] - 1, first
 
 
 def _compaction_permutation(a, dxf, dyf, dzf, mode: str, origins=None):
     """megakernel._compaction_permutation (:861): a stable partition of the
-    wave, alive rays first, dead rays last. Returns int32 (dest, order): ray
-    i moves to slot dest[i]; slot j holds ray order[j]. "rank" keeps pixel
-    order among the survivors; "octant" buckets them by direction octant (9
-    buckets, dead last); "octcell" first sub-orders by a 2x2x2 origin cell
-    (split at the live rays' box centre), as two composed partitions. Any
-    other mode is "rank"."""
+    wave, alive rays first, dead rays last. Returns int32 (dest, order,
+    live): ray i moves to slot dest[i]; slot j holds ray order[j]; the
+    first ``live`` slots (a 0-d tensor on the wave's device, never read
+    back here) hold the live rays. "rank" keeps pixel order among the
+    survivors; "octant" buckets them by direction octant (9 buckets, dead
+    last: the live count is where bucket 8 starts); "octcell" first
+    sub-orders by a 2x2x2 origin cell (split at the live rays' box centre),
+    as two composed partitions. Any other mode is "rank"."""
     n, dev = a.shape[0], a.device
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     if mode in ("octant", "octcell"):
@@ -925,51 +997,47 @@ def _compaction_permutation(a, dxf, dyf, dzf, mode: str, origins=None):
             ox, oy, oz = origins
             cell = ((ox > mid(ox)).int() + 2 * (oy > mid(oy)).int()
                     + 4 * (oz > mid(oz)).int())
-            dest1 = _stable_partition(cell, 8)
+            dest1, _ = _stable_partition(cell, 8)
             order1 = torch.empty_like(iota)
             order1[dest1.long()] = iota
-            dest2 = _stable_partition(bucket[order1.long()], 9)
+            dest2, live = _stable_partition(bucket[order1.long()], 9)
             dest = dest2[dest1.long()]
         else:
-            dest = _stable_partition(bucket, 9)
+            dest, live = _stable_partition(bucket, 9)
     else:
         ia = a.int()
+        live = ia.sum(dtype=torch.int32)
         rank_alive = torch.cumsum(ia, 0, dtype=torch.int32) - ia
         da = 1 - ia
-        rank_dead = ia.sum(dtype=torch.int32) + torch.cumsum(
-            da, 0, dtype=torch.int32) - da
+        rank_dead = live + torch.cumsum(da, 0, dtype=torch.int32) - da
         dest = torch.where(a, rank_alive, rank_dead)
     order = torch.empty_like(iota)
     order[dest.long()] = iota
-    return dest, order
+    return dest, order, live
 
 
 def _split(phase1, cont, ws: WorldArrays, cfg: RenderConfig, uv, active,
            camera_params: dict, samp, rng_key, max_bounces: int):
     """sample_wave_split's flow (megakernel.py:1000-1041) over the given
-    phase 1 and continuation."""
+    phase 1 and continuation. The state rows stay in pixel order: each
+    compaction gives the permutation (slot -> pixel) and the live count,
+    which stay on the device, and the continuation reads its rays' rows
+    through them and adds their colour and rays in place. split_every
+    re-compacts before every late bounce (the pixel order each time: which
+    slot a ray takes changes no pixel's result)."""
     split_b = _split_point(ws, cfg, max_bounces)
     color, rays, state = phase1(ws, cfg, uv, active, camera_params, samp,
                                 rng_key, max_bounces)
-    # split_every re-compacts before every late bounce; pix2slot tracks
-    # where each pixel's ray lives (the permutations compose on it)
     starts = (list(range(split_b, max_bounces)) if cfg.split_every
               else [split_b])
-    pix2slot = None
     for i, b_start in enumerate(starts):
         b_stop = starts[i + 1] if i + 1 < len(starts) else max_bounces
-        dest, order = _compaction_permutation(
+        _dest, order, live = _compaction_permutation(
             state[10] > 0.5, state[3], state[4], state[5], cfg.split_rebin,
             origins=(state[0], state[1], state[2]),
         )
-        dest = dest.long()
-        pix2slot = dest if pix2slot is None else dest[pix2slot]
-        col, r, state = cont(ws, cfg, state[:, order.long()], samp, rng_key,
-                             max_bounces, b_start, b_stop,
-                             emit=b_stop < max_bounces)
-        # the phase's colour comes back in its compacted order
-        color = color + col[pix2slot]
-        rays = rays + r
+        cont(ws, cfg, state, order, live, color, rays, samp, rng_key,
+             max_bounces, b_start, b_stop, emit=b_stop < max_bounces)
     return color, rays
 
 

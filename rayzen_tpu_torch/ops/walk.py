@@ -15,7 +15,11 @@ JAX package runs only inside its sample kernel; ``closest_hit_misslink`` /
 ``pallas_shadow_walk`` (:1405). For CUDA tensors each
 wrapper launches its kernel (csrc/walk_kernels.cu); for CPU tensors it runs
 the plain PyTorch version below. The plain versions run on any device, so
-the kernels can be held against them on the card.
+the kernels can be held against them on the card. Every kernel but K6's
+walks only the live rays of its wave (and a whole frame's rays in K1's warp
+tiles, when the wrapper is given the frame's width and height); each ray's
+walk is its own, so the order in which a kernel takes them changes no
+result.
 
 The BVH2 forms walk each ray's own depth-first, left-first path through the
 tables with t pruning, exactly as csrc/walk.cuh does; see there why that
@@ -27,9 +31,7 @@ walk does the same over the 8-wide nodes (csrc/walk.cuh says in which
 order). The frustum walk is a packet walk, as csrc/frustum.cuh: one stack
 per packet of ``packet`` consecutive ray ids (a warp on the card), all
 packets advancing one node per step. The miss-link walk needs no stack: a
-ray's state is its node, and all unfinished rays advance one node per step;
-its kernel walks only the live rays (each ray's walk is its own, so the
-order in which a kernel takes them changes no result).
+ray's state is its node, and all unfinished rays advance one node per step.
 """
 
 from __future__ import annotations
@@ -899,14 +901,12 @@ def plain_walks(ws: WorldArrays, wide: bool = False):
 # ---- kernel launches -------------------------------------------------------
 
 # the tables a kernel walks ("view"): "bvh2" (K2/K3, and K6 over the same
-# rows), "tiered" (K8), "bvh8" (K5), "misslink" (K7) or "misslink_rows" (the
-# parent's K7, over the records)
+# rows), "tiered" (K8), "bvh8" (K5) or "misslink" (K7)
 def _table_tensors(ws: WorldArrays, view: str):
     return {"bvh2": (ws.inner_table, ws.leaf_table),
             "tiered": (ws.top_table, ws.tre_inner, ws.tre_leaf),
             "bvh8": (ws.inner8_table, ws.leaf8_table),
-            "misslink": (ws.ml_nodes, ws.ml_tris),
-            "misslink_rows": (ws.records,)}[view]
+            "misslink": (ws.ml_nodes, ws.ml_tris)}[view]
 
 
 def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
@@ -914,7 +914,7 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
     contiguous, the table layouts the kernels index (None entries are
     skipped). ``view``: the tables the launch walks."""
     {"bvh2": check_depth, "tiered": check_tiered, "bvh8": check_wide,
-     "misslink": check_records, "misslink_rows": check_records}[view](ws)
+     "misslink": check_records}[view](ws)
     tables = _table_tensors(ws, view)
     for t in tables + tensors:
         if t is None:
@@ -929,13 +929,6 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
                 or nodes.dim() != 2 or nodes.shape[1] != 8 or tris.dim() != 2
                 or tris.shape[1] != 12):
             raise ValueError("K7's tables must be (Nu, 8) and (Tw, 12) float32")
-        return
-    if view == "misslink_rows":
-        rec = ws.records
-        if (rec.dtype != torch.float32 or rec.dim() != 2
-                or rec.shape[1] < 9 + 11 * ws.leaf_k or rec.shape[1] % 4):
-            raise ValueError(f"records must be (Nu, W) float32, W >= "
-                             f"{9 + 11 * ws.leaf_k} and a multiple of 4")
         return
     *inner, leaf = tables
     width = 72 if view == "bvh8" else 16
@@ -955,13 +948,10 @@ def check_cuda_inputs(ws: WorldArrays, *tensors, view: str = "bvh2"):
 def table_args(ws: WorldArrays, view: str) -> tuple:
     """The table arguments of a C entry point: (inner, leaf, leaf_w, leaf_k)
     for "bvh2" and "bvh8", (top, tre_inner, tre_leaf, si, sl, leaf_w,
-    leaf_k) for "tiered", (nodes, tris, leaf_k) for "misslink", (records,
-    record_w, leaf_k) for "misslink_rows"."""
+    leaf_k) for "tiered", (nodes, tris, leaf_k) for "misslink"."""
     ptrs = tuple(t.data_ptr() for t in _table_tensors(ws, view))
     if view == "misslink":
         return ptrs + (ws.leaf_k,)
-    if view == "misslink_rows":
-        return ptrs + (ws.records.shape[1], ws.leaf_k)
     if view == "tiered":
         return ptrs + (ws.tre_inner.shape[1], ws.tre_leaf.shape[1],
                        ws.tre_leaf.shape[2], ws.leaf_k)
@@ -992,16 +982,13 @@ _KERNELS = {
                 "rz_shadow_frustum", "shadow_walk_frustum"),
     "misslink": ("misslink", "rz_closest_misslink", "closest_hit_misslink",
                  "rz_shadow_misslink", "shadow_walk_misslink"),
-    "misslink_rows": ("misslink_rows", "rz_closest_misslink_rows",
-                      "closest_hit_misslink_rows", "rz_shadow_misslink_rows",
-                      "shadow_walk_misslink_rows"),
 }
 
 
 def _closest_cuda(ws, origin, direction, active, t_init, kind, frame=(),
                   count=False):
-    """Launch a closest walk; K7 ("misslink") takes the frame (width,
-    height) its wave covers; ``count``: its counting form."""
+    """Launch a closest walk; K2 ("bvh2") and K7 ("misslink") take the
+    frame (width, height) their wave covers; ``count``: the counting form."""
     view, entry, name, _, _ = _KERNELS[kind]
     entry, name = (entry + "_count", name + "_count") if count else (entry, name)
     o, d, a = _ray_operands(origin, direction, active)
@@ -1068,10 +1055,13 @@ def _closest(ws, origin, direction, active, t_init, kind, frame=()):
     return _PLAIN_CLOSEST[kind](ws, origin, direction, active, t_init)
 
 
-def closest_walk(ws: WorldArrays, origin, direction, active, t_init=None):
-    """Raw closest-hit walk (t, tri, cross, menc): K2 on CUDA tensors, the
-    plain version on CPU tensors."""
-    return _closest(ws, origin, direction, active, t_init, "bvh2")
+def closest_walk(ws: WorldArrays, origin, direction, active, t_init=None,
+                 width: int = 0, height: int = 0):
+    """Raw closest-hit walk (t, tri, cross, menc): K2 on CUDA tensors (the
+    live rays only, in the warp tiles of the width x height frame when the
+    wave is a whole one), the plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, t_init, "bvh2",
+                    (width, height))
 
 
 def closest_walk_tiered(ws: WorldArrays, origin, direction, active):
@@ -1120,10 +1110,12 @@ def decode_hit(ws: WorldArrays, origin, direction, t, tri, cross, menc) -> Hit:
 
 
 def closest_hit_bvh2(ws: WorldArrays, origin, direction, active,
-                     t_init=None) -> Hit:
+                     t_init=None, width: int = 0, height: int = 0) -> Hit:
     """Closest hit per ray (pallas_closest_hit_bvh2). ``t_init``: optional
-    (R,) upper bound on t; hits at or beyond it are ignored."""
-    t, tri, cross, menc = closest_walk(ws, origin, direction, active, t_init)
+    (R,) upper bound on t; hits at or beyond it are ignored. ``width`` x
+    ``height``: the frame a whole-frame wave covers."""
+    t, tri, cross, menc = closest_walk(ws, origin, direction, active, t_init,
+                                       width, height)
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
@@ -1173,12 +1165,14 @@ def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
 
 
 def shadow_walk_bvh2(ws: WorldArrays, origin, direction, max_dist, active,
-                     min_visibility: float = 0.05, t_eps: float = 1e-3):
+                     min_visibility: float = 0.05, t_eps: float = 1e-3,
+                     width: int = 0, height: int = 0):
     """Transmission visibility per ray and the number of shadow rays cast
     (pallas_shadow_walk_bvh2): (vis (R,), rays () int64). Inactive rays
-    report vis 1. K3 on CUDA tensors, the plain version on CPU tensors."""
+    report vis 1. K3 on CUDA tensors (closest_walk's schedule), the plain
+    version on CPU tensors."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
-                   t_eps, "bvh2")
+                   t_eps, "bvh2", (width, height))
 
 
 def shadow_walk_tiered(ws: WorldArrays, origin, direction, max_dist, active,
@@ -1217,63 +1211,46 @@ def shadow_walk_misslink(ws: WorldArrays, origin, direction, max_dist, active,
                    t_eps, "misslink", (width, height))
 
 
-# ---- K7's diagnostics: the parent's form, lane counts, budgets -------------
+# ---- the live-ray walks' diagnostics: lane counts, budgets ----------------
 
 
-def closest_walk_misslink_rows(ws: WorldArrays, origin, direction, active):
-    """The parent's K7 closest walk on CUDA tensors: one thread per wave
-    slot, in wave order, over ``records``. The anchor that the card checks
-    time closest_walk_misslink against and hold it to; no render path calls
-    it."""
-    return _closest_cuda(ws, origin, direction, active, None, "misslink_rows")
-
-
-def shadow_walk_misslink_rows(ws: WorldArrays, origin, direction, max_dist,
-                              active, min_visibility: float = 0.05,
-                              t_eps: float = 1e-3):
-    """The parent's K7 shadow walk on CUDA tensors (closest_walk_misslink_rows'
-    schedule). Returns vis (R,)."""
-    return _shadow_cuda(ws, origin, direction, max_dist, active,
-                        min_visibility, t_eps, "misslink_rows")
-
-
-def misslink_lane_counts(ws: WorldArrays, origin, direction, active,
-                         max_dist=None, min_visibility: float = 0.05,
-                         t_eps: float = 1e-3, width: int = 0, height: int = 0,
-                         rows: bool = False):
-    """A diagnostic of K7 on CUDA tensors (``rows``: the parent's form): its
-    counting instantiation walks the wave (closest rays, or shadow rays
-    when ``max_dist`` is given) and sums, over every step of every walk's
-    node loop, the lanes of the warp that take the step and 32. Returns
-    (the walk's outputs, active lane-steps, warp-steps x 32)."""
+def live_lane_counts(ws: WorldArrays, origin, direction, active, kind="misslink",
+                     max_dist=None, min_visibility: float = 0.05,
+                     t_eps: float = 1e-3, width: int = 0, height: int = 0,
+                     t_init=None):
+    """A diagnostic of K7 (``kind`` "misslink") or K2/K3 ("bvh2") on CUDA
+    tensors: the counting instantiation walks the wave (closest rays, or
+    shadow rays when ``max_dist`` is given) and sums, over every step of
+    every walk's node loop, the lanes of the warp that take the step and
+    32. Returns (the walk's outputs, active lane-steps, warp-steps x 32)."""
     if not origin.is_cuda:
-        raise ValueError("the counting K7 runs on CUDA tensors only")
-    kind = "misslink_rows" if rows else "misslink"
-    frame = () if rows else (width, height)
+        raise ValueError("the counting walks run on CUDA tensors only")
     sums = (ctypes.c_ulonglong * 2)()
     torch.cuda.synchronize(origin.device)
-    ext.check(ext.lib().rz_misslink_lanes(sums, 1), "rz_misslink_lanes")
+    ext.check(ext.lib().rz_live_walk_lanes(sums, 1), "rz_live_walk_lanes")
     if max_dist is None:
-        out = _closest_cuda(ws, origin, direction, active, None, kind, frame,
-                            count=True)
+        out = _closest_cuda(ws, origin, direction, active, t_init, kind,
+                            (width, height), count=True)
     else:
         out = _shadow_cuda(ws, origin, direction, max_dist, active,
-                           min_visibility, t_eps, kind, frame, count=True)
+                           min_visibility, t_eps, kind, (width, height),
+                           count=True)
     torch.cuda.synchronize(origin.device)
-    ext.check(ext.lib().rz_misslink_lanes(sums, 1), "rz_misslink_lanes")
+    ext.check(ext.lib().rz_live_walk_lanes(sums, 1), "rz_live_walk_lanes")
     return out, int(sums[0]), int(sums[1])
 
 
-# K7's forms, by their rz_misslink_budget id
-MISSLINK_FORMS = ("closest", "shadow", "closest_rows", "shadow_rows")
+# the live-ray walks' forms, by their rz_live_walk_budget id
+LIVE_FORMS = ("closest_misslink", "shadow_misslink", "closest_bvh2",
+              "shadow_bvh2")
 
 
-def misslink_budget(form: str) -> dict:
-    """The compiled budget of a K7 form (a name of MISSLINK_FORMS; "_rows":
-    the parent's): threads per block, registers per thread, local memory
-    per thread in bytes and resident warps per SM."""
+def live_budget(form: str) -> dict:
+    """The compiled budget of a live-ray walk (a name of LIVE_FORMS):
+    threads per block, registers per thread, local memory per thread in
+    bytes and resident warps per SM."""
     out = (ctypes.c_int * 4)()
-    ext.check(ext.lib().rz_misslink_budget(MISSLINK_FORMS.index(form), out),
-              "rz_misslink_budget")
+    ext.check(ext.lib().rz_live_walk_budget(LIVE_FORMS.index(form), out),
+              "rz_live_walk_budget")
     return dict(threads=out[0], regs=out[1], local_bytes=out[2],
                 warps_per_sm=out[3])

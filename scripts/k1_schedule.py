@@ -21,20 +21,30 @@ then times each form's kernel alone and the demo and field dispatches
 (render_radiance_with_stats, refit included), every timed build in turns
 (a b c, c b a) x 3, one call each, with CUDA events.
 
-K4's phase 1 and K7 the same way, where --forms names them ("p1", "k7"):
+K4 and the standalone walks the same way, where --forms names them:
   - p1: the four phase-1 forms (plain, K9, K6, K6 + K9) on the demo at
     1920x1080, one sample, split_bounce 2: colour, rays and the 13 state
     rows against the first build's (bit for bit, and the pixels that
     differ), the plain form's budget, each form's lane utilisation (where
     the build has the counting phase 1), each form alone and the split
     dispatch (demo 1080p/64 spp, split_bounce 2, octant rebin) timed;
-  - k7: the K7 waves of one sample of the 1080p/64 spp kernels="pallas-ml"
-    dispatch (5 closest, 2 shadow), recorded once at the wrappers; in each
-    build that has the live-ray K7 (rz_misslink_budget) the kernel and the
-    parent's one-thread-per-slot K7 over the records walk every wave (bit
-    for bit against each other and the first such build), with both
-    forms' budgets and lane utilisation, and both are timed (20 launches a
-    call).
+  - cont: K4's continuation (plain and K9 forms) on the rows phase 1 leaves
+    at 1080p (split_bounce 2 and 1, octant rebin): the colour and rays it
+    adds against the first build's (bit for bit), its budget and lane
+    utilisation (where the build has them), the kernel alone and the
+    split's continuation step with the torch glue it needs (the gathers of
+    a build whose continuation reads a compacted copy of the rows, as
+    before the rows were read through the permutation), and the split
+    dispatch, timed;
+  - k7, k2: the K7 waves of one sample of the 1080p/64 spp
+    kernels="pallas-ml" dispatch and the K2/K3 waves of one sample of the
+    "pallas-bvh2" dispatch (5 closest, 2 shadow each), recorded once at the
+    wrappers; each build walks every wave (bit for bit against the first
+    build), with the live-ray walks' budgets and lane utilisation where the
+    build has them, and each is timed (20 launches a call); with k2 also
+    the "pallas-bvh2" dispatch at 1080p/4 spp. A build whose K2/K3 take no
+    frame (their one-thread-per-slot launch) is called with its own
+    arguments.
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
@@ -48,12 +58,16 @@ default ".", alone). --sweep adds this tree at each register budget of
 SWEEP, or at the named points of it. --count: a build used only for its
 frames and lane counts (a copy of an older K1 with the counter added).
 --forms: only the frames whose names start with a PREFIX (and the
-K1 frames they are held to), and no dispatches. Prints one JSON object as
-its last line, and writes it to --out.
+K1 frames they are held to), and no dispatches but the split's. Defines
+for the continuation and the live-ray walks: RZ_CONT_THREADS,
+RZ_CONT_MIN_BLOCKS, RZ_LIVE_THREADS, RZ_LIVE_MIN_BLOCKS,
+RZ_LIVE_COMPACT_BELOW. Prints one JSON object as its last line, and writes
+it to --out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -111,6 +125,121 @@ def build_all(specs) -> dict:
             continue
         logs[name] = log_
     return logs
+
+
+def _old_signatures(L) -> None:
+    """Declare the arguments of an older build's K2/K3 and continuation
+    entry points (before the live-ray K2/K3 and the continuation that reads
+    the rows through the permutation), under the names this tree's ext.bind
+    declares with the new ones."""
+    import ctypes
+
+    from rayzen_tpu_torch import ext
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sp = ctypes.POINTER(ext.SampleParams)
+    if not hasattr(L, "rz_live_walk_budget"):
+        L.rz_closest_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, p, p, p, p, p]
+        L.rz_shadow_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, f, f, p, p]
+    if not hasattr(L, "rz_continuation_budget"):
+        for name in ("rz_continuation", "rz_continuation_octant"):
+            getattr(L, name).argtypes = [p, p, i, i, p, p, i, sp, p, p, p, p]
+
+
+def _old_bvh2_walk(L, ws, kind, args):
+    """An older build's one-thread-per-slot K2 (``kind`` "closest": args (o,
+    d, act); returns (t, tri, cross, menc)) or K3 ("shadow": (o, d, maxd,
+    act, min_vis, t_eps); returns (vis,))."""
+    import torch
+
+    from rayzen_tpu_torch import ext
+    from rayzen_tpu_torch.ops import walk
+
+    o, d = args[0], args[1]
+    n, stream = o.shape[0], torch.cuda.current_stream().cuda_stream
+    act = (args[2] if kind == "closest" else args[3]).to(torch.uint8).contiguous()
+    tabs = walk.table_args(ws, "bvh2")
+    if kind == "closest":
+        t = torch.empty((n,), dtype=torch.float32, device=o.device)
+        tri = torch.empty((n,), dtype=torch.int32, device=o.device)
+        cross = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+        menc = torch.empty_like(t)
+        ext.check(L.rz_closest_bvh2(*tabs, o.data_ptr(), d.data_ptr(), act.data_ptr(),
+                                    None, n, t.data_ptr(), tri.data_ptr(),
+                                    cross.data_ptr(), menc.data_ptr(), stream),
+                  "rz_closest_bvh2")
+        return t, tri, cross, menc
+    vis = torch.empty((n,), dtype=torch.float32, device=o.device)
+    ext.check(L.rz_shadow_bvh2(*tabs, o.data_ptr(), d.data_ptr(), args[2].data_ptr(),
+                               act.data_ptr(), n, float(args[4]), float(args[5]),
+                               vis.data_ptr(), stream), "rz_shadow_bvh2")
+    return (vis,)
+
+
+def _old_continuation(L, ws, cfg, cst, b_start, b_stop, emit):
+    """An older build's continuation over rows already gathered into
+    compacted order: (colour (R, 3) in that order, rays (R,) int32, the rows
+    after b_stop - 1 or None)."""
+    import ctypes
+
+    import torch
+
+    from rayzen_tpu_torch import ext
+    from rayzen_tpu_torch.ops import megakernel, walk
+
+    c = megakernel._consts(cfg, 0, 0, 5, 1)
+    n = cst.shape[1]
+    color = torch.empty((n, 3), dtype=torch.float32, device=cst.device)
+    rays = torch.empty((n,), dtype=torch.int32, device=cst.device)
+    out = torch.empty_like(cst) if emit else None
+    params = megakernel._sample_params(c, ws, b_start, b_stop)
+    fn = L.rz_continuation_octant if c.octant else L.rz_continuation
+    ext.check(fn(*walk.table_args(ws, "bvh2"), ws.materials.data_ptr(), cst.data_ptr(),
+                 n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
+                 None if out is None else out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream), "rz_continuation")
+    return color, rays, out
+
+
+def _legacy_bvh2_walks(L):
+    """walk.closest_hit_bvh2 and walk.shadow_walk_bvh2 on an older build's
+    one-thread-per-slot K2/K3 (which take no frame)."""
+    import torch
+
+    from rayzen_tpu_torch.ops import walk
+
+    def closest(ws, o, d, a, t_init=None, width=0, height=0):
+        o, d = o.contiguous(), d.contiguous()
+        return walk.decode_hit(ws, o, d, *_old_bvh2_walk(L, ws, "closest", (o, d, a)))
+
+    def shadow(ws, o, d, max_dist, a, min_visibility=0.05, t_eps=1e-3, width=0,
+               height=0):
+        md = walk._max_dist(max_dist, o.shape[0], o.device).contiguous()
+        vis, = _old_bvh2_walk(L, ws, "shadow", (o.contiguous(), d.contiguous(), md, a,
+                                                min_visibility, t_eps))
+        return vis, a.sum(dtype=torch.int64)
+    return closest, shadow
+
+
+def _legacy_continuation(L):
+    """megakernel.continuation's contract on an older build: the rows of
+    order[:live] gathered into compacted order, its kernel, the colour
+    added back through the inverse permutation (the split's flow of that
+    build), the rows scattered back with ``emit``."""
+    import torch
+
+    def cont(ws, cfg, state, order, live, color, rays, samp, rng_key, max_bounces,
+             b_start, b_stop, emit):
+        o = order.long()
+        col, r, out = _old_continuation(L, ws, cfg, state[:, o], b_start, b_stop,
+                                        emit)
+        dest = torch.empty_like(o)
+        dest[o] = torch.arange(o.numel(), device=o.device)
+        color += col[dest]
+        rays += r.sum(dtype=torch.int64)
+        if emit:
+            state[:, o] = out
+    return cont
 
 
 def main() -> int:
@@ -180,106 +309,186 @@ def main() -> int:
         L = ext.bind(_lib_path(name, csrc))
         if L.rz_sample_params_size() != ext.ctypes.sizeof(ext.SampleParams):
             raise RuntimeError(f"{name}: SampleParams layout differs")
+        _old_signatures(L)
         libs[name] = L
+
+    def has(name, entry):
+        return hasattr(libs[name], entry)
 
     dev = torch.device("cuda", 0)
     mcfg = RenderConfig(width=1920, height=1080, spp=64, max_bounces=5)
     mscene = build_demo_scene(1920, 1080)
     marrays = pack_scene(mscene, mcfg, dev)
     mws, mcam = world_geometry(marrays), mscene.camera.device_params()
-    fcfg = RenderConfig(width=1920, height=1080, spp=4, max_bounces=5)
-    fscene = build_field_scene(1920, 1080)
-    farrays = pack_scene(fscene, fcfg, dev)
-    fws, fcam = world_geometry(farrays), fscene.camera.device_params()
-    if not fws.tiered:
-        raise RuntimeError("the field did not pack tiered")
-    whole = world_geometry(pack_scene(fscene, fcfg.replace(tiered="off"), dev))
     _, uv = pixel_grid(1920, 1080, dev)
     act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
-    say("[scenes] demo and field packed")
 
     k9, k6 = dict(octant_bounce_walks=True), dict(frustum_primary=True)
+    demo = (mws, mcfg, mcam, 64)
     # frame name -> (view, its config, camera, spp, the same view's K1 frame)
-    demo, field = (mws, mcfg, mcam, 64), (fws, fcfg, fcam, 4)
-    fwhole = (whole, fcfg, fcam, 4)
     forms = {
         "k1_demo_reference": (*demo, None),
         "k1_demo_threefry": (mws, mcfg.replace(rng="threefry"), mcam, 64, None),
-        "k1_field_tiered": (*field, None),
         "k1_demo_wide": (mws, mcfg.replace(wide_nodes=True), mcam, 64, None),
-        "k1_field_whole": (*fwhole, None),
         "k9_demo": (mws, mcfg.replace(**k9), mcam, 64, "k1_demo_reference"),
-        "k9_field_tiered": (fws, fcfg.replace(**k9), fcam, 4, "k1_field_tiered"),
         "k9_demo_wide": (mws, mcfg.replace(wide_nodes=True, **k9), mcam, 64,
                          "k1_demo_wide"),
-        "k9_field_whole": (whole, fcfg.replace(**k9), fcam, 4, "k1_field_whole"),
         "k6_demo": (mws, mcfg.replace(**k6), mcam, 64, "k1_demo_reference"),
-        "k6_field_whole": (whole, fcfg.replace(**k6), fcam, 4, "k1_field_whole"),
         "k6_k9_demo": (mws, mcfg.replace(**k6, **k9), mcam, 64, "k1_demo_reference"),
-        "k6_k9_field_whole": (whole, fcfg.replace(**k6, **k9), fcam, 4,
-                              "k1_field_whole"),
     }
+    field_forms = ("k1_field_tiered", "k1_field_whole", "k9_field_tiered",
+                   "k9_field_whole", "k6_field_whole", "k6_k9_field_whole")
+    need_field = not prefixes or any(f.startswith(prefixes) for f in field_forms)
+    if need_field:
+        fcfg = RenderConfig(width=1920, height=1080, spp=4, max_bounces=5)
+        fscene = build_field_scene(1920, 1080)
+        farrays = pack_scene(fscene, fcfg, dev)
+        fws, fcam = world_geometry(farrays), fscene.camera.device_params()
+        if not fws.tiered:
+            raise RuntimeError("the field did not pack tiered")
+        whole = world_geometry(pack_scene(fscene, fcfg.replace(tiered="off"), dev))
+        field, fwhole = (fws, fcfg, fcam, 4), (whole, fcfg, fcam, 4)
+        forms.update({
+            "k1_field_tiered": (*field, None),
+            "k1_field_whole": (*fwhole, None),
+            "k9_field_tiered": (fws, fcfg.replace(**k9), fcam, 4, "k1_field_tiered"),
+            "k9_field_whole": (whole, fcfg.replace(**k9), fcam, 4, "k1_field_whole"),
+            "k6_field_whole": (whole, fcfg.replace(**k6), fcam, 4, "k1_field_whole"),
+            "k6_k9_field_whole": (whole, fcfg.replace(**k6, **k9), fcam, 4,
+                                  "k1_field_whole"),
+        })
+    say("[scenes] demo" + (" and field" if need_field else "") + " packed")
 
     # K4's phase 1: form name -> its config (demo 1080p, one sample)
     xcfg = mcfg.replace(split_bounce=2, split_rebin="octant")
     p1_forms = {"p1_plain": xcfg, "p1_k9": xcfg.replace(**k9),
                 "p1_k6": xcfg.replace(**k6), "p1_k6_k9": xcfg.replace(**k6, **k9)}
+    # K4's continuation: form name -> its config, on phase 1's rows
+    cont_forms = {"cont_plain": xcfg, "cont_k9": xcfg.replace(**k9),
+                  "cont_plain_b1": xcfg.replace(split_bounce=1),
+                  "cont_k9_b1": xcfg.replace(split_bounce=1, **k9)}
     if prefixes:
         keep = {f for f in forms if f.startswith(prefixes)}
         keep |= {forms[f][4] for f in keep if forms[f][4]}
         forms = {f: v for f, v in forms.items() if f in keep}
         p1_forms = {f: v for f, v in p1_forms.items() if f.startswith(prefixes)}
-    k7_on = not prefixes or any("k7".startswith(p) for p in prefixes)
+        cont_forms = {f: v for f, v in cont_forms.items() if f.startswith(prefixes)}
+    on = {w: not prefixes or any(w.startswith(p) for p in prefixes)
+          for w in ("k7", "k2")}
 
     def p1(cfg):
         return lambda: megakernel.sample_wave_phase1(mws, cfg, uv, act, mcam, 0, 0, 5)
 
-    # the K7 waves of one pallas-ml sample, recorded at the wrappers with this
-    # tree's kernels (the first build that has the live-ray K7)
-    waves = []
-    new_k7 = [n for n, *_ in trees + counts if hasattr(libs[n], "rz_misslink_budget")]
-    if k7_on and new_k7:
-        ext._lib = libs[new_k7[0]]
-        real_c, real_s = walk.closest_hit_misslink, walk.shadow_walk_misslink
+    @contextlib.contextmanager
+    def using(name):
+        """Launch through build ``name``; an older build's continuation runs
+        its own flow (_legacy_continuation) under megakernel.continuation."""
+        ext._lib = libs[name]
+        real = megakernel.continuation, walk.closest_hit_bvh2, walk.shadow_walk_bvh2
+        if not has(name, "rz_continuation_budget"):
+            megakernel.continuation = _legacy_continuation(libs[name])
+        if not has(name, "rz_live_walk_budget"):
+            walk.closest_hit_bvh2, walk.shadow_walk_bvh2 = _legacy_bvh2_walks(libs[name])
+        try:
+            yield
+        finally:
+            megakernel.continuation, walk.closest_hit_bvh2, walk.shadow_walk_bvh2 = real
 
-        def rec_c(ws_, o, d, a, width=0, height=0):
-            waves.append(("closest", (o.clone(), d.clone(), a.clone()), (width, height)))
-            return real_c(ws_, o, d, a, width, height)
+    # the per-wave walks of one sample of a 1080p dispatch, recorded at the
+    # wrappers with this tree's kernels (the first build with the live-ray
+    # walks): K7's (kernels="pallas-ml") and K2/K3's ("pallas-bvh2")
+    new_walks = [n for n, *_ in trees + counts if has(n, "rz_live_walk_budget")]
+    waves = []
+    for w_kind, kernels_, c_name, s_name in (
+            ("k7", "pallas-ml", "closest_hit_misslink", "shadow_walk_misslink"),
+            ("k2", "pallas-bvh2", "closest_hit_bvh2", "shadow_walk_bvh2")):
+        if not (on[w_kind] and new_walks):
+            continue
+        got = []
+        real_c, real_s = getattr(walk, c_name), getattr(walk, s_name)
+
+        def rec_c(ws_, o, d, a, *rest, width=0, height=0):
+            got.append(("closest", (o.clone(), d.clone(), a.clone()), (width, height)))
+            return real_c(ws_, o, d, a, *rest, width=width, height=height)
 
         def rec_s(ws_, o, d, md, a, min_visibility=0.05, t_eps=1e-3, width=0,
                   height=0):
-            waves.append(("shadow", (o.clone(), d.clone(), md.contiguous().clone(),
-                                     a.clone(), min_visibility, t_eps),
-                          (width, height)))
-            return real_s(ws_, o, d, md, a, min_visibility, t_eps, width, height)
+            got.append(("shadow", (o.clone(), d.clone(), md.contiguous().clone(),
+                                   a.clone(), min_visibility, t_eps), (width, height)))
+            return real_s(ws_, o, d, md, a, min_visibility, t_eps, width=width,
+                          height=height)
 
-        walk.closest_hit_misslink, walk.shadow_walk_misslink = rec_c, rec_s
+        setattr(walk, c_name, rec_c)
+        setattr(walk, s_name, rec_s)
         try:
-            render_radiance_with_stats(marrays, mcam,
-                                       mcfg.replace(kernels="pallas-ml", spp=1))
+            with using(new_walks[0]):
+                render_radiance_with_stats(marrays, mcam,
+                                           mcfg.replace(kernels=kernels_, spp=1))
         finally:
-            walk.closest_hit_misslink, walk.shadow_walk_misslink = real_c, real_s
-        ext._lib = None
-        names = [f"k7_closest{b}" for b in range(5)]
-        names[1:1] = ["k7_shadow0", "k7_shadow1"]
-        waves = [(nm, *w) for nm, w in zip(names, waves)]
-        say(f"[k7] recorded {len(waves)} waves: " + ", ".join(
-            f"{nm} {int(args[-1 if kind == 'closest' else 3].sum())} live"
-            for nm, kind, args, _f in waves))
+            setattr(walk, c_name, real_c)
+            setattr(walk, s_name, real_s)
+        names = [f"{w_kind}_closest{b}" for b in range(5)]
+        names[1:1] = [f"{w_kind}_shadow0", f"{w_kind}_shadow1"]
+        waves += [(nm, w_kind, *w) for nm, w in zip(names, got)]
+    ext._lib = None
+    if waves:
+        say("[waves] recorded " + ", ".join(
+            f"{nm} {int(args[2 if kind == 'closest' else 3].sum())} live"
+            for nm, _wk, kind, args, _f in waves))
 
-    def k7(kind, args, frame, rows=False, reps=1):
-        """One K7 form's walk of a wave (``reps`` launches; the last's
-        result)."""
+    def wave_walk(name, w_kind, kind, args, frame, reps=1):
+        """Build ``name``'s walk of a recorded wave (``reps`` launches; the
+        last's result)."""
         def run():
             for _ in range(reps):
-                if kind == "closest":
-                    out = (walk.closest_walk_misslink_rows(mws, *args) if rows else
-                           walk.closest_walk_misslink(mws, *args, *frame))
+                if w_kind == "k7" and kind == "closest":
+                    out = walk.closest_walk_misslink(mws, *args, *frame)
+                elif w_kind == "k7":
+                    out = walk.shadow_walk_misslink(mws, *args, *frame)[:1]
+                elif not has(name, "rz_live_walk_budget"):
+                    out = _old_bvh2_walk(libs[name], mws, kind, args)
+                elif kind == "closest":
+                    out = walk.closest_walk(mws, *args, None, *frame)
                 else:
-                    out = ((walk.shadow_walk_misslink_rows(mws, *args),) if rows else
-                           walk.shadow_walk_misslink(mws, *args, *frame)[:1])
+                    out = walk.shadow_walk_bvh2(mws, *args, width=frame[0],
+                                                height=frame[1])[:1]
             return out
         return run
+
+    # K4's continuation on phase 1's 1080p rows (one phase 1 a split point,
+    # with this tree's kernels): each build's colour and rays added in
+    cont_inputs = {}
+    if cont_forms and new_walks:
+        with using(new_walks[0]):
+            for sb in sorted({c.split_bounce for c in cont_forms.values()}):
+                c1, r1, st = p1(xcfg.replace(split_bounce=sb))()
+                dest, order, live = megakernel._compaction_permutation(
+                    st[10] > 0.5, st[3], st[4], st[5], "octant",
+                    origins=(st[0], st[1], st[2]))
+                cont_inputs[sb] = (c1, r1, st, order, live)
+        ext._lib = None
+        say("[cont] phase-1 rows: " + ", ".join(
+            f"split_bounce {sb} {int(v[4])} live" for sb, v in cont_inputs.items()))
+
+    def cont_run(cfg, kernel_only=False, scratch=None):
+        """The continuation of form cfg on its phase-1 rows through the
+        build in use: (colour, rays). ``kernel_only``: an older build's
+        kernel alone on the rows gathered before (no glue); ``scratch``:
+        the (colour, rays) to add into (the timed calls)."""
+        c1, r1, st, order, live = cont_inputs[cfg.split_bounce]
+        if kernel_only and not hasattr(ext._lib, "rz_continuation_budget"):
+            cst = gathered.setdefault(cfg.split_bounce, st[:, order.long()])
+            return lambda: _old_continuation(ext._lib, mws, cfg, cst, cfg.split_bounce,
+                                             5, False)[:2]
+
+        def run():
+            col, rays = scratch or (c1.clone(), r1.clone())
+            megakernel.continuation(mws, cfg, st, order, live, col, rays, 0, 0, 5,
+                                    cfg.split_bounce, 5, False)
+            return col, rays
+        return run
+
+    gathered = {}
 
     def k1(ws, cfg, cam, spp, _k1=None):
         return lambda: megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
@@ -303,13 +512,14 @@ def main() -> int:
                                   defines=list(defines),
                                   timed=any(t[0] == name for t in trees))
         rep["ptxas"] = {k: v for k, v in ext.ptxas_summary(logs[name]).items()
-                        if k.startswith(("regen_", "misslink_kernel",
-                                         "sample_kernel<Bvh2Walk,tiles",
-                                         "sample_kernel<Bvh2Walk>"))}
-        if hasattr(libs[name], "rz_sample_budget"):
+                        if k.startswith(("regen_", "misslink_kernel", "live_walk_kernel",
+                                         "continuation_kernel",
+                                         "closest_kernel", "shadow_kernel",
+                                         "sample_kernel<Bvh2Walk"))}
+        if has(name, "rz_sample_budget"):
             # an older build knows policies 0-2 (the regenerating forms)
             n_pol = (len(megakernel.BUDGET_POLICIES)
-                     if hasattr(libs[name], "rz_sample_wave_wide_count") else 3)
+                     if has(name, "rz_sample_wave_wide_count") else 3)
             rep["budget"] = {p: megakernel.sample_budget(p)
                              for p in megakernel.BUDGET_POLICIES[:n_pol]}
         bit = rep["bitwise"] = {}
@@ -337,31 +547,39 @@ def main() -> int:
                               pixels_differ=int(((c != ref[fname][0]).any(-1)
                                                  | (st != ref[fname][2]).any(0)).sum()),
                               rays=int(r), ref_rays=ref[fname][1])
-        p1_count = hasattr(libs[name], "rz_sample_wave_phase1_count")
+        p1_count = has(name, "rz_sample_wave_phase1_count")
         if p1_forms and p1_count:
             rep["budget_phase1"] = megakernel.sample_budget("phase1")
-        if name in new_k7:
-            rep["budget_k7"] = {f: walk.misslink_budget(f) for f in walk.MISSLINK_FORMS}
-            for wname, kind, args, frame in waves:
-                kn, kr = k7(kind, args, frame)(), k7(kind, args, frame, rows=True)()
-                if wname not in ref:
-                    ref[wname] = kn
-                same = all(torch.equal(a, b) and torch.equal(a, c)
-                           for a, b, c in zip(kn, kr, ref[wname]))
-                lanes_ = {}
-                for form, rows_ in (("kernel", False), ("parent", True)):
-                    cargs = dict(max_dist=args[2], min_visibility=args[4],
-                                 t_eps=args[5]) if kind == "shadow" else {}
-                    o, d, a = (args[0], args[1], args[3] if kind == "shadow" else args[2])
-                    _out, la, ls = walk.misslink_lane_counts(
-                        mws, o, d, a, width=frame[0], height=frame[1], rows=rows_,
-                        **cargs)
-                    lanes_[form] = la / ls if ls else None
-                bit[wname] = dict(equal=same, lanes=lanes_)
+        with using(name):
+            for fname, ccfg in cont_forms.items() if cont_inputs else ():
+                c, r = cont_run(ccfg)()
+                if fname not in ref:
+                    ref[fname] = (c, int(r))
+                eq, mx, npx = differ(c, ref[fname][0])
+                bit[fname] = dict(equal=eq and int(r) == ref[fname][1], max_abs=mx,
+                                  pixels_differ=npx, rays=int(r), ref_rays=ref[fname][1])
+        if cont_forms and cont_inputs and has(name, "rz_continuation_budget"):
+            rep["budget_continuation"] = {f: megakernel.sample_budget(f)
+                                          for f in megakernel.CONTINUATION_FORMS}
+        if has(name, "rz_live_walk_budget"):
+            rep["budget_live_walks"] = {f: walk.live_budget(f) for f in walk.LIVE_FORMS}
+        for wname, w_kind, kind, args, frame in waves:
+            out = wave_walk(name, w_kind, kind, args, frame)()
+            if wname not in ref:
+                ref[wname] = out
+            bit[wname] = dict(equal=all(torch.equal(a, b)
+                                        for a, b in zip(out, ref[wname])))
+            if has(name, "rz_live_walk_budget"):
+                cargs = (dict(max_dist=args[2], min_visibility=args[4], t_eps=args[5])
+                         if kind == "shadow" else {})
+                o, d, a = args[0], args[1], args[3] if kind == "shadow" else args[2]
+                _out, la, ls = walk.live_lane_counts(
+                    mws, o, d, a, kind="misslink" if w_kind == "k7" else "bvh2",
+                    width=frame[0], height=frame[1], **cargs)
+                bit[wname]["lanes"] = la / ls if ls else None
         lanes = rep["lanes"] = {}
         for fname, (ws, cfg, cam, spp, _k1) in forms.items():
-            if fname == "k1_demo_threefry" or not hasattr(libs[name],
-                                                          count_name(ws, cfg)):
+            if fname == "k1_demo_threefry" or not has(name, count_name(ws, cfg)):
                 continue
             c, r, a, sl = megakernel.walk_lane_counts(ws, cfg, uv, act, cam, 0, 0,
                                                       5, spp)
@@ -372,43 +590,69 @@ def main() -> int:
                                                       5, phase1=True)
             lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
                                 frame_equal=bool(torch.equal(c, p1(pcfg)()[0])))
+        for fname, ccfg in cont_forms.items() if cont_inputs else ():
+            if not has(name, "rz_continuation_budget"):
+                continue
+            c1, r1, st, order, live = cont_inputs[ccfg.split_bounce]
+            col, rays = c1.clone(), r1.clone()
+            a, sl = megakernel.continuation_lane_counts(
+                mws, ccfg, st, order, live, col, rays, 0, 0, 5, ccfg.split_bounce, 5,
+                False)
+            lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
+                                frame_equal=bool(torch.equal(col, cont_run(ccfg)()[0])))
         say(f"[build {name}] " + json.dumps({k: rep[k] for k in rep if k != "tree"}))
     del ref
+    ext._lib = None
 
     timed_names = [t[0] for t in trees]
-    quantities = {f"{f}_ms": k1(*forms[f]) for f in forms if f != "k1_demo_threefry"}
+    reps = 20  # launches a call for the continuation and the walks
+
+    def repeated(fn):
+        def run():
+            for _ in range(reps):
+                out = fn()
+            return out
+        return run
+
+    # quantity -> (a factory of its call, made through the build in use;
+    # launches a call)
+    quantities = {f"{f}_ms": ((lambda f_: lambda _n: k1(*forms[f_]))(f), 1)
+                  for f in forms if f != "k1_demo_threefry"}
     if not prefixes:
-        quantities.update({
-            "dispatch_demo_ms": lambda: render_radiance_with_stats(marrays, mcam, mcfg),
-            "dispatch_field_ms": lambda: render_radiance_with_stats(farrays, fcam, fcfg),
-        })
-    quantities.update({f"{f}_ms": p1(c) for f, c in p1_forms.items()})
-    if p1_forms:
-        quantities["dispatch_split_ms"] = lambda: render_radiance_with_stats(
-            marrays, mcam, xcfg)
-    # K7: 20 launches a call, so the time is per launch / 20
-    reps = 20
-    for wname, kind, args, frame in waves:
-        quantities[f"{wname}_ms"] = k7(kind, args, frame, reps=reps)
-        quantities[f"{wname}_rows_ms"] = k7(kind, args, frame, rows=True, reps=reps)
-        # the kernel without the warp tiles: the wave's slots in order
-        quantities[f"{wname}_linear_ms"] = k7(kind, args, (0, 0), reps=reps)
-    per_call = {q: (reps if q.startswith("k7_") else 1) for q in quantities}
+        quantities["dispatch_demo_ms"] = (lambda _n: lambda: render_radiance_with_stats(
+            marrays, mcam, mcfg), 1)
+        quantities["dispatch_field_ms"] = (lambda _n: lambda: render_radiance_with_stats(
+            farrays, fcam, fcfg), 1)
+    quantities.update({f"{f}_ms": ((lambda c_: lambda _n: p1(c_))(c), 1)
+                       for f, c in p1_forms.items()})
+    for f, c in cont_forms.items() if cont_inputs else ():
+        scratch = (cont_inputs[c.split_bounce][0].clone(),
+                   cont_inputs[c.split_bounce][1].clone())
+        for q, only in ((f"{f}_ms", True), (f"{f}_glue_ms", False)):
+            quantities[q] = ((lambda c_, o_, s_: lambda _n: repeated(
+                cont_run(c_, o_, s_)))(c, only, scratch), reps)
+    if p1_forms or cont_forms:
+        quantities["dispatch_split_ms"] = (lambda _n: lambda: render_radiance_with_stats(
+            marrays, mcam, xcfg), 1)
+    for wname, w_kind, kind, args, frame in waves:
+        quantities[f"{wname}_ms"] = ((lambda *a_: lambda n: wave_walk(
+            n, *a_, reps=reps))(w_kind, kind, args, frame), reps)
+    if on["k2"]:  # K2/K3's path: the kernels="pallas-bvh2" dispatch, 4 spp
+        quantities["dispatch_bvh2_ms"] = (lambda _n: lambda: render_radiance_with_stats(
+            marrays, mcam, mcfg.replace(kernels="pallas-bvh2", spp=4)), 1)
     times = {}
-    for q, fn in quantities.items():
-        names_q = [n for n in timed_names
-                   if not q.startswith("k7_") or n in new_k7]
-        got = {n: [] for n in names_q}
-        for n in names_q:  # warm-up
-            ext._lib = libs[n]
-            fn()
-        for order in (names_q, names_q[::-1]) * 3:
+    for q, (make, per_call) in quantities.items():
+        got = {n: [] for n in timed_names}
+        for n in timed_names:  # warm-up
+            with using(n):
+                make(n)()
+        for order in (timed_names, timed_names[::-1]) * 3:
             for n in order:
-                ext._lib = libs[n]
-                got[n].append(timed(fn, torch)[1] / per_call[q])
+                with using(n):
+                    got[n].append(timed(make(n), torch)[1] / per_call)
         times[q] = {n: dict(median=statistics.median(v), all=v) for n, v in got.items()}
         say(f"[turns {q}] " + "; ".join(
-            f"{n} {statistics.median(v):.3f}" for n, v in got.items()))
+            f"{n} {statistics.median(v):.4f}" for n, v in got.items()))
     ext._lib = None
     result = dict(device=kind, smi=smi, builds=report, times=times,
                   seconds=time.perf_counter() - t0)

@@ -1,11 +1,10 @@
 """The port's CUDA kernels (K1-K3, K5, K6, K7, K8, the tiered, wide and
 frustum K1, K1 with sample fusion, K4's phase 1 and continuation, and the
 K9 instantiations) against their plain PyTorch versions on the card, the
-regenerating K1 also bit for bit against the lockstep loop (K4's phase 1
-once per sample) and its (warp-tiled lockstep) K9 form, K7 and K4's phase
-1 bit for bit against their parents' schedules (the one-thread-per-slot K7
-over the records, the scanline phase 1 of a -DRZ_PHASE1_SCANLINE build),
-and the per-wave path's staged variants against their plain runs. Marked ``cuda``: they skip
+regenerating K1 also bit for bit against the lockstep loop (its warp-tiled
+K9 form), the live-ray walks K2/K3 and K7 against each other, K4's
+continuation forms against each other, and the per-wave path's staged
+variants against their plain runs. Marked ``cuda``: they skip
 where torch sees no CUDA device, and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -13,10 +12,6 @@ where torch sees no CUDA device, and run on the GPU machine with
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not use
 and that machine need not have; the kernels are built from
 rayzen_tpu_torch/csrc at first use)."""
-
-import contextlib
-import dataclasses
-import os
 
 import numpy as np
 import pytest
@@ -182,6 +177,71 @@ def test_split_matches_plain(setup, knobs):
     assert ext.LAUNCHES["continuation" + octant] == before["continuation" + octant] + n_cont
     assert (kc - pc).abs().max().item() <= 1e-6 and int(kr) == int(pr)
     assert (kc - fc).abs().max().item() <= 1e-6 and int(kr) == int(fr)
+
+
+# K4's continuation alone: (width, height, holes in active, split_bounce,
+# rebin); 640x480 at split_bounce 1 leaves more live rays (~150k) than the
+# persistent grid has lanes (132 SMs x 1,024)
+CONT_CASES = [(48, 32, False, 2, "rank"), (37, 23, True, 2, "octant"),
+              (37, 23, True, 1, "octcell"), (640, 480, False, 1, "octant")]
+
+
+@pytest.mark.parametrize("case", CONT_CASES,
+                         ids=["rank", "ragged_octant", "ragged_b1_octcell",
+                              "b1_more_rays_than_lanes"])
+def test_continuation_matches_plain(setup, case):
+    """K4's continuation reads the live rays' rows through the compaction's
+    permutation and live count (left on the device) and adds into phase 1's
+    colour and ray total in place: against the plain version its rays and
+    written rows are equal and its colour within the split tests' bar, dead
+    pixels untouched, to the end (b_stop 5) and for one bounce with the
+    rows written back (split_every); its K9 form gives the plain form's
+    results bit for bit, and each form's counting instantiation its own."""
+    w, h, holes, sb, rebin = case
+    dev, ws, cam = setup["dev"], setup["ws"], setup["cam"]
+    cfg = setup["cfg"].replace(width=w, height=h, rng="reference", split_bounce=sb,
+                               split_rebin=rebin)
+    _, uv = pixel_grid(w, h, dev)
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
+    if holes:
+        act = torch.arange(uv.shape[0], device=dev) % 11 != 4
+    c1, r1, st = megakernel.sample_wave_phase1(ws, cfg, uv, act, cam, 3, 0, 5)
+    _d, order, live = megakernel._compaction_permutation(
+        st[10] > 0.5, st[3], st[4], st[5], rebin, origins=(st[0], st[1], st[2]))
+    n_live = int(live)
+    assert n_live == int((st[10] > 0.5).sum()) > 0
+    dead = order[n_live:].long()
+
+    def run(fn, cfg_, b_stop):
+        color, rays, state = c1.clone(), r1.clone(), st.clone()
+        out = fn(ws, cfg_, state, order, live, color, rays, 3, 0, 5, sb, b_stop,
+                 b_stop < 5)
+        return color, rays, state, out
+
+    for b_stop in (5, sb + 1):
+        forms = {}
+        for octant in (False, True):
+            c_ = cfg.replace(octant_bounce_walks=octant)
+            name = "continuation" + ("_octant" if octant else "")
+            before = ext.LAUNCHES[name]
+            kc, kr, ks, _ = run(megakernel.continuation, c_, b_stop)
+            assert ext.LAUNCHES[name] == before + 1
+            pc, pr, ps, _ = run(megakernel.continuation_reference, c_, b_stop)
+            assert int(kr) == int(pr) > int(r1) and torch.equal(ks, ps)
+            assert ((kc - pc).abs() / pc.abs().clamp_min(1.0)).max().item() <= 1e-6
+            assert torch.equal(kc[dead], c1[dead])
+            assert torch.equal(ks[:, dead], st[:, dead])
+            cc, cr, cs, (lanes, slots) = run(megakernel.continuation_lane_counts,
+                                             c_, b_stop)
+            assert torch.equal(cc, kc) and int(cr) == int(kr) and torch.equal(cs, ks)
+            assert 0 < lanes <= slots and slots % 32 == 0
+            forms[octant] = (kc, kr, ks)
+        (a, ar, as_), (b, br, bs) = forms[False], forms[True]
+        assert torch.equal(a, b) and int(ar) == int(br) and torch.equal(as_, bs)
+    for form in megakernel.CONTINUATION_FORMS:
+        b = megakernel.sample_budget(form)
+        assert b["threads"] == 128 and 0 < b["regs"] <= 64
+        assert b["warps_per_sm"] == 32
 
 
 # Waves of the K9 and K6 forms' checks: (width, height, spp, rng, holes);
@@ -374,13 +434,13 @@ K7_WAVES = [(0.0, True), (0.066, True), (0.5, True), (1.0, True),
 @pytest.mark.parametrize("wave", K7_WAVES, ids=["dead", "live6.6", "live50",
                                                  "live100", "live50_linear",
                                                  "empty"])
-def test_k7_live_rays_match_parent_and_plain(setup, wave):
-    """K7 walks only the live rays of its wave (compacted in each block, in
-    warp tiles on a whole frame) and gives every slot the result of the
-    parent's one-thread-per-slot K7 over the records and of the plain
-    version, bit for bit: closest (t, tri, cross, menc; dead slots T_FAR, -1,
-    0, 0) and shadow (vis; dead slots 1); its counting form walks to the
-    same results and counts at most 32 active lanes per warp step."""
+def test_live_walks_match_plain_and_k7(setup, wave):
+    """The live-ray launch (each block compacts its live slots, in warp
+    tiles on a whole frame) of K7 and of K2/K3 gives every slot the plain
+    version's result bit for bit: closest (t, tri, cross, menc; dead slots
+    T_FAR, -1, 0, 0) and shadow (vis; dead slots 1); K2 finds K7's triangle
+    and t; the counting forms walk to the same results and count at most 32
+    active lanes per warp step."""
     share, tiled = wave
     ws, o, d = setup["ws"], setup["o"], setup["d"]
     n = 0 if share is None else o.shape[0]
@@ -390,60 +450,50 @@ def test_k7_live_rays_match_parent_and_plain(setup, wave):
     frame = (W, H) if tiled else (0, 0)
     before = dict(ext.LAUNCHES)
     k = walk.closest_walk_misslink(ws, o, d, act, *frame)
-    assert ext.LAUNCHES["closest_hit_misslink"] == before["closest_hit_misslink"] + (n > 0)
-    rows = walk.closest_walk_misslink_rows(ws, o, d, act)
-    p = walk.misslink_closest_walk_reference(ws, o, d, act)
-    for a, b, c in zip(k, rows, p):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    k2 = walk.closest_walk(ws, o, d, act, None, *frame)
+    for name in ("closest_hit_misslink", "closest_hit_bvh2"):
+        assert ext.LAUNCHES[name] == before[name] + (n > 0)
+    for a, b in zip(k, walk.misslink_closest_walk_reference(ws, o, d, act)):
+        assert torch.equal(a, b)
+    for a, b in zip(k2, walk.closest_walk_reference(ws, o, d, act)):
+        assert torch.equal(a, b)
+    assert torch.equal(k2[1], k[1]) and torch.equal(k2[0], k[0])
     assert (k[1][~act] == -1).all() and (k[3][~act] == 0).all()
-    counted, lanes, slots = walk.misslink_lane_counts(ws, o, d, act, width=frame[0],
+    for kind, out in (("misslink", k), ("bvh2", k2)):
+        counted, lanes, slots = walk.live_lane_counts(ws, o, d, act, kind=kind,
+                                                      width=frame[0],
                                                       height=frame[1])
-    assert all(torch.equal(a, b) for a, b in zip(counted, k))
-    assert 0 <= lanes <= slots and slots % 32 == 0 and (lanes > 0) == bool(act.any())
+        assert all(torch.equal(a, b) for a, b in zip(counted, out))
+        assert 0 <= lanes <= slots and slots % 32 == 0
+        assert (lanes > 0) == bool(act.any())
     hit = walk.decode_hit(ws, o, d, *k)
     ldir = torch.tensor([0.3, 0.9, 0.1], device=o.device)
     ldir = (ldir / ldir.norm()).expand_as(o).contiguous()
     so = hit.point + ldir * 1e-3
-    kv, kr = walk.shadow_walk_misslink(ws, so, ldir, 50.0, hit.found, width=frame[0],
-                                       height=frame[1])
-    rv = walk.shadow_walk_misslink_rows(ws, so, ldir, 50.0, hit.found)
-    pv = walk.misslink_shadow_walk_reference(ws, so, ldir, 50.0, hit.found)
-    assert torch.equal(kv, rv) and torch.equal(kv, pv)
-    assert int(kr) == int(hit.found.sum()) and (kv[~hit.found] == 1).all()
-    cv, lanes, slots = walk.misslink_lane_counts(ws, so, ldir, hit.found, max_dist=50.0,
-                                                 width=frame[0], height=frame[1])
-    assert torch.equal(cv, kv) and 0 <= lanes <= slots
+    shadows = {}
+    for kind, fn, plain in (
+            ("misslink", walk.shadow_walk_misslink, walk.misslink_shadow_walk_reference),
+            ("bvh2", walk.shadow_walk_bvh2, walk.shadow_walk_reference)):
+        kv, kr = fn(ws, so, ldir, 50.0, hit.found, width=frame[0], height=frame[1])
+        assert torch.equal(kv, plain(ws, so, ldir, 50.0, hit.found))
+        assert int(kr) == int(hit.found.sum()) and (kv[~hit.found] == 1).all()
+        cv, lanes, slots = walk.live_lane_counts(ws, so, ldir, hit.found, kind=kind,
+                                                 max_dist=50.0, width=frame[0],
+                                                 height=frame[1])
+        assert torch.equal(cv, kv) and 0 <= lanes <= slots
+        shadows[kind] = kv
+    assert torch.equal(shadows["bvh2"], shadows["misslink"])
 
 
-def test_k7_budget():
-    """Every K7 form compiles; the kernel holds its register budget
-    (__launch_bounds__: at least 32 resident warps per SM)."""
+def test_live_walk_budget():
+    """Every live-ray walk (K7, K2, K3) compiles and holds its register
+    budget (__launch_bounds__: at least 32 resident warps per SM)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
-    for form in walk.MISSLINK_FORMS:
-        b = walk.misslink_budget(form)
-        assert b["threads"] > 0 and 0 < b["regs"] <= 255 and b["warps_per_sm"] > 0
-    for form in ("closest", "shadow"):
-        assert walk.misslink_budget(form)["warps_per_sm"] >= 32
-
-
-@pytest.fixture(scope="module")
-def scanline(setup):
-    """This tree's kernels built with -DRZ_PHASE1_SCANLINE: K4's phase 1 on
-    the earlier schedule (scanline pixels in blocks of 128, no register
-    budget), the anchor of the phase-1 checks."""
-    out = os.path.join(ext.BUILD_DIR, "phase1-scanline", "librayzen_kernels.so")
-    return ext.bind(ext.build(out=out, defines=("RZ_PHASE1_SCANLINE",)))
-
-
-@contextlib.contextmanager
-def _using(lib):
-    saved = ext.lib()
-    ext._lib = lib
-    try:
-        yield
-    finally:
-        ext._lib = saved
+    for form in walk.LIVE_FORMS:
+        b = walk.live_budget(form)
+        assert b["threads"] == 128 and 0 < b["regs"] <= 64
+        assert b["warps_per_sm"] >= 32
 
 
 PHASE1_FORMS = [{}, dict(octant_bounce_walks=True), dict(frustum_primary=True),
@@ -454,13 +504,10 @@ PHASE1_FORMS = [{}, dict(octant_bounce_walks=True), dict(frustum_primary=True),
                          ids=["48x32", "ragged_holes"])
 @pytest.mark.parametrize("knobs", PHASE1_FORMS,
                          ids=["plain", "octant", "frustum", "frustum_octant"])
-def test_phase1_matches_parent_and_plain(setup, scanline, knobs, wave):
+def test_phase1_matches_plain(setup, knobs, wave):
     """K4's phase 1 on K1's warp tiles: its 13 state rows equal the plain
     version's exactly and its colour within the split tests' bar (rays
-    equal); the plain and K9 forms' colour, rays and state rows equal the
-    parent's scanline phase 1 bit for bit (the K6 forms' packets are now the
-    warp tiles, so the parent's walk other packets); the counting form
-    writes the same colour, rays and rows."""
+    equal); the counting form writes the same colour, rays and rows."""
     w, h, holes = wave
     cfg = setup["cfg"].replace(width=w, height=h, rng="reference", split_bounce=2,
                                **knobs)
@@ -473,10 +520,6 @@ def test_phase1_matches_parent_and_plain(setup, scanline, knobs, wave):
     pc, pr, ps = megakernel.sample_wave_phase1_reference(*args)
     assert torch.equal(ks, ps) and int(kr) == int(pr)
     assert ((kc - pc).abs() / pc.abs().clamp_min(1.0)).max().item() <= 1e-6
-    with _using(scanline):
-        oc, orr, os_ = megakernel.sample_wave_phase1(*args)
-    if not knobs.get("frustum_primary"):
-        assert torch.equal(kc, oc) and int(kr) == int(orr) and torch.equal(ks, os_)
     cc, cr, lanes, slots = megakernel.walk_lane_counts(*args, phase1=True)
     assert torch.equal(cc, kc) and int(cr) == int(kr) and 0 < lanes <= slots
     if not knobs:
@@ -527,8 +570,7 @@ def test_fused_k1_matches_plain(setup):
 # at 1, 2, 3 and 8 spp, with sample_fuse 2 and 3, in both RNG flows. Each
 # frame is held to the plain version (relative 1e-6 of max(1, |plain|), the
 # split tests' bar; rays equal), to a second launch bit for bit, to the same
-# view's K9 form bit for bit (the warp-tiled lockstep loop), and, without
-# fusion, to the lockstep loop of K4's phase 1 bit for bit (_lockstep_k1).
+# view's K9 form bit for bit (the warp-tiled lockstep loop).
 REGEN_CASES = [
     dict(size=(37, 23), spp=1, fuse=1, rng="threefry", holes=False, part=False),
     dict(size=(37, 23), spp=3, fuse=3, rng="reference", holes=True, part=False),
@@ -563,30 +605,11 @@ def _regen_inputs(setup, view, case):
     return ws, cfg, uv, act
 
 
-def _lockstep_k1(ws, cfg, uv, act, cam, rng_key, spp):
-    """The lockstep loop's K1 frame without fusion: K4's phase-1 form of a
-    -DRZ_PHASE1_SCANLINE build (the scanline lockstep sample_kernel over the
-    whole tree; run it under _using(scanline)) launched once per sample with
-    b_stop = max_bounces, the samples summed in order, which is the lockstep
-    K1's sum at sample_fuse 1 (held once on the card against the scanline
-    lockstep K9 form that the warp-tiled lockstep K9 form replaced)."""
-    whole = dataclasses.replace(ws, tiered=False)
-    cfg = cfg.replace(wide_nodes=False, octant_bounce_walks=False,
-                      frustum_primary=False)
-    color, rays = 0.0, 0
-    for s in range(spp):
-        c = megakernel._consts(cfg, s, rng_key, 5, 1)
-        col, r, _ = megakernel._launch_sample(whole, c, uv, act, cam, 5, phase1=True)
-        color = col if s == 0 else color + col
-        rays += int(r.sum(dtype=torch.int64))
-    return color, rays
-
-
 @pytest.mark.parametrize("case", REGEN_CASES,
                          ids=["ragged", "holes_fuse3", "spp8_fuse2", "full_tiles",
                               "part_wave", "holes"])
 @pytest.mark.parametrize("view", ["bvh2", "tiered", "wide"])
-def test_regen_k1_matches_plain_and_lockstep(setup, scanline, view, case):
+def test_regen_k1_matches_plain_and_lockstep(setup, view, case):
     ws, cfg, uv, act = _regen_inputs(setup, view, case)
     cam, spp = setup["cam"], case["spp"]
     name = "sample_wave" + {"bvh2": "", "tiered": "_tiered", "wide": "_wide"}[view]
@@ -602,10 +625,6 @@ def test_regen_k1_matches_plain_and_lockstep(setup, scanline, view, case):
     oc, orr = megakernel.sample_wave(ws, cfg.replace(octant_bounce_walks=True), uv,
                                      act, cam, 0, 3, 5, spp)
     assert torch.equal(kc, oc) and int(kr) == int(orr)
-    if case["fuse"] == 1:
-        with _using(scanline):
-            lc, lr = _lockstep_k1(ws, cfg, uv, act, cam, 3, spp)
-        assert torch.equal(kc, lc) and int(kr) == lr
 
 
 @pytest.mark.parametrize("case", [REGEN_CASES[1], REGEN_CASES[5]],

@@ -90,3 +90,42 @@ def test_ptxas_summary_tells_the_k1_schedules_apart():
         "shadow_kernel<MisslinkRowsWalk,count>": {"stack": 0, "spill": 0, "regs": 56},
         "regen_phase1_kernel<Bvh2Walk>": {"stack": 0, "spill": 0, "regs": 55},
     }
+
+
+_CANON = "_GLOBAL__N__5d0e1f2a_23_continuation_kernel_cu_8a3c2b1d"
+LOG_LIVE = "\n".join(
+    line for mangled, regs in (
+        # the live-ray walks: template <int kMode, class Walk, class Count>
+        (f"{_WPFX}16live_walk_kernelILi0EN2rz12MisslinkWalkENS1_7NoCountEEEvT0_"
+         "NS_6WaveIOEiiiff", 62),
+        (f"{_WPFX}16live_walk_kernelILi1EN2rz8Bvh2WalkENS1_48{_WANON}9LaneCountEEEv"
+         "T0_NS_6WaveIOEiiiff", 54),
+        # the continuation: template <class Walk, bool kOctant>, and the
+        # counting form (the walk through Counted)
+        (f"_ZN55{_CANON}19continuation_kernelIN2rz8Bvh2WalkELb0EEEvT_PKfNS_5Split"
+         "ENS1_12SampleParamsE", 64),
+        (f"_ZN55{_CANON}19continuation_kernelIN2rz8Bvh2WalkELb1EEEvT_PKfNS_5Split"
+         "ENS1_12SampleParamsE", 63),
+        (f"_ZN55{_CANON}19continuation_kernelIN2rz7CountedINS1_8Bvh2WalkEEELb0EEEv"
+         "T_PKfNS_5SplitENS1_12SampleParamsE", 61),
+        # K1's K9 form on the lockstep loop: sample_kernel<Walk, kOctant, kFrustum>
+        (f"{_PFX}13sample_kernelIN2rz8Bvh2WalkELb1ELb1EEEvT_PKfS5_S5_S5_PKhiNS1_12"
+         "SampleParamsEPfPiS9_", 60))
+    for line in (
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"ptxas info    : Used {regs} registers, used 0 barriers, 0 bytes "
+        "cumulative stack size"))
+
+
+def test_ptxas_summary_labels_the_live_walks_and_the_continuation():
+    got = ext.ptxas_summary(LOG_LIVE)
+    assert {k: v["regs"] for k, v in got.items()} == {
+        "live_walk_kernel<closest,MisslinkWalk>": 62,
+        "live_walk_kernel<shadow,Bvh2Walk,count>": 54,
+        "continuation_kernel<Bvh2Walk>": 64,
+        "continuation_kernel<Bvh2Walk,octant>": 63,
+        "continuation_kernel<Bvh2Walk,count>": 61,
+        "sample_kernel<Bvh2Walk,octant,frustum>": 60,
+    }

@@ -23,11 +23,12 @@ def test_compaction_permutation_is_bitwise_jax(mode, n):
     jd, jo = jmk._compaction_permutation(
         jnp.asarray(alive), *map(jnp.asarray, d), mode,
         origins=tuple(map(jnp.asarray, o)))
-    td, to = megakernel._compaction_permutation(
+    td, to, live = megakernel._compaction_permutation(
         torch.from_numpy(alive), *map(torch.from_numpy, d), mode,
         origins=tuple(map(torch.from_numpy, o)))
     for t, j in ((td, jd), (to, jo)):
         assert t.dtype == torch.int32
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     assert (to.sort().values == torch.arange(n, dtype=torch.int32)).all()
-    assert alive[to[: int(alive.sum())].numpy()].all()  # the live rays first
+    assert int(live) == int(alive.sum())
+    assert alive[to[: int(live)].numpy()].all()  # the live rays first

@@ -17,7 +17,7 @@ from rayzen_tpu_torch.packing import world_geometry
 def test_split_continuation_state(small_k1):
     """Phase 1's rows: the live rays carry their paths, the others zeros
     and alive 0; the seeds are the sampler's. A continuation that emits
-    leaves only rays it traced alive."""
+    rewrites its rays' rows in place and leaves only rays it traced alive."""
     cfg, arrays, cam, _frag, uv, _img, _rays = small_k1
     cfg = cfg.replace(split_bounce=1)
     ws = world_geometry(arrays)
@@ -29,8 +29,11 @@ def test_split_continuation_state(small_k1):
     assert (state[:10, ~alive] == 0).all() and (state[:, ~act] == 0).all()
     assert (state[6:9, alive] > 0).all()  # throughput after bounce 0
     assert (color[~act] == 0).all() and int(rays) > int(act.sum())
-    _c, _r, state2 = megakernel.continuation(ws, cfg, state, 0, 3, 5, 1, 2,
-                                             emit=True)
+    _d, order, live = megakernel._compaction_permutation(
+        alive, state[3], state[4], state[5], "rank")
+    state2 = state.clone()
+    megakernel.continuation(ws, cfg, state2, order, live, color.clone(),
+                            rays.clone(), 0, 3, 5, 1, 2, emit=True)
     assert not (state2[10] > 0.5)[~alive].any()
     torch.testing.assert_close(state2[11:], state[11:], rtol=0, atol=0)
 
@@ -77,8 +80,12 @@ def test_split_wrappers_refuse_other_devices(small_k1):
     with pytest.raises(ValueError, match="device meta"):
         megakernel.sample_wave_phase1(ws, cfg, uv.to("meta"), act, cam, 0, 0, 5)
     with pytest.raises(ValueError, match="device meta"):
-        megakernel.continuation(ws, cfg, torch.zeros(13, 8, device="meta"),
-                                0, 0, 5, 2, 5, emit=False)
+        meta = dict(device="meta")
+        megakernel.continuation(
+            ws, cfg, torch.zeros(13, 8, **meta),
+            torch.zeros(8, dtype=torch.int32, **meta),
+            torch.zeros((), dtype=torch.int32, **meta), torch.zeros(8, 3, **meta),
+            torch.zeros((), dtype=torch.int64, **meta), 0, 0, 5, 2, 5, emit=False)
     with pytest.raises(ValueError, match="split_bounce must be"):
         megakernel.sample_wave_split(ws, cfg.replace(split_bounce=5), uv, act,
                                      cam, 0, 0, 5)
