@@ -586,11 +586,12 @@ RZ_DEV float walk_shadow_bvh8(const Tables8& tb, const Ray& r, float maxd,
 // three 16-byte loads of a 48-byte row (v0, e1, e2, with the transparency and
 // the encoded material in the w words), where a record row took nine scalar
 // loads and reloaded e1 and e2 on a hit. (2) The kernel (walk_kernels.cu)
-// walks only the live rays: each block compacts its own 128 wave slots, so
-// its dead warps retire at once, and a whole-frame wave's rays are taken in
-// K1's 8 x 4 warp tiles. Gathering the live rays of more slots per block
-// into full warps (2-16 passes of 128, or persistent blocks) measured
-// slower: fewer warps in flight hid less of the latency. (3) 128 x 8 keeps
+// walks only the live rays, each in its own slot's thread (a dead slot's
+// thread retires at once), and a whole-frame wave's rays are taken in K1's
+// 8 x 4 warp tiles. Compacting a block's live rays into its first warps
+// tied the in-place walk; gathering those of more slots per block into
+// full warps (2-16 passes of 128, or persistent blocks) measured slower:
+// fewer warps in flight hid less of the latency. (3) 128 x 8 keeps
 // its 62 registers and 32 resident warps; 40 or 32 registers spilled and
 // lost (PERF.md §6).
 

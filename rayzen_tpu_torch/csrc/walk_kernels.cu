@@ -15,13 +15,10 @@
 // against K2/K3 on the whole tree. All of these run one kernel,
 // live_walk_kernel, a template over the walk policy (walk.cuh: Bvh2Walk,
 // TieredWalk, Bvh8Walk, MisslinkWalk) and the mode: it walks only the live
-// rays of its wave. Each block that holds at most 64 live slots of its 128
-// compacts them into shared memory, in order, and then walks them, so the
-// dead warps of waves that are mostly dead (a few percent of the slots are
-// live after bounce 1 of the demo) retire at once; a fuller block walks its
-// slots in place; a whole-frame wave's rays are taken in K1's 8 x 4 warp
-// tiles; and __launch_bounds__ holds it to 64 registers for 32 resident
-// warps per SM.
+// rays of its wave, each in the thread of its own slot (a dead slot's
+// thread stores its result and retires at once); a whole-frame wave's rays
+// are taken in K1's 8 x 4 warp tiles; and __launch_bounds__ holds it to 64
+// registers for 32 resident warps per SM.
 // K6 replaces ::_make_closest_kernel_frustum (:1093) and
 // ::_make_shadow_kernel_frustum (:1191), launched by
 // pallas_closest_hit_frustum (:1361) and pallas_shadow_walk_frustum (:1370);
@@ -51,18 +48,14 @@ constexpr int kBlock = 128;  // K6's blocks
 #ifndef RZ_LIVE_MIN_BLOCKS
 #define RZ_LIVE_MIN_BLOCKS 8
 #endif
-// A block whose live slots number more than this walks them in place (its
-// dead threads exit) instead of compacting them into its first warps: on a
-// half-live wave (the point light's shadow rays) compacting every block
-// measured 1.04x (K3), and compacting only the blocks at most half live
-// ties the parent's launch (PERF.md §6): compaction pays only where it
-// retires most of a block (a block's retired warps seem to hold its place
-// on the SM until its last warp ends).
-#ifndef RZ_LIVE_COMPACT_BELOW
-#define RZ_LIVE_COMPACT_BELOW 64
-#endif
+// The live slots are walked in place: compacting a block's live slots into
+// its first warps through shared memory, in the blocks at most half or
+// three quarters live, tied the in-place walk on every wave of a 1080p
+// per-wave sample, K7's and K2/K3's, down to bounce 4's 0.21% live, and
+// compacting every block lost 4% on the half-live shadow wave (PERF.md
+// §6): a sparse wave is bound by its longest walk, not by the warps its
+// dead slots hold.
 constexpr int kLiveThreads = RZ_LIVE_THREADS;
-constexpr int kLiveWarps = kLiveThreads / 32;
 static_assert(kLiveThreads % 32 == 0, "whole warps");
 // the wave positions' map: K1's warp tiles, 16 x 8 block tiles of 8 x 4
 // warps (common.cuh), whatever kLiveThreads is
@@ -130,45 +123,19 @@ __device__ __forceinline__ rz::HitRec start_hit(const WaveIO& io, int i) {
 // wave. Block b takes wave positions [b, b + 1) x kLiveThreads, one a
 // thread. An inactive slot gets its result at once: t = t_init or T_FAR,
 // tri = -1, cross = menc = 0 (closest), vis = 1 (shadow), as the JAX
-// launchers give inactive rays. Every warp votes its live slots
-// (__ballot_sync) and the block adds up the warps' counts. Past
-// RZ_LIVE_COMPACT_BELOW live slots each live thread walks its own slot;
-// otherwise each live slot goes into the block's queue in shared memory at
-// its prefix popcount, in position order, the first ``queued`` threads walk
-// the queue, each ray writing its result at its own slot, and the other
-// warps retire at once. No count leaves the device. Each ray's walk is its
-// own, so which thread walks it changes no result.
+// launchers give inactive rays, and its thread retires; a live slot's
+// thread walks its ray. Each ray's walk is its own, so which thread walks
+// it changes no result.
 template <int kMode, class Walk, class Count>
 __global__ void __launch_bounds__(kLiveThreads, RZ_LIVE_MIN_BLOCKS)
     live_walk_kernel(Walk w, WaveIO io, int n, int width, int height,
                      float min_vis, float t_eps) {
-  __shared__ int queue[kLiveThreads];
-  __shared__ int warp_live[kLiveWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = wave_slot((long long)blockIdx.x * kLiveThreads + threadIdx.x,
-                             n, width, height);
-  const bool live = slot >= 0 && io.act[slot] != 0;
-  if (slot >= 0 && !live) {
-    store_result<kMode>(io, slot, start_hit<rz::kClosest>(io, slot), 1.0f);
-  }
-  const unsigned m = __ballot_sync(rz::kFullMask, live);
-  if (lane == 0) warp_live[warp] = __popc(m);
-  __syncthreads();
-  int at = 0, queued = 0;
-#pragma unroll
-  for (int k = 0; k < kLiveWarps; ++k) {
-    const int v = warp_live[k];
-    at += k < warp ? v : 0;
-    queued += v;
-  }
-  int i = slot;
-  if (queued > RZ_LIVE_COMPACT_BELOW) {  // block-uniform
-    if (!live) return;
-  } else {
-    if (live) queue[at + __popc(m & ((1u << lane) - 1u))] = slot;
-    __syncthreads();
-    if ((int)threadIdx.x >= queued) return;
-    i = queue[threadIdx.x];
+  const int i = wave_slot((long long)blockIdx.x * kLiveThreads + threadIdx.x,
+                          n, width, height);
+  if (i < 0) return;
+  if (io.act[i] == 0) {
+    store_result<kMode>(io, i, start_hit<rz::kClosest>(io, i), 1.0f);
+    return;
   }
   const rz::Ray r = rz::make_ray(io.orig[3 * i], io.orig[3 * i + 1],
                                  io.orig[3 * i + 2], io.dir[3 * i],

@@ -26,8 +26,8 @@ walk, over the live rays of their wave.
 
 ``build`` also takes another source tree, output path and ``-D`` defines,
 and ``bind`` loads any such library: scripts/k1_schedule.py builds K1, K4
-and the standalone walks at other register budgets and schedules, and an
-older tree's kernels, beside these.
+and the standalone walks at other register budgets and schedules beside
+these.
 """
 
 from __future__ import annotations
@@ -149,10 +149,9 @@ def build(force: bool = False, csrc: str = CSRC, out: str = LIB_PATH,
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill stores per kernel from nvcc's
     -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
-    ",frustum" for those with the K6 primary walk, ",tiles" for an older
-    build's warp-tiled lockstep forms, ",count" for the counting forms; the
-    standalone walks' kernel is "live_walk_kernel<closest,Walk>" or
-    "<shadow,Walk>")."""
+    ",frustum" for those with the K6 primary walk, ",count" for the counting
+    forms; the standalone walks' kernel is "live_walk_kernel<closest,Walk>"
+    or "<shadow,Walk>")."""
     import re
 
     out, cur = {}, None
@@ -163,28 +162,23 @@ def ptxas_summary(log: str) -> dict:
             # every kernel of sample_kernel.cu holds "sample_kernel")
             kernel = next((k for k in ("continuation_kernel", "regen_kernel",
                                        "regen_phase1_kernel", "live_walk_kernel",
-                                       "misslink_kernel", "sample_kernel",
-                                       "closest_frustum_kernel",
-                                       "shadow_frustum_kernel",
-                                       "closest_kernel", "shadow_kernel")
+                                       "sample_kernel", "closest_frustum_kernel",
+                                       "shadow_frustum_kernel")
                            if k in mangled), mangled)
             count = (",count" if "LaneCount" in mangled or "Counted" in mangled
                      else "")
             walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk",
-                                     "MisslinkWalk", "MisslinkRowsWalk")
-                         if w in mangled), "Bvh2Walk")
-            if kernel in ("live_walk_kernel", "misslink_kernel"):
+                                     "MisslinkWalk") if w in mangled), "Bvh2Walk")
+            if kernel == "live_walk_kernel":
                 # template <int kMode, ...>: 0 closest, 1 shadow
                 mode = "closest" if f"{kernel}ILi0E" in mangled else "shadow"
-                cur = (f"{kernel}<{mode},{walk}{count}>" if kernel == "live_walk_kernel"
-                       else f"{kernel}<{mode}{count}>")
+                cur = f"{kernel}<{mode},{walk}{count}>"
                 out[cur] = {}
                 continue
             flags = re.findall(r"Lb([01])E", mangled)
             octant = ",octant" if flags[:1] == ["1"] else ""
             frustum = ",frustum" if flags[1:2] == ["1"] else ""
-            tiles = ",tiles" if flags[2:3] == ["1"] else ""
-            cur = f"{kernel}<{walk}{octant}{frustum}{tiles}{count}>"
+            cur = f"{kernel}<{walk}{octant}{frustum}{count}>"
             out[cur] = {}
         elif cur and "bytes stack frame" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]

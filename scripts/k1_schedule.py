@@ -31,38 +31,48 @@ K4 and the standalone walks the same way, where --forms names them:
   - cont: K4's continuation (plain and K9 forms) on the rows phase 1 leaves
     at 1080p (split_bounce 2 and 1, octant rebin): the colour and rays it
     adds against the first build's (bit for bit), its budget and lane
-    utilisation (where the build has them), the kernel alone and the
-    split's continuation step with the torch glue it needs (the gathers of
-    a build whose continuation reads a compacted copy of the rows, as
-    before the rows were read through the permutation), and the split
-    dispatch, timed;
+    utilisation, the kernel alone and the split dispatch, timed;
   - k7, k2: the K7 waves of one sample of the 1080p/64 spp
     kernels="pallas-ml" dispatch and the K2/K3 waves of one sample of the
     "pallas-bvh2" dispatch (5 closest, 2 shadow each), recorded once at the
     wrappers; each build walks every wave (bit for bit against the first
-    build), with the live-ray walks' budgets and lane utilisation where the
-    build has them, and each is timed (20 launches a call); with k2 also
-    the "pallas-bvh2" dispatch at 1080p/4 spp. A build whose K2/K3 take no
-    frame (their one-thread-per-slot launch) is called with its own
-    arguments.
+    build), with the live-ray walks' budgets and lane utilisation, and each
+    is timed (20 launches a call); K2/K3 also with the slots in wave order
+    (no warp tiles: "_flat"); with k2 also the "pallas-bvh2" dispatch at
+    1080p/4 spp.
+
+A tree whose kernels take other arguments than this tree's (an earlier
+PR's) is timed with --own instead: each such build runs in a process of
+its own on its tree's package and kernels, and only through the entry
+points every tree has, timed in turns across the processes: with "cont",
+each continuation form's whole split sample (megakernel.sample_wave_split:
+phase 1, the compaction, any torch gathers, the continuation) and its
+phase 1 alone, and the split dispatch, plus one split dispatch per build
+under torch.profiler (the continuation's and phase 1's device time, the
+torch gathers and the compaction's scans); with "k2", the K2/K3 waves of
+one "pallas-bvh2" sample replayed through the wrappers as the per-wave
+loop calls them, and the "pallas-bvh2" dispatch. The results of the
+builds are held to each other by digest (bit for bit).
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
     python scripts/k1_schedule.py [--tree NAME=DIR[:DEFINE,...]]...
+                                  [--own NAME=DIR[:DEFINE,...]]...
                                   [--sweep [POINT,...]] [--count NAME=DIR]...
                                   [--forms PREFIX,...] [--out FILE]
 
---tree: a build to time, from DIR/rayzen_tpu_torch/csrc ("." is this tree)
-with nvcc -D DEFINEs; the first is the reference of the bitwise checks (by
-default ".", alone). --sweep adds this tree at each register budget of
+--tree: a build to time in this process, from DIR/rayzen_tpu_torch/csrc
+("." is this tree) with nvcc -D DEFINEs, driven through this tree's
+package; the first is the reference of the bitwise checks (by default
+".", alone, unless --own is given). --own: a build timed through its own
+tree's package (above). --sweep adds this tree at each register budget of
 SWEEP, or at the named points of it. --count: a build used only for its
-frames and lane counts (a copy of an older K1 with the counter added).
---forms: only the frames whose names start with a PREFIX (and the
-K1 frames they are held to), and no dispatches but the split's. Defines
-for the continuation and the live-ray walks: RZ_CONT_THREADS,
-RZ_CONT_MIN_BLOCKS, RZ_LIVE_THREADS, RZ_LIVE_MIN_BLOCKS,
-RZ_LIVE_COMPACT_BELOW. Prints one JSON object as its last line, and writes
-it to --out.
+K1 frames and lane counts (a copy of an older K1 with the counter added).
+--forms: only the frames whose names start with a PREFIX (and the K1
+frames they are held to), and no dispatches but the split's and
+"pallas-bvh2"'s. Defines for the continuation and the live-ray walks:
+RZ_CONT_THREADS, RZ_CONT_MIN_BLOCKS, RZ_LIVE_THREADS, RZ_LIVE_MIN_BLOCKS.
+Prints one JSON object as its last line, and writes it to --out.
 """
 
 from __future__ import annotations
@@ -127,119 +137,214 @@ def build_all(specs) -> dict:
     return logs
 
 
-def _old_signatures(L) -> None:
-    """Declare the arguments of an older build's K2/K3 and continuation
-    entry points (before the live-ray K2/K3 and the continuation that reads
-    the rows through the permutation), under the names this tree's ext.bind
-    declares with the new ones."""
-    import ctypes
-
-    from rayzen_tpu_torch import ext
-
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sp = ctypes.POINTER(ext.SampleParams)
-    if not hasattr(L, "rz_live_walk_budget"):
-        L.rz_closest_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, p, p, p, p, p]
-        L.rz_shadow_bvh2.argtypes = [p, p, i, i, p, p, p, p, i, f, f, p, p]
-    if not hasattr(L, "rz_continuation_budget"):
-        for name in ("rz_continuation", "rz_continuation_octant"):
-            getattr(L, name).argtypes = [p, p, i, i, p, p, i, sp, p, p, p, p]
-
-
-def _old_bvh2_walk(L, ws, kind, args):
-    """An older build's one-thread-per-slot K2 (``kind`` "closest": args (o,
-    d, act); returns (t, tri, cross, menc)) or K3 ("shadow": (o, d, maxd,
-    act, min_vis, t_eps); returns (vis,))."""
-    import torch
-
-    from rayzen_tpu_torch import ext
-    from rayzen_tpu_torch.ops import walk
-
-    o, d = args[0], args[1]
-    n, stream = o.shape[0], torch.cuda.current_stream().cuda_stream
-    act = (args[2] if kind == "closest" else args[3]).to(torch.uint8).contiguous()
-    tabs = walk.table_args(ws, "bvh2")
-    if kind == "closest":
-        t = torch.empty((n,), dtype=torch.float32, device=o.device)
-        tri = torch.empty((n,), dtype=torch.int32, device=o.device)
-        cross = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-        menc = torch.empty_like(t)
-        ext.check(L.rz_closest_bvh2(*tabs, o.data_ptr(), d.data_ptr(), act.data_ptr(),
-                                    None, n, t.data_ptr(), tri.data_ptr(),
-                                    cross.data_ptr(), menc.data_ptr(), stream),
-                  "rz_closest_bvh2")
-        return t, tri, cross, menc
-    vis = torch.empty((n,), dtype=torch.float32, device=o.device)
-    ext.check(L.rz_shadow_bvh2(*tabs, o.data_ptr(), d.data_ptr(), args[2].data_ptr(),
-                               act.data_ptr(), n, float(args[4]), float(args[5]),
-                               vis.data_ptr(), stream), "rz_shadow_bvh2")
-    return (vis,)
-
-
-def _old_continuation(L, ws, cfg, cst, b_start, b_stop, emit):
-    """An older build's continuation over rows already gathered into
-    compacted order: (colour (R, 3) in that order, rays (R,) int32, the rows
-    after b_stop - 1 or None)."""
-    import ctypes
+def _digest(x, h=None):
+    """A hash of every tensor in x (tensors, tuples, lists, objects'
+    fields), to hold two trees' results bit for bit across processes."""
+    import hashlib
 
     import torch
 
+    top = h is None
+    h = h or hashlib.sha1()
+    if isinstance(x, torch.Tensor):
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            _digest(v, h)
+    elif hasattr(x, "__dict__"):
+        for v in vars(x).values():
+            _digest(v, h)
+    return h.hexdigest() if top else h
+
+
+def own_worker(name: str, tree: str, prefixes: tuple, defines: tuple) -> int:
+    """The --own build ``name``: ``tree``'s package and kernels (with
+    ``defines``), driven through the entry points every tree has. Speaks
+    one JSON line per request on the stdout it was started with: first its
+    quantities and the digests of its results; then, per request, {"run":
+    q} -> the ms of one timed call of q, {"profile": 1} -> one split
+    dispatch under torch.profiler, {"quit": 1}."""
+    import torch
+
+    from chip_smoke import profile_dispatch, timed  # this tree's helpers
+
+    proto = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)  # the package's prints go to stderr
+    sys.path.insert(0, os.path.abspath(tree))
     from rayzen_tpu_torch import ext
+    from rayzen_tpu_torch.config import RenderConfig
+    from rayzen_tpu_torch.demo import build_demo_scene
+    from rayzen_tpu_torch.integrator import render_radiance_with_stats
     from rayzen_tpu_torch.ops import megakernel, walk
+    from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+    from rayzen_tpu_torch.packing import pack_scene, world_geometry
 
-    c = megakernel._consts(cfg, 0, 0, 5, 1)
-    n = cst.shape[1]
-    color = torch.empty((n, 3), dtype=torch.float32, device=cst.device)
-    rays = torch.empty((n,), dtype=torch.int32, device=cst.device)
-    out = torch.empty_like(cst) if emit else None
-    params = megakernel._sample_params(c, ws, b_start, b_stop)
-    fn = L.rz_continuation_octant if c.octant else L.rz_continuation
-    ext.check(fn(*walk.table_args(ws, "bvh2"), ws.materials.data_ptr(), cst.data_ptr(),
-                 n, ctypes.byref(params), color.data_ptr(), rays.data_ptr(),
-                 None if out is None else out.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream), "rz_continuation")
-    return color, rays, out
+    if os.path.dirname(os.path.dirname(ext.__file__)) != os.path.abspath(tree):
+        raise RuntimeError(f"{name}: imported {ext.__file__}, not {tree}'s package")
+    csrc = os.path.join(os.path.abspath(tree), "rayzen_tpu_torch", "csrc")
+    out = _lib_path(f"own-{name}", csrc)
+    ext.build(force=True, csrc=csrc, out=out, defines=defines)
+    ext._lib = ext.bind(out)
+    if ext._lib.rz_sample_params_size() != ext.ctypes.sizeof(ext.SampleParams):
+        raise RuntimeError(f"{name}: SampleParams layout differs")
+
+    dev = torch.device("cuda", 0)
+    mcfg = RenderConfig(width=1920, height=1080, spp=64, max_bounces=5)
+    mscene = build_demo_scene(1920, 1080)
+    marrays = pack_scene(mscene, mcfg, dev)
+    mws, mcam = world_geometry(marrays), mscene.camera.device_params()
+    _, uv = pixel_grid(1920, 1080, dev)
+    act = torch.ones(uv.shape[0], dtype=torch.bool, device=dev)
+    xcfg = mcfg.replace(split_bounce=2, split_rebin="octant")
+    k9 = dict(octant_bounce_walks=True)
+
+    def on(prefix):
+        return not prefixes or prefix.startswith(prefixes)
+
+    # quantity -> (its call, launches a call); digests: the results
+    calls, digests = {}, {}
+    for form, cfg in (("plain", xcfg), ("k9", xcfg.replace(**k9)),
+                      ("plain_b1", xcfg.replace(split_bounce=1)),
+                      ("k9_b1", xcfg.replace(split_bounce=1, **k9))):
+        if not on("cont"):
+            break
+        split = (lambda c: lambda: megakernel.sample_wave_split(
+            mws, c, uv, act, mcam, 0, 0, 5))(cfg)
+        calls[f"split_{form}_ms"] = (split, 1)
+        calls[f"phase1_{form}_ms"] = ((lambda c: lambda: megakernel.sample_wave_phase1(
+            mws, c, uv, act, mcam, 0, 0, 5))(cfg), 1)
+        digests[f"split_{form}"] = _digest(split())
+    if on("cont"):
+        calls["dispatch_split_ms"] = (lambda: render_radiance_with_stats(
+            marrays, mcam, xcfg), 1)
+    if on("k2"):
+        # the K2/K3 waves of one 1080p "pallas-bvh2" sample, recorded at
+        # the wrappers as the per-wave loop calls them, replayed 20 a call
+        got, real = [], (walk.closest_hit_bvh2, walk.shadow_walk_bvh2)
+
+        def recorder(kind, fn):
+            def rec(*args, **kw):
+                got.append((kind, fn, tuple(a.clone() if isinstance(a, torch.Tensor)
+                                            else a for a in args), kw))
+                return fn(*args, **kw)
+            return rec
+
+        walk.closest_hit_bvh2 = recorder("closest", real[0])
+        walk.shadow_walk_bvh2 = recorder("shadow", real[1])
+        try:
+            render_radiance_with_stats(marrays, mcam,
+                                       mcfg.replace(kernels="pallas-bvh2", spp=1))
+        finally:
+            walk.closest_hit_bvh2, walk.shadow_walk_bvh2 = real
+        names = [f"k2_closest{b}" for b in range(5)]
+        names[1:1] = ["k2_shadow0", "k2_shadow1"]
+        if len(got) != len(names):
+            raise RuntimeError(f"{name}: {len(got)} K2/K3 waves, not {len(names)}")
+        for wname, (_kind, fn, args, kw) in zip(names, got):
+            def replay(fn=fn, args=args, kw=kw):
+                for _ in range(20):
+                    out_ = fn(*args, **kw)
+                return out_
+            calls[f"{wname}_ms"] = (replay, 20)
+            digests[wname] = _digest(fn(*args, **kw))
+            digests[f"{wname}_input"] = _digest(
+                [a for a in args if isinstance(a, torch.Tensor)])
+        calls["dispatch_bvh2_ms"] = (lambda: render_radiance_with_stats(
+            marrays, mcam, mcfg.replace(kernels="pallas-bvh2", spp=4)), 1)
+
+    def say(msg):
+        proto.write(json.dumps(msg) + "\n")
+        proto.flush()
+
+    say(dict(quantities=list(calls), digests=digests, package=ext.__file__))
+    while True:
+        line = sys.stdin.readline()
+        if not line:
+            break
+        req = json.loads(line)
+        if "run" in req:
+            fn, per_call = calls[req["run"]]
+            say(dict(ms=timed(fn, torch)[1] / per_call))
+        elif "profile" in req:
+            wall, busy, top = profile_dispatch(
+                lambda: render_radiance_with_stats(marrays, mcam, xcfg), torch, None)
+            # kernel classes: the continuation, phase 1, the torch gathers
+            # and scatters (indexing kernels) and the compaction's scans
+            classes = {"continuation": ("continuation",), "phase1": ("phase1",),
+                       "gathers": ("index_elementwise", "gather"),
+                       "scans": ("scan", "cumsum")}
+            rows = {c: [(ms, n) for ms, k, n in top if any(w in k.lower() for w in keys)]
+                    for c, keys in classes.items()}
+            say(dict(wall_ms=wall, device_busy_ms=busy,
+                     **{f"{c}_ms": sum(ms for ms, _ in v) for c, v in rows.items()},
+                     **{f"{c}_launches": sum(n for _, n in v) for c, v in rows.items()},
+                     top={k[:60]: [ms, n] for ms, k, n in top[:12]}))
+        else:
+            say({})
+            break
+    return 0
 
 
-def _legacy_bvh2_walks(L):
-    """walk.closest_hit_bvh2 and walk.shadow_walk_bvh2 on an older build's
-    one-thread-per-slot K2/K3 (which take no frame)."""
-    import torch
+def own_turns(owns, prefixes, say) -> dict:
+    """Time the --own builds in turns: each runs in its own process on its
+    own tree's package (own_worker); every quantity all of them have is
+    timed (a b c, c b a) x 3, one call each, with CUDA events, after a
+    warm-up call each; then one profiled split dispatch each. Returns
+    {builds: their quantities and digests, equal: which results agree
+    across the builds, times, profiles}."""
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--own-worker", name, tree,
+             ",".join(prefixes or ()), *defines],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for name, tree, defines in owns}
 
-    from rayzen_tpu_torch.ops import walk
+    def read(n):
+        line = procs[n].stdout.readline()
+        if not line:
+            raise RuntimeError(f"own build {n} ended (exit {procs[n].wait()})")
+        return json.loads(line)
 
-    def closest(ws, o, d, a, t_init=None, width=0, height=0):
-        o, d = o.contiguous(), d.contiguous()
-        return walk.decode_hit(ws, o, d, *_old_bvh2_walk(L, ws, "closest", (o, d, a)))
+    def ask(n, req):
+        procs[n].stdin.write(json.dumps(req) + "\n")
+        procs[n].stdin.flush()
+        return read(n)
 
-    def shadow(ws, o, d, max_dist, a, min_visibility=0.05, t_eps=1e-3, width=0,
-               height=0):
-        md = walk._max_dist(max_dist, o.shape[0], o.device).contiguous()
-        vis, = _old_bvh2_walk(L, ws, "shadow", (o.contiguous(), d.contiguous(), md, a,
-                                                min_visibility, t_eps))
-        return vis, a.sum(dtype=torch.int64)
-    return closest, shadow
-
-
-def _legacy_continuation(L):
-    """megakernel.continuation's contract on an older build: the rows of
-    order[:live] gathered into compacted order, its kernel, the colour
-    added back through the inverse permutation (the split's flow of that
-    build), the rows scattered back with ``emit``."""
-    import torch
-
-    def cont(ws, cfg, state, order, live, color, rays, samp, rng_key, max_bounces,
-             b_start, b_stop, emit):
-        o = order.long()
-        col, r, out = _old_continuation(L, ws, cfg, state[:, o], b_start, b_stop,
-                                        emit)
-        dest = torch.empty_like(o)
-        dest[o] = torch.arange(o.numel(), device=o.device)
-        color += col[dest]
-        rays += r.sum(dtype=torch.int64)
-        if emit:
-            state[:, o] = out
-    return cont
+    try:
+        hello = {n: read(n) for n in procs}
+        names = list(procs)
+        say("[own] " + "; ".join(f"{n}: {hello[n]['package']}" for n in names))
+        first = hello[names[0]]["digests"]
+        equal = {k: all(hello[n]["digests"].get(k) == v for n in names)
+                 for k, v in first.items()}
+        qs = [q for q in hello[names[0]]["quantities"]
+              if all(q in hello[n]["quantities"] for n in names)]
+        times = {}
+        for q in qs:
+            for n in names:  # warm-up
+                ask(n, {"run": q})
+            got = {n: [] for n in names}
+            for order in (names, names[::-1]) * 3:
+                for n in order:
+                    got[n].append(ask(n, {"run": q})["ms"])
+            times[q] = {n: dict(median=statistics.median(v), all=v)
+                        for n, v in got.items()}
+            say(f"[own turns {q}] " + "; ".join(
+                f"{n} {statistics.median(v):.4f}" for n, v in got.items()))
+        profiles = {}
+        if "dispatch_split_ms" in qs:
+            for n in names:
+                profiles[n] = ask(n, {"profile": 1})
+                say(f"[own profile {n}] " + json.dumps(
+                    {k: v for k, v in profiles[n].items() if k != "top"}))
+        for n in names:
+            ask(n, {"quit": 1})
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return dict(builds=hello, equal=equal, times=times, profiles=profiles)
 
 
 def main() -> int:
@@ -250,26 +355,26 @@ def main() -> int:
         ext.build(force=True, csrc=args[1], out=args[2], defines=tuple(args[3:]))
         print(ext.build_log)
         return 0
+    if args[:1] == ["--own-worker"]:  # one --own build, in its own process
+        return own_worker(args[1], args[2], tuple(p for p in args[3].split(",") if p),
+                          tuple(args[4:]))
 
     import torch
 
     if not torch.cuda.is_available():
         print("k1_schedule: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import build_field_scene, nvidia_smi_line, timed
-    from rayzen_tpu_torch import ext
-    from rayzen_tpu_torch.config import RenderConfig
-    from rayzen_tpu_torch.demo import build_demo_scene
-    from rayzen_tpu_torch.integrator import render_radiance_with_stats
-    from rayzen_tpu_torch.ops import megakernel, walk
-    from rayzen_tpu_torch.ops.camera_rays import pixel_grid
-    from rayzen_tpu_torch.packing import pack_scene, world_geometry
+    from chip_smoke import nvidia_smi_line
 
-    trees, counts, out_path, prefixes = [], [], None, None
+    trees, counts, owns, out_path, prefixes = [], [], [], None, None
     i = 0
     while i < len(args):
         if args[i] == "--tree":
             trees.append(_spec(args[i + 1]))
+            i += 2
+        elif args[i] == "--own":
+            name, tree, defines = _spec(args[i + 1])
+            owns.append((name, os.path.dirname(os.path.dirname(tree)), defines))
             i += 2
         elif args[i] == "--count":
             counts.append(_spec(args[i + 1]))
@@ -291,7 +396,7 @@ def main() -> int:
             i += 2
         else:
             raise SystemExit(f"unknown argument {args[i]}")
-    if not trees:
+    if not (trees or owns):
         trees = [_spec(".=.")]
     t0 = time.perf_counter()
 
@@ -300,6 +405,37 @@ def main() -> int:
 
     kind, smi = torch.cuda.get_device_name(0), nvidia_smi_line()
     say(f"[device] {kind} | {smi}")
+    result = dict(device=kind, smi=smi)
+    if owns:
+        result["own"] = own_turns(owns, prefixes, say)
+    if trees:
+        result.update(in_turns(trees, counts, prefixes, say))
+    result["seconds"] = time.perf_counter() - t0
+    line = json.dumps(result)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+def in_turns(trees, counts, prefixes, say) -> dict:
+    """The --tree builds (and the --count builds), loaded side by side in
+    this process and driven through this tree's package: their frames,
+    budgets and lane counts, and every quantity timed in turns. Returns
+    {builds, times}."""
+    import torch
+
+    from chip_smoke import build_field_scene, timed
+    from rayzen_tpu_torch import ext
+    from rayzen_tpu_torch.config import RenderConfig
+    from rayzen_tpu_torch.demo import build_demo_scene
+    from rayzen_tpu_torch.integrator import render_radiance_with_stats
+    from rayzen_tpu_torch.ops import megakernel, walk
+    from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+    from rayzen_tpu_torch.packing import pack_scene, world_geometry
+
     logs = build_all(trees + counts)
     trees = [t for t in trees if t[0] in logs]
     counts = [t for t in counts if t[0] in logs]
@@ -309,7 +445,10 @@ def main() -> int:
         L = ext.bind(_lib_path(name, csrc))
         if L.rz_sample_params_size() != ext.ctypes.sizeof(ext.SampleParams):
             raise RuntimeError(f"{name}: SampleParams layout differs")
-        _old_signatures(L)
+        if any(t[0] == name for t in trees) and not all(
+                hasattr(L, e) for e in ("rz_live_walk_budget", "rz_continuation_budget")):
+            raise SystemExit(f"{name}: its kernels take other arguments than this "
+                             "tree's; time it through its own package (--own)")
         libs[name] = L
 
     def has(name, entry):
@@ -381,28 +520,18 @@ def main() -> int:
 
     @contextlib.contextmanager
     def using(name):
-        """Launch through build ``name``; an older build's continuation runs
-        its own flow (_legacy_continuation) under megakernel.continuation."""
+        """Launch through build ``name``."""
         ext._lib = libs[name]
-        real = megakernel.continuation, walk.closest_hit_bvh2, walk.shadow_walk_bvh2
-        if not has(name, "rz_continuation_budget"):
-            megakernel.continuation = _legacy_continuation(libs[name])
-        if not has(name, "rz_live_walk_budget"):
-            walk.closest_hit_bvh2, walk.shadow_walk_bvh2 = _legacy_bvh2_walks(libs[name])
-        try:
-            yield
-        finally:
-            megakernel.continuation, walk.closest_hit_bvh2, walk.shadow_walk_bvh2 = real
+        yield
 
     # the per-wave walks of one sample of a 1080p dispatch, recorded at the
-    # wrappers with this tree's kernels (the first build with the live-ray
-    # walks): K7's (kernels="pallas-ml") and K2/K3's ("pallas-bvh2")
-    new_walks = [n for n, *_ in trees + counts if has(n, "rz_live_walk_budget")]
+    # wrappers with the first build: K7's (kernels="pallas-ml") and K2/K3's
+    # ("pallas-bvh2")
     waves = []
     for w_kind, kernels_, c_name, s_name in (
             ("k7", "pallas-ml", "closest_hit_misslink", "shadow_walk_misslink"),
             ("k2", "pallas-bvh2", "closest_hit_bvh2", "shadow_walk_bvh2")):
-        if not (on[w_kind] and new_walks):
+        if not on[w_kind]:
             continue
         got = []
         real_c, real_s = getattr(walk, c_name), getattr(walk, s_name)
@@ -421,7 +550,7 @@ def main() -> int:
         setattr(walk, c_name, rec_c)
         setattr(walk, s_name, rec_s)
         try:
-            with using(new_walks[0]):
+            with using(trees[0][0]):
                 render_radiance_with_stats(marrays, mcam,
                                            mcfg.replace(kernels=kernels_, spp=1))
         finally:
@@ -436,17 +565,15 @@ def main() -> int:
             f"{nm} {int(args[2 if kind == 'closest' else 3].sum())} live"
             for nm, _wk, kind, args, _f in waves))
 
-    def wave_walk(name, w_kind, kind, args, frame, reps=1):
-        """Build ``name``'s walk of a recorded wave (``reps`` launches; the
-        last's result)."""
+    def wave_walk(w_kind, kind, args, frame, reps=1):
+        """The walk of a recorded wave through the build in use (``reps``
+        launches; the last's result)."""
         def run():
             for _ in range(reps):
                 if w_kind == "k7" and kind == "closest":
                     out = walk.closest_walk_misslink(mws, *args, *frame)
                 elif w_kind == "k7":
                     out = walk.shadow_walk_misslink(mws, *args, *frame)[:1]
-                elif not has(name, "rz_live_walk_budget"):
-                    out = _old_bvh2_walk(libs[name], mws, kind, args)
                 elif kind == "closest":
                     out = walk.closest_walk(mws, *args, None, *frame)
                 else:
@@ -458,28 +585,22 @@ def main() -> int:
     # K4's continuation on phase 1's 1080p rows (one phase 1 a split point,
     # with this tree's kernels): each build's colour and rays added in
     cont_inputs = {}
-    if cont_forms and new_walks:
-        with using(new_walks[0]):
+    if cont_forms:
+        with using(trees[0][0]):
             for sb in sorted({c.split_bounce for c in cont_forms.values()}):
                 c1, r1, st = p1(xcfg.replace(split_bounce=sb))()
                 dest, order, live = megakernel._compaction_permutation(
                     st[10] > 0.5, st[3], st[4], st[5], "octant",
                     origins=(st[0], st[1], st[2]))
                 cont_inputs[sb] = (c1, r1, st, order, live)
-        ext._lib = None
         say("[cont] phase-1 rows: " + ", ".join(
             f"split_bounce {sb} {int(v[4])} live" for sb, v in cont_inputs.items()))
 
-    def cont_run(cfg, kernel_only=False, scratch=None):
+    def cont_run(cfg, scratch=None):
         """The continuation of form cfg on its phase-1 rows through the
-        build in use: (colour, rays). ``kernel_only``: an older build's
-        kernel alone on the rows gathered before (no glue); ``scratch``:
-        the (colour, rays) to add into (the timed calls)."""
+        build in use: (colour, rays). ``scratch``: the (colour, rays) to add
+        into (the timed calls)."""
         c1, r1, st, order, live = cont_inputs[cfg.split_bounce]
-        if kernel_only and not hasattr(ext._lib, "rz_continuation_budget"):
-            cst = gathered.setdefault(cfg.split_bounce, st[:, order.long()])
-            return lambda: _old_continuation(ext._lib, mws, cfg, cst, cfg.split_bounce,
-                                             5, False)[:2]
 
         def run():
             col, rays = scratch or (c1.clone(), r1.clone())
@@ -487,8 +608,6 @@ def main() -> int:
                                     cfg.split_bounce, 5, False)
             return col, rays
         return run
-
-    gathered = {}
 
     def k1(ws, cfg, cam, spp, _k1=None):
         return lambda: megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, spp)
@@ -512,9 +631,8 @@ def main() -> int:
                                   defines=list(defines),
                                   timed=any(t[0] == name for t in trees))
         rep["ptxas"] = {k: v for k, v in ext.ptxas_summary(logs[name]).items()
-                        if k.startswith(("regen_", "misslink_kernel", "live_walk_kernel",
+                        if k.startswith(("regen_", "live_walk_kernel",
                                          "continuation_kernel",
-                                         "closest_kernel", "shadow_kernel",
                                          "sample_kernel<Bvh2Walk"))}
         if has(name, "rz_sample_budget"):
             # an older build knows policies 0-2 (the regenerating forms)
@@ -550,8 +668,10 @@ def main() -> int:
         p1_count = has(name, "rz_sample_wave_phase1_count")
         if p1_forms and p1_count:
             rep["budget_phase1"] = megakernel.sample_budget("phase1")
+        # an older K1 of --count may take other arguments in K4 and the walks
+        timed_ = rep["timed"]
         with using(name):
-            for fname, ccfg in cont_forms.items() if cont_inputs else ():
+            for fname, ccfg in cont_forms.items() if cont_inputs and timed_ else ():
                 c, r = cont_run(ccfg)()
                 if fname not in ref:
                     ref[fname] = (c, int(r))
@@ -563,20 +683,22 @@ def main() -> int:
                                           for f in megakernel.CONTINUATION_FORMS}
         if has(name, "rz_live_walk_budget"):
             rep["budget_live_walks"] = {f: walk.live_budget(f) for f in walk.LIVE_FORMS}
-        for wname, w_kind, kind, args, frame in waves:
-            out = wave_walk(name, w_kind, kind, args, frame)()
+        for wname, w_kind, kind, args, frame in waves if timed_ else ():
+            out = wave_walk(w_kind, kind, args, frame)()
             if wname not in ref:
                 ref[wname] = out
             bit[wname] = dict(equal=all(torch.equal(a, b)
                                         for a, b in zip(out, ref[wname])))
-            if has(name, "rz_live_walk_budget"):
-                cargs = (dict(max_dist=args[2], min_visibility=args[4], t_eps=args[5])
-                         if kind == "shadow" else {})
-                o, d, a = args[0], args[1], args[3] if kind == "shadow" else args[2]
-                _out, la, ls = walk.live_lane_counts(
-                    mws, o, d, a, kind="misslink" if w_kind == "k7" else "bvh2",
-                    width=frame[0], height=frame[1], **cargs)
-                bit[wname]["lanes"] = la / ls if ls else None
+            if w_kind == "k2":  # the same walks with the slots in wave order
+                bit[wname]["flat_equal"] = all(torch.equal(a, b) for a, b in zip(
+                    wave_walk(w_kind, kind, args, (0, 0))(), out))
+            cargs = (dict(max_dist=args[2], min_visibility=args[4], t_eps=args[5])
+                     if kind == "shadow" else {})
+            o, d, a = args[0], args[1], args[3] if kind == "shadow" else args[2]
+            _out, la, ls = walk.live_lane_counts(
+                mws, o, d, a, kind="misslink" if w_kind == "k7" else "bvh2",
+                width=frame[0], height=frame[1], **cargs)
+            bit[wname]["lanes"] = la / ls if ls else None
         lanes = rep["lanes"] = {}
         for fname, (ws, cfg, cam, spp, _k1) in forms.items():
             if fname == "k1_demo_threefry" or not has(name, count_name(ws, cfg)):
@@ -590,9 +712,7 @@ def main() -> int:
                                                       5, phase1=True)
             lanes[fname] = dict(active=a, slots=sl, utilisation=a / sl,
                                 frame_equal=bool(torch.equal(c, p1(pcfg)()[0])))
-        for fname, ccfg in cont_forms.items() if cont_inputs else ():
-            if not has(name, "rz_continuation_budget"):
-                continue
+        for fname, ccfg in cont_forms.items() if cont_inputs and timed_ else ():
             c1, r1, st, order, live = cont_inputs[ccfg.split_bounce]
             col, rays = c1.clone(), r1.clone()
             a, sl = megakernel.continuation_lane_counts(
@@ -628,15 +748,17 @@ def main() -> int:
     for f, c in cont_forms.items() if cont_inputs else ():
         scratch = (cont_inputs[c.split_bounce][0].clone(),
                    cont_inputs[c.split_bounce][1].clone())
-        for q, only in ((f"{f}_ms", True), (f"{f}_glue_ms", False)):
-            quantities[q] = ((lambda c_, o_, s_: lambda _n: repeated(
-                cont_run(c_, o_, s_)))(c, only, scratch), reps)
+        quantities[f"{f}_ms"] = ((lambda c_, s_: lambda _n: repeated(
+            cont_run(c_, s_)))(c, scratch), reps)
     if p1_forms or cont_forms:
         quantities["dispatch_split_ms"] = (lambda _n: lambda: render_radiance_with_stats(
             marrays, mcam, xcfg), 1)
     for wname, w_kind, kind, args, frame in waves:
-        quantities[f"{wname}_ms"] = ((lambda *a_: lambda n: wave_walk(
-            n, *a_, reps=reps))(w_kind, kind, args, frame), reps)
+        quantities[f"{wname}_ms"] = ((lambda *a_: lambda _n: wave_walk(
+            *a_, reps=reps))(w_kind, kind, args, frame), reps)
+        if w_kind == "k2":  # K2/K3 with the slots in wave order, not tiles
+            quantities[f"{wname}_flat_ms"] = ((lambda *a_: lambda _n: wave_walk(
+                *a_, reps=reps))(w_kind, kind, args, (0, 0)), reps)
     if on["k2"]:  # K2/K3's path: the kernels="pallas-bvh2" dispatch, 4 spp
         quantities["dispatch_bvh2_ms"] = (lambda _n: lambda: render_radiance_with_stats(
             marrays, mcam, mcfg.replace(kernels="pallas-bvh2", spp=4)), 1)
@@ -654,15 +776,7 @@ def main() -> int:
         say(f"[turns {q}] " + "; ".join(
             f"{n} {statistics.median(v):.4f}" for n, v in got.items()))
     ext._lib = None
-    result = dict(device=kind, smi=smi, builds=report, times=times,
-                  seconds=time.perf_counter() - t0)
-    line = json.dumps(result)
-    if out_path:
-        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-        with open(out_path, "w") as f:
-            f.write(line + "\n")
-    print(line)
-    return 0
+    return dict(builds=report, times=times)
 
 
 if __name__ == "__main__":

@@ -435,7 +435,7 @@ K7_WAVES = [(0.0, True), (0.066, True), (0.5, True), (1.0, True),
                                                  "live100", "live50_linear",
                                                  "empty"])
 def test_live_walks_match_plain_and_k7(setup, wave):
-    """The live-ray launch (each block compacts its live slots, in warp
+    """The live-ray launch (each live slot walked by its own thread, in warp
     tiles on a whole frame) of K7 and of K2/K3 gives every slot the plain
     version's result bit for bit: closest (t, tri, cross, menc; dead slots
     T_FAR, -1, 0, 0) and shadow (vis; dead slots 1); K2 finds K7's triangle

@@ -3,7 +3,7 @@ instantiation. An anonymous namespace's mangling names the source file, so
 every kernel of sample_kernel.cu holds "sample_kernel"; the regenerating K1
 must still be told from the lockstep one, the counting K1 forms from both,
 the K9 and K6 forms (the lockstep loop with warp tiles) from phase 1's,
-and K7's kernel from the parent's K7."""
+and the standalone walks' instantiations (mode, walk, counting) apart."""
 
 from rayzen_tpu_torch import ext
 
@@ -28,12 +28,12 @@ LOG = "\n".join([
     "    768 bytes stack frame, 718 bytes spill stores, 700 bytes spill loads",
     "ptxas info    : Used 64 registers, used 0 barriers, 768 bytes cumulative stack size",
     # the K9 and K6 forms of K1 on the warp-tiled lockstep loop
-    # (sample_kernel<Walk, kOctant, kFrustum, kTiles>) and the counting wide K1
+    # (sample_kernel<Walk, kOctant, kFrustum>) and the counting wide K1
     *(line for kernel, walk, rest, regs in (
-        ("13sample", "10TieredWalk", "ELb1ELb0ELb1", 63),
-        ("13sample", "8Bvh2Walk", "ELb0ELb1ELb1", 62),
-        ("13sample", "8Bvh2Walk", "ELb1ELb1ELb1", 61),
-        ("13sample", "8Bvh8Walk", "ELb1ELb0ELb1", 60),
+        ("13sample", "10TieredWalk", "ELb1ELb0", 63),
+        ("13sample", "8Bvh2Walk", "ELb0ELb1", 62),
+        ("13sample", "8Bvh2Walk", "ELb1ELb1", 61),
+        ("13sample", "8Bvh8Walk", "ELb1ELb0", 60),
         ("12regen", "8Bvh8Walk", "ENS_9LaneCount", 59))
       for line in (
         f"ptxas info    : Compiling entry function '{_PFX}{kernel}_kernelIN2rz{walk}"
@@ -45,20 +45,21 @@ LOG = "\n".join([
     # the counting form of the frustum K9 form: the tiled lockstep loop
     # walking through Counted<Walk>, with LaneCount
     f"ptxas info    : Compiling entry function '{_PFX}13sample_kernelINS_7CountedIN2rz"
-    "8Bvh2WalkEEELb1ELb1ELb1ENS_9LaneCountEEEvT_PKfS8_S8_S8_PKhiNS2_12SampleParams"
+    "8Bvh2WalkEEELb1ELb1ENS_9LaneCountEEEvT_PKfS8_S8_S8_PKhiNS2_12SampleParams"
     "EPfPiSC_' for 'sm_90a'",
     "ptxas info    : Function properties for x",
     "    640 bytes stack frame, 520 bytes spill stores, 520 bytes spill loads",
     "ptxas info    : Used 64 registers, used 0 barriers, 640 bytes cumulative stack size",
-    # K7 (template <int kMode, class Count>: 0 closest, 1 shadow), the
-    # parent's K7 over the records, and K4's regenerating phase 1
+    # the standalone walks (template <int kMode, class Walk, class Count>:
+    # 0 closest, 1 shadow): K7 counting and not, K2 through the tiered
+    # view, and K4's regenerating phase 1
     *(line for mangled, regs in (
-        (f"{_WPFX}15misslink_kernelILi1EN2rz48{_WANON}9LaneCountEEEvNS1_14"
-         "MisslinkTablesENS_6K7RaysEiiiff", 58),
-        (f"{_WPFX}15misslink_kernelILi0EN2rz7NoCountEEEvNS1_14MisslinkTablesENS_6"
-         "K7RaysEiiiff", 57),
-        (f"{_WPFX}13shadow_kernelIN2rz16MisslinkRowsWalkINS1_48{_WANON}9"
-         "LaneCountEEEEEvT_PKfS8_S8_PKhiffPf", 56),
+        (f"{_WPFX}16live_walk_kernelILi1EN2rz12MisslinkWalkENS1_48{_WANON}9"
+         "LaneCountEEEvT0_NS_6WaveIOEiiiff", 58),
+        (f"{_WPFX}16live_walk_kernelILi0EN2rz12MisslinkWalkENS1_7NoCountEEEvT0_"
+         "NS_6WaveIOEiiiff", 57),
+        (f"{_WPFX}16live_walk_kernelILi0EN2rz10TieredWalkENS1_7NoCountEEEvT0_"
+         "NS_6WaveIOEiiiff", 56),
         (f"{_PFX}19regen_phase1_kernelIN2rz8Bvh2WalkENS1_7NoCount{_TAIL}S5_", 55))
       for line in (
         f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
@@ -74,20 +75,18 @@ def test_ptxas_summary_tells_the_k1_schedules_apart():
         "regen_kernel<Bvh2Walk,count>": {"stack": 448, "spill": 378, "regs": 64},
         "sample_kernel<Bvh2Walk,octant>": {"stack": 256, "spill": 0, "regs": 122},
         "regen_kernel<TieredWalk>": {"stack": 768, "spill": 718, "regs": 64},
-        "sample_kernel<TieredWalk,octant,tiles>": {"stack": 512, "spill": 400,
-                                                   "regs": 63},
-        "sample_kernel<Bvh2Walk,frustum,tiles>": {"stack": 512, "spill": 400,
-                                                  "regs": 62},
-        "sample_kernel<Bvh2Walk,octant,frustum,tiles>": {"stack": 512, "spill": 400,
-                                                         "regs": 61},
-        "sample_kernel<Bvh8Walk,octant,tiles>": {"stack": 512, "spill": 400,
-                                                 "regs": 60},
+        "sample_kernel<TieredWalk,octant>": {"stack": 512, "spill": 400, "regs": 63},
+        "sample_kernel<Bvh2Walk,frustum>": {"stack": 512, "spill": 400, "regs": 62},
+        "sample_kernel<Bvh2Walk,octant,frustum>": {"stack": 512, "spill": 400,
+                                                   "regs": 61},
+        "sample_kernel<Bvh8Walk,octant>": {"stack": 512, "spill": 400, "regs": 60},
         "regen_kernel<Bvh8Walk,count>": {"stack": 512, "spill": 400, "regs": 59},
-        "sample_kernel<Bvh2Walk,octant,frustum,tiles,count>": {
+        "sample_kernel<Bvh2Walk,octant,frustum,count>": {
             "stack": 640, "spill": 520, "regs": 64},
-        "misslink_kernel<shadow,count>": {"stack": 0, "spill": 0, "regs": 58},
-        "misslink_kernel<closest>": {"stack": 0, "spill": 0, "regs": 57},
-        "shadow_kernel<MisslinkRowsWalk,count>": {"stack": 0, "spill": 0, "regs": 56},
+        "live_walk_kernel<shadow,MisslinkWalk,count>": {"stack": 0, "spill": 0,
+                                                        "regs": 58},
+        "live_walk_kernel<closest,MisslinkWalk>": {"stack": 0, "spill": 0, "regs": 57},
+        "live_walk_kernel<closest,TieredWalk>": {"stack": 0, "spill": 0, "regs": 56},
         "regen_phase1_kernel<Bvh2Walk>": {"stack": 0, "spill": 0, "regs": 55},
     }
 
