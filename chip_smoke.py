@@ -113,6 +113,22 @@ Phases (each prints its own lines and stops the run when it fails):
                   profiled 4-spp dispatch); "pallas-bvh2"
                   and "pallas-nomega" at 1080p/4 spp and "xla" at 1080p/1
                   spp once each, timed, with launch counts
+ 19 frame loop    the Renderer on the demo: cold start (an empty port cache)
+                  and warm start (its hit), StartupTimer's steps; the 30
+                  commands of scripts/interactive_1080p.py through
+                  InteractiveSession at 1920x1080, 1 spp, fps and light
+                  overlays, synchronously (every frame bit for bit
+                  render_radiance_with_stats + composite_core of its camera,
+                  toggles and FPS value, rays equal; ms per command), with
+                  pipeline=3 (ms/frame), and 24 render_frame_async under
+                  CUDA's sync debug mode "error" with one resolve (ms/frame,
+                  no synchronising call); progressive 800x600, 64 spp x 16
+                  frames (the accumulator vs the running mean of the same
+                  frames, max abs <= 1e-6); preview frames at 1080p on K7
+                  (320x180 vs the plain preview, max abs <= 1e-6); the field
+                  chunked (tiered="off", 3 chunks) at 320x180, 1 spp vs the
+                  single-tree K1 (golden bars, rays within 0.1%) and timed
+                  at 1080p/1 spp; launches per frame of each path
 """
 
 from __future__ import annotations
@@ -312,6 +328,305 @@ def profile_dispatch(fn, torch, trace_path):
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     return wall, sum(r[0] for r in rows), rows
+
+
+# scripts/interactive_1080p.py's command mix (moves, looks, BVH toggles, a
+# click pick) and its device-rate moves
+INTERACTIVE_COMMANDS = [
+    "w", "w", "w 0.3", "look 40 0", "d", "d 0.3", "look 60 -10",
+    "a", "s 0.4", "look -80 5", "w", "w", "b",
+    "look 30 0", "w 0.2", "n",
+    "click 960 540", "look -30 10", "b",
+    "w", "a 0.3", "look 20 -5", "w", "w 0.25", "look -15 0", "s",
+    "d", "look 10 5", "w", "w",
+]
+DEVRATE_MOVES = ["w 0.05", "look 5 0", "d 0.05", "look -5 0"]
+# phase 19's frame sizes: the interactive session and the timed preview,
+# progressive, the preview check, the chunked check and the timed chunked
+# frame; and the field's chunk budget (503,360 triangles -> 3 chunks)
+FRAME_LOOP_SIZES = dict(interactive=(1920, 1080), progressive=(800, 600),
+                        preview_check=(320, 180), chunked=(320, 180),
+                        chunked_timed=(1920, 1080))
+FIELD_CHUNK_TRIS = 200_000
+
+
+def frame_loop_phase(torch, np, dev, fscene, whole_field, out_dir):
+    """Phase 19: the frame loop (renderer.Renderer) and the interactive
+    session on the card. Start-up (cold: an empty port cache, the kernels
+    already built; warm: the cache hit), the interactive 1080p session of
+    scripts/interactive_1080p.py (sync, every frame held bit for bit to
+    render_radiance_with_stats + composite_core with its camera, flags and
+    FPS value, rays equal; pipelined; the device-rate pass under CUDA's
+    sync debug mode "error"), progressive accumulation to 1,024 spp
+    (scripts/progressive_1024.py) against the running mean of the same
+    frames, preview frames on K7 (held to the plain preview at 320x180) and
+    the chunked field (tiered="off", >= 3 chunks) against the single-tree
+    K1. Returns the numbers and launch counts per frame."""
+    import io
+    import shutil
+    import tempfile
+
+    from rayzen_tpu_torch import bigscene, cache, ext, packing
+    from rayzen_tpu_torch import preview as preview_mod
+    from rayzen_tpu_torch.config import RenderConfig
+    from rayzen_tpu_torch.demo import build_demo_scene
+    from rayzen_tpu_torch.image_io import ssim
+    from rayzen_tpu_torch.integrator import render_radiance_with_stats
+    from rayzen_tpu_torch.interactive import InteractiveSession
+    from rayzen_tpu_torch.ops.traverse import traverse_world
+    from rayzen_tpu_torch.overlay import build_overlay_inputs, camera_view_proj, composite_core
+    from rayzen_tpu_torch.packing import pack_scene
+    from rayzen_tpu_torch.renderer import Renderer
+
+    def launched():
+        return {k: v for k, v in ext.LAUNCHES.items() if v}
+
+    def median(xs):
+        return statistics.median(xs)
+
+    out = {}
+    cache_dir = tempfile.mkdtemp(prefix="rayzen_frame_loop_")
+    try:
+        # -- start-up: cold (empty port cache, the kernels built) and warm --
+        iw, ih = FRAME_LOOP_SIZES["interactive"]
+        icfg = RenderConfig(width=iw, height=ih, spp=1, max_bounces=5,
+                            show_fps_overlay=True, debug_show_lights=True,
+                            cache_dir=cache_dir)
+        starts = {}
+        for name in ("cold", "warm"):
+            packing._blas_cache.clear()
+            scene = build_demo_scene(iw, ih)
+            hit = os.path.exists(cache.scene_cache_path(scene, icfg))
+            require(hit == (name == "warm"), f"{name} start: cache file present {hit}")
+            t0 = time.perf_counter()
+            r = Renderer(scene, icfg, async_compile=False, device=dev)
+            t1 = time.perf_counter()
+            r.warmup(2)
+            t2 = time.perf_counter()
+            require(r.path_tracer_ready and not r.path_tracer_failed,
+                    f"{name} start: the path tracer is not ready")
+            starts[name] = dict(
+                steps_ms=dict(r.startup_steps), renderer_ms=(t1 - t0) * 1e3,
+                warmup_2_ms=(t2 - t1) * 1e3, total_ms=(t2 - t0) * 1e3)
+        out["startup"] = starts
+        say(f"[19 frame loop] start-up, demo {iw}x{ih} (kernels built in phase 2): "
+            + "; ".join(f"{n}: renderer {v['renderer_ms']:.1f} ms ("
+                        + ", ".join(f"{k} {ms:.1f} ms" for k, ms in v["steps_ms"].items())
+                        + f"), warmup(2) {v['warmup_2_ms']:.1f} ms"
+                        for n, v in starts.items()))
+
+        # -- the interactive 1080p session, synchronous, every frame held --
+        sess = InteractiveSession(r, out_path=None, status=io.StringIO())
+        records, rays_seen = [], {}
+        real_render_frame, real_readback = r.render_frame, r._readback
+
+        def readback(img, rays):
+            o, n = real_readback(img, rays)
+            rays_seen["n"] = n
+            return o, n
+
+        def render_frame(mode="auto"):
+            snap = dict(cam=r._camera_params(), cfg=r.cfg, arrays=r.arrays,
+                        fps=r.profiler.fps_ema or 0.0, index=r.frame_index)
+            frame = real_render_frame(mode)
+            records.append(dict(snap, frame=frame, rays=rays_seen["n"]))
+            return frame
+
+        r._readback, r.render_frame = readback, render_frame
+        ext.reset_launches()
+        t0 = time.perf_counter()
+        sess.run(iter([]))  # the first frame, before any command
+        first_ms = (time.perf_counter() - t0) * 1e3
+        cmd_ms = []
+        for cmd in INTERACTIVE_COMMANDS:
+            t0 = time.perf_counter()
+            sess.handle(cmd)
+            cmd_ms.append((time.perf_counter() - t0) * 1e3)
+        sync_launches = launched()
+        del r._readback, r.render_frame  # back to the class's methods
+        require(len(records) == 1 + len(INTERACTIVE_COMMANDS), "a command rendered no frame")
+        require(sync_launches == {"sample_wave": len(records)},
+                f"sync session launches {sync_launches}")
+        picks = [ln for ln in sess.status.getvalue().splitlines()
+                 if ln.startswith("pick:")]
+        require(len(picks) == 1, "the click ran no pick")
+        for i, rec in enumerate(records):
+            cfg = rec["cfg"]
+            first = rec["index"] == 0 and not cfg.accumulate
+            img, rays = render_radiance_with_stats(
+                rec["arrays"], rec["cam"], cfg, max_bounces=1 if first else None)
+            if cfg.debug_show_bvh or cfg.debug_show_lights or cfg.show_fps_overlay:
+                (tc, tcol, tm, ut), (bc, bcol, bm, ub) = build_overlay_inputs(
+                    rec["arrays"], cfg)
+                img = composite_core(
+                    img, tc, tcol, tm, bc, bcol, bm, camera_view_proj(rec["cam"]),
+                    rec["arrays"].lights, rec["fps"], use_t=ut, use_b=ub,
+                    show_lights=cfg.debug_show_lights,
+                    show_fps=cfg.show_fps_overlay, width=cfg.width,
+                    height=cfg.height)
+            require(np.array_equal(img.cpu().numpy(), rec["frame"]),
+                    f"session frame {i} differs from render + composite")
+            require(int(rays) == rec["rays"], f"session frame {i}: rays "
+                    f"{rec['rays']} vs {int(rays)}")
+        out["interactive"] = dict(
+            first_frame_ms=first_ms, ms_per_command=cmd_ms,
+            median_ms_per_command=median(cmd_ms), mean_ms_per_command=float(np.mean(cmd_ms)),
+            k1_launches_per_frame=sync_launches.get("sample_wave", 0) / len(records))
+        say(f"[19 frame loop] interactive {iw}x{ih}, 1 spp, 5 bounces, fps + light "
+            f"overlays, sync: {len(records)} frames bit for bit render + composite, "
+            f"rays equal; first frame {first_ms:.1f} ms, per command median "
+            f"{median(cmd_ms):.2f} ms, mean {np.mean(cmd_ms):.2f} ms, max "
+            f"{max(cmd_ms):.2f} ms; K1 launches per frame "
+            f"{out['interactive']['k1_launches_per_frame']:.2f}; {picks[0]}")
+        say("[19 frame loop] ms per command: " + ", ".join(
+            f"{c!r} {ms:.1f}" for c, ms in zip(INTERACTIVE_COMMANDS, cmd_ms)))
+
+        # -- pipelined (3 frames in flight) --
+        hist0 = len(r.profiler.history)
+        t0 = time.perf_counter()
+        n_pipe = sess.run(iter(INTERACTIVE_COMMANDS), pipeline=3)
+        pipe_ms = (time.perf_counter() - t0) / n_pipe * 1e3
+        pipe_lat = [h["total"] for h in r.profiler.history[hist0:]]
+        out["pipelined"] = dict(frames=n_pipe, ms_per_frame=pipe_ms,
+                                median_latency_ms=median(pipe_lat))
+        say(f"[19 frame loop] pipelined (pipeline=3): {n_pipe} frames, "
+            f"{pipe_ms:.2f} ms/frame, dispatch-to-resolve median {median(pipe_lat):.2f} ms")
+
+        # -- device rate: 24 dispatches, one resolve, no synchronising call --
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        pfs = []
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(24):
+                sess._apply(DEVRATE_MOVES[i % len(DEVRATE_MOVES)])
+                pfs.append(r.render_frame_async())
+        except RuntimeError as e:
+            raise PhaseFailed(f"render_frame_async made a synchronising call: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pfs[-1].resolve()
+        dev_ms = (time.perf_counter() - t0) / 24 * 1e3
+        dev_launches = launched()
+        require(dev_launches == {"sample_wave": 24}, f"device-rate launches {dev_launches}")
+        out["device_rate"] = dict(frames=24, ms_per_frame=dev_ms)
+        say(f"[19 frame loop] device rate: 24 render_frame_async under sync debug "
+            f"mode 'error' (no synchronising call), one resolve: {dev_ms:.2f} ms/frame; "
+            f"launches {dev_launches}")
+
+        # -- progressive: 800x600, 64 spp a frame, 16 frames = 1,024 spp --
+        pw, ph = FRAME_LOOP_SIZES["progressive"]
+        pcfg = RenderConfig(width=pw, height=ph, spp=64, max_bounces=5,
+                            accumulate=True, cache_dir=cache_dir)
+        pr = Renderer(build_demo_scene(pw, ph), pcfg, async_compile=False,
+                      device=dev)
+        ext.reset_launches()
+        prog_ms = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            acc = pr.render_frame(mode="pt")
+            prog_ms.append((time.perf_counter() - t0) * 1e3)
+        prog_launches = launched()
+        require(prog_launches == {"sample_wave": 16}, f"progressive launches {prog_launches}")
+        pcam = pr._camera_params()
+        mean = None
+        for k in range(16):
+            f = render_radiance_with_stats(pr.arrays, pcam, pcfg, rng_key=k)[0].double()
+            mean = f if mean is None else mean + (f - mean) / (k + 1)
+        prog_err = (torch.from_numpy(acc).to(dev).double() - mean).abs().max().item()
+        require(prog_err <= 1e-6, f"progressive accumulator vs running mean {prog_err:.3e}")
+        out["progressive"] = dict(frames=16, spp=1024, ms_per_frame=prog_ms,
+                                  median_ms_per_frame=median(prog_ms),
+                                  max_abs_vs_running_mean=prog_err)
+        say(f"[19 frame loop] progressive {pw}x{ph}, 64 spp x 16 frames = 1024 spp: "
+            f"median {median(prog_ms):.2f} ms/frame (first {prog_ms[0]:.2f}); "
+            f"accumulator vs the running mean of the rng_key=k frames max abs "
+            f"{prog_err:.3e}")
+
+        # -- preview: 1080p on K7, held to the plain preview at 320x180 --
+        ext.reset_launches()
+        r.render_frame(mode="preview")
+        prev_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            r.render_frame(mode="preview")
+            prev_ms.append((time.perf_counter() - t0) * 1e3)
+        prev_launches = launched()
+        require(prev_launches == {"closest_hit_misslink": 6},
+                f"preview launches {prev_launches}")
+        sw, sh = FRAME_LOOP_SIZES["preview_check"]
+        scfg = icfg.replace(width=sw, height=sh)
+        sscene = build_demo_scene(sw, sh)
+        sarrays = pack_scene(sscene, scfg, dev)
+        scam = sscene.camera.device_params()
+        kimg = preview_mod.render_preview(sarrays, scam, scfg)
+        real_hit = preview_mod.primary_hit
+        preview_mod.primary_hit = lambda ws, o, d, a, c: traverse_world(ws, o, d, a)
+        try:
+            pimg = preview_mod.render_preview(sarrays, scam, scfg)
+        finally:
+            preview_mod.primary_hit = real_hit
+        prev_err = (kimg - pimg).abs().max().item()
+        require(prev_err <= 1e-6, f"K7 preview vs plain max abs {prev_err:.3e}")
+        out["preview"] = dict(ms_per_frame=prev_ms, median_ms_per_frame=median(prev_ms),
+                              k7_launches_per_frame=6 / 6, max_abs_vs_plain_320x180=prev_err)
+        say(f"[19 frame loop] preview {iw}x{ih} on K7: median {median(prev_ms):.2f} ms "
+            f"per frame (render_frame, readback included); {sw}x{sh} vs the plain "
+            f"preview (traverse_world) max abs {prev_err:.3e}")
+
+        # -- chunked: the field, tiered="off", >= 3 chunks --
+        cw, ch = FRAME_LOOP_SIZES["chunked"]
+        ccfg = RenderConfig(width=cw, height=ch, spp=1, max_bounces=5, tiered="off",
+                            chunk_tris=FIELD_CHUNK_TRIS, cache_dir=cache_dir)
+        cr = Renderer(fscene, ccfg, async_compile=False, use_cache=False,
+                      device=dev)
+        n_chunks = len(cr.arrays_list or ())
+        require(n_chunks >= 3, f"the field cut into {n_chunks} chunks")
+        fcam = fscene.camera.device_params()
+        cr.render_frame(mode="pt")  # frame 0: the first-frame budget
+        ext.reset_launches()
+        cframe = cr.render_frame(mode="pt")
+        chunk_launches = launched()
+        cimg, crays = bigscene.render_radiance_chunked(cr.arrays_list, fcam, ccfg,
+                                                       with_stats=True)
+        require(np.array_equal(cimg.cpu().numpy(), cframe),
+                "the Renderer's chunked frame differs from render_radiance_chunked")
+        simg, srays = render_radiance_with_stats(whole_field, fcam, ccfg)
+        cn, sn = cimg.cpu().numpy(), simg.cpu().numpy()
+        c_ssim, c_mean = ssim(cn, sn), float(np.abs(cn - sn).mean())
+        c_rays = abs(int(crays) - int(srays)) / int(srays)
+        require(c_ssim >= 0.995 and c_mean < 2e-3 and c_rays <= 1e-3,
+                f"chunked vs single-tree K1: SSIM {c_ssim:.4f}, mean abs {c_mean:.3e}, "
+                f"rays {int(crays)} vs {int(srays)}")
+        require(set(chunk_launches) == {"closest_hit_bvh2", "shadow_walk_bvh2"},
+                f"chunked launches {chunk_launches}")
+        tw, th = FRAME_LOOP_SIZES["chunked_timed"]
+        c1080 = ccfg.replace(width=tw, height=th)
+        bigscene.render_radiance_chunked(cr.arrays_list, fcam, c1080, with_stats=True)
+        chunk_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, r1080 = bigscene.render_radiance_chunked(cr.arrays_list, fcam, c1080,
+                                                        with_stats=True)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        out["chunked"] = dict(chunks=n_chunks, launches_per_frame=chunk_launches,
+                              ssim=c_ssim, mean_abs=c_mean, rays=int(crays),
+                              single_tree_rays=int(srays), ms_1080p_1spp=chunk_ms,
+                              median_ms_1080p_1spp=median(chunk_ms))
+        say(f"[19 frame loop] chunked field (tiered='off', {n_chunks} chunks of <= "
+            f"{FIELD_CHUNK_TRIS} triangles), {cw}x{ch} 1 spp: vs the single-tree K1 SSIM "
+            f"{c_ssim:.6f}, mean abs {c_mean:.3e}, rays {int(crays)} vs {int(srays)}; "
+            f"launches per frame {chunk_launches}; {tw}x{th} 1 spp median "
+            f"{median(chunk_ms):.1f} ms per frame ({int(r1080)} rays)")
+        if out_dir:
+            with open(os.path.join(out_dir, "frame_loop.json"), "w") as f:
+                json.dump(out, f, indent=1)
+        return out
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -2039,6 +2354,22 @@ def main() -> int:
                              else "shadow_bvh2"],
             pallas_bvh2_sample_waves=waves_,
             pallas_nomega_launches=staged["pallas-nomega"]["launches"].get(kn_, 0)))
+    # ---- 19 frame loop: start-up, the interactive session, progressive,
+    # preview, chunked ----
+    fl = frame_loop_phase(torch, np, dev, fscene, warrays, out_dir)
+    per_frame = {
+        "K1 sample_wave": {"pt, interactive 1080p": fl["interactive"]["k1_launches_per_frame"],
+                           "pt, progressive 800x600 64 spp": 1.0},
+        "K7 closest_hit_misslink": {"preview 1080p": fl["preview"]["k7_launches_per_frame"]},
+        "K7 shadow_walk_misslink": {"preview 1080p": 0},
+        "K2 closest_hit_bvh2 (standalone)": {
+            "chunked field 320x180 1 spp": fl["chunked"]["launches_per_frame"]["closest_hit_bvh2"]},
+        "K3 shadow_walk_bvh2 (standalone)": {
+            "chunked field 320x180 1 spp": fl["chunked"]["launches_per_frame"]["shadow_walk_bvh2"]},
+    }
+    for k in kernels:
+        if k["name"] in per_frame:
+            k["frame_loop_launches_per_frame"] = per_frame[k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ CUDA C++ kernels in csrc/, built with nvcc at first use (ext.py). The
 per-wave path (integrator.trace_wave) runs the staged kernels= variants
 on those walks with torch glue between them, or the portable torch walks
 (ops/traverse.py). Every kernel has a plain PyTorch version beside it,
-which the wrappers run for CPU tensors.
+which the wrappers run for CPU tensors. Above them, the frame loop
+(renderer.Renderer: preview, overlays, picking, the scene cache, the
+profiler, chunked scenes) and the CLI and interactive session
+(``python -m rayzen_tpu_torch``, cli.py, interactive.py).
 
 Importing this package imports torch and numpy only: no jax, and no kernel
 build.

@@ -1,59 +1,6 @@
-"""One frame of the demo scene: ``python -m rayzen_tpu_torch [flags]``.
+"""``python -m rayzen_tpu_torch [flags]``: the demo CLI (cli.py)."""
 
-Renders the reference demo scene (demo.build_demo_scene) on ``--device``
-(default cuda) through render_radiance_with_stats and writes a PNG. The
-frame loop, preview, overlays and the interactive session of
-``python -m rayzen_tpu`` are not ported yet.
-"""
-
-from __future__ import annotations
-
-import argparse
-import time
-
-import torch
-
-from . import logging_util as log
-from .config import RenderConfig
-from .demo import build_demo_scene
-from .image_io import write_png
-from .integrator import render_radiance_with_stats
-from .packing import pack_scene
-
-
-def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(
-        prog="rayzen_tpu_torch", description="path-trace one demo frame"
-    )
-    p.add_argument("--width", type=int, default=800)
-    p.add_argument("--height", type=int, default=600)
-    p.add_argument("--spp", type=int, default=1)
-    p.add_argument("--bounces", type=int, default=5)
-    p.add_argument("--out", type=str, default="frame.png")
-    p.add_argument("--device", type=str, default="cuda")
-    return p.parse_args(argv)
-
-
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    device = torch.device(args.device)
-    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_bounces=args.bounces)
-    scene = build_demo_scene(cfg.width, cfg.height)
-    arrays = pack_scene(scene, cfg, device)
-    cam = scene.camera.device_params()
-    t0 = time.perf_counter()
-    img, rays = render_radiance_with_stats(arrays, cam, cfg)
-    img = img.cpu().numpy()  # waits for the device
-    dt = time.perf_counter() - t0
-    write_png(args.out, img)
-    log.info(
-        f"{cfg.width}x{cfg.height} spp={cfg.spp} bounces={cfg.max_bounces} on "
-        f"{device}: {int(rays)} rays in {dt:.3f} s (first call, includes any "
-        f"kernel build) -> {args.out}"
-    )
-    return 0
-
+from .cli import main
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -37,6 +37,7 @@ import fcntl
 import os
 import shutil
 import subprocess
+import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -84,6 +85,10 @@ LAUNCHES = {
 }
 
 _lib = None
+# serialises the build and binding of _lib between threads of one process
+# (the file lock in build serialises processes only): the Renderer builds
+# in a background thread while the caller's preview frames need K7
+_lib_lock = threading.Lock()
 build_log = ""  # nvcc's output of the last build (ptxas register/spill report)
 
 
@@ -300,13 +305,16 @@ def bind(path: str) -> ctypes.CDLL:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     global _lib
-    if _lib is None:
-        L = bind(build())
-        if L.rz_sample_params_size() != ctypes.sizeof(SampleParams):
-            raise RuntimeError("SampleParams layout differs from the CUDA source")
-        if L.rz_stack_depth() != STACK_DEPTH:
-            raise RuntimeError("STACK_DEPTH differs from the CUDA source")
-        _lib = L
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            L = bind(build())
+            if L.rz_sample_params_size() != ctypes.sizeof(SampleParams):
+                raise RuntimeError("SampleParams layout differs from the CUDA source")
+            if L.rz_stack_depth() != STACK_DEPTH:
+                raise RuntimeError("STACK_DEPTH differs from the CUDA source")
+            _lib = L
     return _lib
 
 

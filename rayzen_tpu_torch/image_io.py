@@ -20,8 +20,10 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """img: (H, W, 3) float [0,1] or uint8, bottom-up rows."""
+def write_png(path: str, img: np.ndarray, compress_level: int = 6) -> None:
+    """img: (H, W, 3) float [0,1] or uint8, bottom-up rows. compress_level
+    is zlib's (1 deflates 3-4x faster; the interactive session's live
+    refresh, rewritten every frame, uses it)."""
     data = (img if img.dtype == np.uint8 else to_uint8(img))[::-1]
     h, w = data.shape[:2]
     # per-row filter byte 0, prepended as a column (vectorized scanlines)
@@ -42,7 +44,7 @@ def write_png(path: str, img: np.ndarray) -> None:
     png = (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw, 6))
+        + chunk(b"IDAT", zlib.compress(raw, compress_level))
         + chunk(b"IEND", b"")
     )
     with open(path, "wb") as f:

@@ -23,15 +23,38 @@ def pixel_grid(width: int, height: int, device):
     y = torch.arange(height, dtype=torch.float32, device=device) + 0.5
     fy, fx = torch.meshgrid(y, x, indexing="ij")  # (H, W)
     frag = torch.stack([fx.reshape(-1), fy.reshape(-1)], dim=-1)
-    uv = frag / torch.tensor([width, height], dtype=torch.float32, device=device)
+    # the resolution made on the device (fills, no host copy), divided as a
+    # tensor
+    uv = frag / resolution(width, height, device)
     return frag, uv
+
+
+def resolution(width: int, height: int, device) -> torch.Tensor:
+    """(2,) float32 [width, height] on ``device``, made by two fills: a
+    tensor from host data, or an element assigned from Python, is a copy
+    that synchronises the stream."""
+    return torch.cat([torch.full((1,), float(width), device=device),
+                      torch.full((1,), float(height), device=device)])
+
+
+def upload(x, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, dtype kept, without a stream
+    sync: for a CUDA device it is staged in pinned memory and copied with
+    non_blocking=True (PyTorch's pinned-memory allocator keeps the staging
+    block until the copy has run), where a copy from pageable memory would
+    synchronise the stream."""
+    t = torch.from_numpy(np.array(x))  # a copy: never aliases the caller's array
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def camera_tensor(x, device):
     """A camera parameter (numpy array or tensor) as float32 on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    return upload(np.asarray(x, np.float32), device)
 
 
 def generate_rays(uv, jitter, inv_proj, inv_view, cam_position):

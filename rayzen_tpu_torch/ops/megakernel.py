@@ -41,7 +41,7 @@ from .. import ext
 from .. import logging_util as log
 from ..config import RenderConfig
 from ..packing import WorldArrays
-from . import walk
+from . import camera_rays, walk
 from .shade import pow5
 from .rng import (  # noqa: F401 (sinf_libm: the K1 tests read it here)
     _M32, _bounce_draws_hash, _bounce_draws_reference, _f32, _hash_u32,
@@ -265,17 +265,26 @@ def _direct_lighting_tiles(ws, lights, min_vis, ambient, px, py, pz, nx, ny,
 
 
 def _pack_camera(camera_params: dict, device) -> torch.Tensor:
-    """(9, 4) camera table: rows 0-3 inv_proj, 4-7 inv_view, 8 position."""
-    as_np = lambda x: np.asarray(  # noqa: E731
-        x.detach().cpu() if isinstance(x, torch.Tensor) else x, np.float32
-    )
-    pos = np.concatenate([as_np(camera_params["position"]), np.zeros(1, np.float32)])
+    """(9, 4) camera table: rows 0-3 inv_proj, 4-7 inv_view, 8 position.
+    From host arrays it is built in numpy and uploaded through pinned memory
+    (camera_rays.upload), from tensors it is built on their device: either
+    way no call synchronises the stream, so a frame's dispatch never waits
+    for the frames in flight before it."""
+    vals = [camera_params[k] for k in ("inv_proj", "inv_view", "position")]
+    if any(isinstance(v, torch.Tensor) for v in vals):
+        inv_proj, inv_view, pos = (camera_rays.camera_tensor(v, device)
+                                   for v in vals)
+        pos = torch.cat([pos.reshape(3), torch.zeros_like(pos.reshape(3)[:1])])
+        return torch.cat([inv_proj.reshape(4, 4), inv_view.reshape(4, 4),
+                          pos[None]]).contiguous()
+    as_np = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    pos = np.concatenate([as_np(vals[2]).reshape(3), np.zeros(1, np.float32)])
     cam = np.concatenate(
-        [as_np(camera_params["inv_proj"]), as_np(camera_params["inv_view"]),
+        [as_np(vals[0]).reshape(4, 4), as_np(vals[1]).reshape(4, 4),
          pos.reshape(1, 4)],
         axis=0,
     )
-    return torch.from_numpy(cam).to(device)
+    return camera_rays.upload(cam, device)
 
 
 # ---- K1 --------------------------------------------------------------------

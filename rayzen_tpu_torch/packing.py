@@ -20,8 +20,12 @@ view is walked by K8 (csrc/walk.cuh) inside the tiered K1.
 row per unified node, which the portable walks (ops/traverse.py) and K7's
 plain version read, and beside them K7's device form of the same data
 (``misslink_tables``: a 32-byte row per node, a 48-byte row per triangle).
-The BLAS disk cache is left out: the port keeps only the in-process memo, so
-packing reads and writes no files.
+Per-mesh BLAS builds have two cache tiers, as in JAX (:195-239): an
+in-process memo and a disk tier of one file per mesh under
+``cfg.cache_dir``, both keyed by the vertex content (JAX keys its memo by
+``id(mesh)``, which a new mesh can inherit from a freed one). The port's
+files live in their own subdirectory (``CACHE_SUBDIR``) with a format tag,
+so neither package ever reads the other's.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import zipfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,6 +126,22 @@ class SceneArrays:
     @property
     def num_lights(self) -> int:
         return int(self.lights.shape[0])
+
+    def with_transforms(self, transforms) -> "SceneArrays":
+        """New instance transforms, geometry and trees untouched: the
+        inverses are computed on the host (I x 4 x 4, in float64 as JAX
+        does) and both go to the device the arrays are on (numpy arrays
+        stay numpy); every other table is shared with ``self``."""
+        if isinstance(transforms, torch.Tensor):
+            transforms = transforms.detach().cpu().numpy()
+        t = np.asarray(transforms, dtype=np.float32)
+        inv = np.linalg.inv(t.astype(np.float64)).astype(np.float32)
+        if isinstance(self.transforms, torch.Tensor):
+            from .ops.camera_rays import upload
+
+            dev = self.transforms.device
+            t, inv = upload(t, dev), upload(inv, dev)
+        return dataclasses.replace(self, transforms=t, inv_transforms=inv)
 
     def to(self, device) -> "SceneArrays":
         """The same arrays as torch tensors on ``device`` (dtypes kept)."""
@@ -219,17 +240,69 @@ def wide_stack_bound(child_ref8, child_count8) -> Tuple[int, int]:
 
 _blas_cache: dict = {}
 
+_BLAS_FIELDS = ("bounds_min", "bounds_max", "left_first", "count", "miss", "order")
+# the port's files under cfg.cache_dir: a subdirectory of their own, which
+# the JAX package (cache_dir/scene_*.npz, cache_dir/blas/) never reads, and a
+# format tag in every file, checked on load
+CACHE_SUBDIR = "rayzen_tpu_torch-v1"
+BLAS_FORMAT = "rayzen_tpu_torch/blas/v1"
+
+
+def host_array(x) -> np.ndarray:
+    """A SceneArrays leaf (numpy, or a tensor on any device) as numpy; a
+    device tensor is read back, which waits for the device."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_npz(path: str, data: dict) -> None:
+    """np.savez to ``path`` through a file of this process, then renamed:
+    concurrent writers never interleave and readers never see a part."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.npz"  # savez keeps an .npz suffix
+    np.savez(tmp, **data)
+    os.replace(tmp, path)
+
+
+def _blas_disk_path(digest: str, cfg: RenderConfig) -> str:
+    return os.path.join(cfg.cache_dir, CACHE_SUBDIR, "blas",
+                        f"{digest[:20]}_{cfg.leaf_size}_{cfg.split_method}.npz")
+
+
+def _load_blas(path: str) -> BLAS:
+    with np.load(path) as z:
+        if "format" not in z.files or str(z["format"]) != BLAS_FORMAT:
+            raise ValueError(f"not a {BLAS_FORMAT} file")
+        return BLAS(**{f: z[f] for f in _BLAS_FIELDS})
+
 
 def _mesh_blas(mesh, cfg: RenderConfig) -> BLAS:
-    """Per-mesh BLAS, memoized in-process (main.cpp:1128-1136 memoizes the
-    same way). Keyed by the vertex content: rayzen_tpu keys by id(mesh),
-    which a new mesh can inherit from a freed one and so get its BLAS."""
+    """Per-mesh BLAS with two cache tiers (main.cpp:1128-1136 memoizes in
+    process, :951-969 keeps per-mesh files): the in-process memo, then a
+    file under cfg.cache_dir, both keyed by the vertex content. The disk
+    tier is skipped under cfg.rebuild_bvh; a file that does not load
+    rebuilds (and is rewritten)."""
     digest = hashlib.sha1(mesh.vertices.tobytes()).hexdigest()
     key = (digest, mesh.num_triangles, cfg.leaf_size, cfg.split_method)
     blas = _blas_cache.get(key)
-    if blas is None:
-        blas = build_blas(mesh.vertices, cfg.leaf_size, cfg.split_method)
-        _blas_cache[key] = blas
+    if blas is not None:
+        return blas
+    path = _blas_disk_path(digest, cfg) if mesh.num_triangles else None
+    if path and not cfg.rebuild_bvh and os.path.exists(path):
+        try:
+            blas = _load_blas(path)
+            _blas_cache[key] = blas
+            return blas
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:  # corrupt: rebuild
+            log.error(f"BLAS cache load failed ({e}); rebuilding")
+    blas = build_blas(mesh.vertices, cfg.leaf_size, cfg.split_method)
+    _blas_cache[key] = blas
+    if path:
+        try:
+            save_npz(path, dict(format=np.asarray(BLAS_FORMAT),
+                                **{f: getattr(blas, f) for f in _BLAS_FIELDS}))
+        except OSError as e:
+            log.error(f"BLAS cache write failed: {e}")
     return blas
 
 
@@ -951,7 +1024,10 @@ def _mat3_apply(m, v):
 
 
 def _box_corners(bmin, bmax):
-    sel = torch.tensor(_CORNER_SEL, dtype=torch.float32, device=bmin.device)
+    # _CORNER_SEL made on the device (corner k = x * 4 + y * 2 + z): a host
+    # tensor would be a copy that synchronises the stream every frame
+    k = torch.arange(8, device=bmin.device)
+    sel = torch.stack([(k >> 2) & 1, (k >> 1) & 1, k & 1], dim=1).float()
     return bmin[:, None, :] * (1.0 - sel)[None] + bmax[:, None, :] * sel[None]
 
 
@@ -1026,9 +1102,8 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
     # TLAS node bounds from descendant instance AABBs (static masks)
     wmin, wmax = instance_world_aabbs(arrays)  # (I, 3)
     mask = arrays.tlas_mask[..., None]  # (Nt, I, 1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
-    tmin = torch.where(mask, wmin[None], big).amin(dim=1)
-    tmax = torch.where(mask, wmax[None], -big).amax(dim=1)
+    tmin = torch.where(mask, wmin[None], _BIG).amin(dim=1)
+    tmax = torch.where(mask, wmax[None], -_BIG).amax(dim=1)
     tlas_bounds = torch.cat([tmin, tmax], dim=-1)
     node_bounds = torch.cat([tlas_bounds, blas_bounds], dim=0)  # (Nu, 6)
 
@@ -1060,9 +1135,8 @@ def world_geometry(arrays: SceneArrays) -> WorldArrays:
     # children (node id -1) get an inverted box
     cn = arrays.bvh2_child_node.long()  # (Ni, 2)
     cb = node_bounds[cn.clamp(min=0)]  # (Ni, 2, 6)
-    inverted = torch.tensor(
-        [_BIG, _BIG, _BIG, -_BIG, -_BIG, -_BIG], dtype=torch.float32, device=dev
-    )
+    inverted = torch.cat([torch.full((3,), _BIG, device=dev),
+                          torch.full((3,), -_BIG, device=dev)])
     cb = torch.where((cn >= 0)[..., None], cb, inverted)
     inner_table = torch.cat(
         [cb[:, 0, :], cb[:, 1, :], arrays.bvh2_child_ref.float(),

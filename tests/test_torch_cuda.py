@@ -4,7 +4,10 @@ K9 instantiations) against their plain PyTorch versions on the card, the
 regenerating K1 also bit for bit against the lockstep loop (its warp-tiled
 K9 form), the live-ray walks K2/K3 and K7 against each other, K4's
 continuation forms against each other, and the per-wave path's staged
-variants against their plain runs. Marked ``cuda``: they skip
+variants against their plain runs; the frame loop's frames launch their
+kernels (K1, K7, K2/K3) and equal the plain Renderer's, its async dispatch
+makes no synchronising call, a failed build makes frames raise. Marked
+``cuda``: they skip
 where torch sees no CUDA device, and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -655,3 +658,80 @@ def test_counting_k1_renders_k1s_frame(setup, view, case):
     assert torch.equal(cc, kc) and int(cr) == int(kr)
     assert 0 < active <= slots and slots % 32 == 0
     assert ext.LAUNCHES[name] == before + 1
+
+
+# ---- the frame loop on the card ---------------------------------------------
+
+
+def _renderer(dev, tmp_path, **knobs):
+    from rayzen_tpu_torch.renderer import Renderer
+
+    cfg = RenderConfig(width=W, height=H, spp=1, max_bounces=5,
+                       cache_dir=str(tmp_path), **knobs)
+    return Renderer(build_small_scene(W, H), cfg, async_compile=False,
+                    use_cache=False, device=dev)
+
+
+def test_renderer_frames_run_their_kernels(setup, tmp_path):
+    """Path-traced frames launch K1 once each, preview frames K7, chunked
+    frames K2/K3 (and no K1); each frame is its plain version's (the same
+    Renderer on the CPU) to 1e-6 with the same ray count."""
+    dev = setup["dev"]
+    for knobs, mode, kernels in (
+            (dict(), "pt", {"sample_wave"}),
+            (dict(), "preview", {"closest_hit_misslink"}),
+            (dict(tiered="off", chunk_tris=100), "pt",
+             {"closest_hit_bvh2", "shadow_walk_bvh2"})):
+        r, plain = _renderer(dev, tmp_path, **knobs), _renderer("cpu", tmp_path, **knobs)
+        assert (r.arrays_list is not None) == ("chunk_tris" in knobs)
+        for i in range(2):
+            ext.reset_launches()
+            frame = r.render_frame(mode=mode)
+            ran = {k for k, v in ext.LAUNCHES.items() if v}
+            assert ran == kernels, (mode, ran)
+            if mode == "pt" and "chunk_tris" not in knobs:
+                assert ext.LAUNCHES["sample_wave"] == 1
+            ref = plain.render_frame(mode=mode)
+            assert np.abs(frame - ref).max() <= 1e-6, (mode, i)
+            h, hp = r.profiler.history[-1], plain.profiler.history[-1]
+            if mode == "pt":
+                assert round(h["mrays_per_s"] * h["total"] * 1e3) == round(
+                    hp["mrays_per_s"] * hp["total"] * 1e3)
+
+
+def test_render_frame_async_makes_no_synchronising_call(setup, tmp_path):
+    """With overlays on and after a warm frame, path-traced dispatches (the
+    camera upload, the refit, K1, the composite) run under CUDA's sync
+    debug mode "error"; the frames resolve to the sync loop's."""
+    knobs = dict(show_fps_overlay=True, debug_show_lights=True, debug_show_bvh=True)
+    r, s = _renderer(setup["dev"], tmp_path, **knobs), _renderer(setup["dev"], tmp_path, **knobs)
+    r.render_frame(), s.render_frame()
+    r.profiler.fps_ema = s.profiler.fps_ema = 20.0
+    r._overlay_operands()  # the box operands are built (read back) once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = []
+        for _ in range(4):
+            r.scene.camera.rotate(5.0, 0.0)
+            r.sync_camera()
+            pending.append(r.render_frame_async(mode="pt"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for p in pending:
+        s.scene.camera.rotate(5.0, 0.0)
+        s.sync_camera()
+        s.profiler.fps_ema = 20.0
+        np.testing.assert_array_equal(p.resolve(), s.render_frame(mode="pt"))
+
+
+def test_failed_kernel_build_makes_frames_raise(setup, tmp_path, monkeypatch):
+    def boom():
+        raise RuntimeError("injected nvcc failure")
+
+    monkeypatch.setattr(ext, "lib", boom)
+    r = _renderer(setup["dev"], tmp_path)
+    assert r.path_tracer_failed and not r.path_tracer_ready
+    for mode in ("auto", "pt", "preview"):
+        with pytest.raises(RuntimeError, match="failed to build"):
+            r.render_frame(mode=mode)
