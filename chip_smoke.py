@@ -8,7 +8,9 @@ octant-masked bounce walks (K9) on the demo frame, the wide-node walks (K5,
 wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and the per-wave path
 (the portable torch walks and the staged kernels= variants, with the
 miss-link walks K7 for "pallas-ml" and the live-ray K2/K3 for
-"pallas-bvh2"), and time them.
+"pallas-bvh2"), the frame loop, deforming meshes on an LBVH built on the
+card, frames tiled over a device list and the native BLAS builder, and time
+them.
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--out-dir DIR]
@@ -129,6 +131,22 @@ Phases (each prints its own lines and stops the run when it fails):
                   chunked (tiered="off", 3 chunks) at 320x180, 1 spp vs the
                   single-tree K1 (golden bars, rays within 0.1%) and timed
                   at 1080p/1 spp; launches per frame of each path
+ 20 last modules  deforming meshes: scripts/deform_demo.py's scene (a 48x48
+                  wave grid and two Suzannes, 6,544 triangles, its displace in
+                  torch) at 1920x1080, spp 2, 4 bounces: the LBVH on the card
+                  vs the plain CPU build (bit for bit, also on a 256x256
+                  grid), K1 vs its plain version at 256x192, K2/K3 on the
+                  deform tables vs brute force at the 1080p primary rays, 8
+                  animated frames under CUDA's sync debug mode "error" (1 K1
+                  launch each), LBVH build and frame times at both sizes,
+                  the tables and K1 alone, one LBVH build and one frame
+                  under torch.profiler (device operations, busy share);
+                  tiled frames: make_mesh(), the 1080p/64 spp frame over 1, 3
+                  and 7 tiles on cuda:0 bit for bit the single-device frame
+                  (rays equal), the dispatch timed in turns with it,
+                  Renderer.multi_chip; the native builder: the C++ BLAS vs
+                  the numpy builder (monkey, the 131k grid) with build times,
+                  the demo's cold start with and without it in turns
 """
 
 from __future__ import annotations
@@ -627,6 +645,395 @@ def frame_loop_phase(torch, np, dev, fscene, whole_field, out_dir):
         return out
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+# the deforming scene of scripts/deform_demo.py: a g x g water grid over
+# [-3, 3]^2 and two Suzannes at 0.6 scale (6,544 triangles at g = 48)
+DEFORM_GRID = 48
+DEFORM_BIG_GRID = 256  # 131,072 grid triangles + the two Suzannes
+DEFORM_SIZE = (1920, 1080)  # the demo's config (spp 2, 4 bounces) at 1080p
+DEFORM_CHECK_SIZE = (256, 192)  # K1 vs its plain version
+DEFORM_FRAMES = 8  # animated frames under the sync debug mode "error"
+MULTI_CHIP_SIZE = (1920, 1080)  # Renderer.multi_chip's frame (1 spp)
+
+
+def deform_geometry(np, g: int):
+    """scripts/deform_demo.py base_geometry at grid size ``g``: (T, 3, 3)
+    float32 triangles (the grid in the demo's loop order, then the two
+    Suzannes) and their (T,) int32 materials."""
+    from rayzen_tpu_torch.demo import ASSET_DIR
+    from rayzen_tpu_torch.mesh import Mesh
+
+    xs = np.linspace(-3.0, 3.0, g + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    p = np.stack([gx, np.zeros_like(gx), gz], -1)
+    a, b, c, d = p[:-1, :-1], p[1:, :-1], p[1:, 1:], p[:-1, 1:]
+    grid = np.stack([np.stack([a, b, c], 2), np.stack([a, c, d], 2)], 2).reshape(-1, 3, 3)
+    parts, mats = [grid], [np.zeros(len(grid), np.int32)]
+    monkey = Mesh.load_from_obj(os.path.join(ASSET_DIR, "monkey.obj"), 0)
+    for k, x in enumerate((-1.2, 1.2)):
+        parts.append(monkey.vertices * 0.6 + np.asarray([x, 0.8, 0.0], np.float32))
+        mats.append(np.full(monkey.num_triangles, 1 + k, np.int32))
+    return np.concatenate(parts).astype(np.float32), np.concatenate(mats)
+
+
+def displace(torch, verts, t: float):
+    """scripts/deform_demo.py displace in torch: a travelling wave on every
+    vertex below y = 0.5 and a bob above (the Suzannes ride the swell)."""
+    import math
+
+    x, y, z = verts.unbind(-1)
+    wave = 0.25 * torch.sin(1.7 * x + 2.3 * t) * torch.cos(1.3 * z + 1.1 * t)
+    y = torch.where(y < 0.5, y + wave, y + 0.3 * math.sin(2.3 * t))
+    return torch.stack([x, y, z], -1)
+
+
+def deform_sharded_native_phase(torch, np, dev, mcfg, marrays, mcam, main_ms,
+                                k1_ms, out_dir):
+    """Phase 20: the last modules. Deform: the demo of
+    scripts/deform_demo.py at 1080p (the LBVH on the card vs the plain CPU
+    build, K1 vs its plain version at 256x192, K2/K3 on the deform tables vs
+    brute force at the 1080p primary rays, 8 animated frames under the sync
+    debug mode "error", build and frame times at the demo's size and on a
+    256 x 256 grid, the tables and K1 alone, one build and one frame under
+    torch.profiler). Sharded: make_mesh, the main path's frame tiled over
+    cuda:0 (1, 3 and 7 tiles) vs the single-device frame, the dispatch
+    timed in turns with it, Renderer.multi_chip. Native: the C++ BLAS vs
+    the numpy builder on the monkey and the 131k grid, with build times,
+    and the demo Renderer's cold start with and without it, in turns.
+    Returns the numbers and launch counts."""
+    import shutil
+    import tempfile
+
+    from rayzen_tpu_torch import ext, packing
+    from rayzen_tpu_torch.accel import builder, native
+    from rayzen_tpu_torch.accel.lbvh import lbvh_for_triangles
+    from rayzen_tpu_torch.camera import Camera
+    from rayzen_tpu_torch.config import RenderConfig
+    from rayzen_tpu_torch.deform import render_deforming, world_from_deforming
+    from rayzen_tpu_torch.demo import ASSET_DIR, build_demo_scene
+    from rayzen_tpu_torch.image_io import ssim
+    from rayzen_tpu_torch.integrator import render_radiance_with_stats
+    from rayzen_tpu_torch.light import Light, pack_lights
+    from rayzen_tpu_torch.material import Material, pack_materials
+    from rayzen_tpu_torch.mesh import Mesh
+    from rayzen_tpu_torch.ops import megakernel, traverse, walk
+    from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+    from rayzen_tpu_torch.parallel import make_mesh, render_radiance_sharded
+    from rayzen_tpu_torch.renderer import Renderer
+
+    def launched():
+        return {k: v for k, v in ext.LAUNCHES.items() if v}
+
+    out = {}
+    # -- deform: the demo's scene, camera and config --
+    verts0, tri_mat = deform_geometry(np, DEFORM_GRID)
+    materials = torch.from_numpy(pack_materials([
+        Material(albedo=(0.2, 0.45, 0.7), metallic=0.05, roughness=0.15,
+                 reflectivity=0.6),
+        Material(albedo=(0.85, 0.5, 0.2), metallic=0.2, roughness=0.5),
+        Material(albedo=(0.9, 0.9, 0.95), metallic=1.0, roughness=0.1,
+                 reflectivity=1.0)])).to(dev)
+    lights = torch.from_numpy(pack_lights([
+        Light.point((4.0, 6.0, 4.0), power=220.0),
+        Light.directional((0.5, 1.2, 0.3), power=1.5)])).to(dev)
+    W, H = DEFORM_SIZE
+
+    def camera(w, h):
+        return Camera(position=np.array([0.0, 2.6, 5.0], np.float32),
+                      target=np.array([0.0, -0.4, -0.9], np.float32),
+                      aspect_ratio=w / h).device_params()
+
+    dcfg = RenderConfig(width=W, height=H, spp=2, max_bounces=4)
+    base = torch.from_numpy(verts0).to(dev)
+    mat_d = torch.from_numpy(tri_mat).to(dev)
+    require(base.shape[0] == 6544, f"deform demo: {base.shape[0]} triangles")
+
+    # the LBVH on the card vs the plain CPU build, bit for bit
+    v_demo = displace(torch, base, 0.35)
+    big0, big_mat = deform_geometry(np, DEFORM_BIG_GRID)
+    v_big = displace(torch, torch.from_numpy(big0).to(dev), 0.35)
+    lbvh = {}
+    for name, v in (("demo", v_demo), ("grid256", v_big)):
+        t0 = time.perf_counter()
+        cpu = lbvh_for_triangles(v.cpu())
+        cpu_s = time.perf_counter() - t0
+        gpu = lbvh_for_triangles(v)
+        same = all(torch.equal(cpu[k], gpu[k].cpu()) for k in cpu)
+        build_ms = cuda_ms(lambda: lbvh_for_triangles(v), 5, torch)
+        lbvh[name] = dict(triangles=int(v.shape[0]), depth=int(gpu["max_depth"]),
+                          bitwise_cpu=same, build_ms=build_ms, cpu_build_s=cpu_s)
+        say(f"[20 deform] LBVH {name}, {v.shape[0]} triangles: card == plain CPU "
+            f"build bit for bit {same}; depth {lbvh[name]['depth']}; build "
+            f"{build_ms:.3f} ms on the card (CPU {cpu_s:.2f} s)")
+        require(same, f"the LBVH on the card differs from the CPU build ({name})")
+    # one demo build under the profiler: its device operations and busy time
+    lwall, lbusy, lrows = profile_dispatch(lambda: lbvh_for_triangles(v_demo),
+                                           torch, None)
+    lops = sum(r[2] for r in lrows)
+    lbvh["demo"].update(profiled_wall_ms=lwall, profiled_busy_ms=lbusy,
+                        device_ops=lops)
+    say(f"[20 deform] one LBVH build of the demo under torch.profiler: wall "
+        f"{lwall:.2f} ms, device busy {lbusy:.3f} ms ({100 * lbusy / lwall:.1f}%), "
+        f"{lops} device operations; the unprofiled build's "
+        f"{lbvh['demo']['build_ms']:.3f} ms is {lbvh['demo']['build_ms'] / lops * 1e3:.1f}"
+        f" us an operation")
+    out["lbvh"] = lbvh
+
+    # K1 vs its plain version at 256x192 (the same tables on the card)
+    cw, ch = DEFORM_CHECK_SIZE
+    ccfg = dcfg.replace(width=cw, height=ch)
+    ccam = camera(cw, ch)
+    kimg, krays = render_deforming(v_demo, mat_d, materials, lights, ccam, ccfg,
+                                   with_stats=True)
+    ws = world_from_deforming(v_demo, mat_d, materials, lights)
+    _, cuv = pixel_grid(cw, ch, dev)
+    cact = torch.ones(cuv.shape[0], dtype=torch.bool, device=dev)
+    psum, prays = megakernel.sample_wave_reference(
+        ws, ccfg.replace(sample_fuse=1), cuv, cact, ccam, 0, 0, 4, n_samples=2)
+    pimg = torch.clamp(psum / 2.0, 0.0, 1.0).reshape(ch, cw, 3)
+    bitwise = bool(torch.equal(kimg, pimg))
+    c_ssim = ssim(kimg.cpu().numpy(), pimg.cpu().numpy())
+    c_mean = (kimg - pimg).abs().mean().item()
+    c_max = (kimg - pimg).abs().max().item()
+    held = "bit for bit" if bitwise else "SSIM, mean abs and max abs bars"
+    say(f"[20 deform] K1 vs plain K1, {cw}x{ch}, spp 2, 4 bounces: bit for bit "
+        f"{bitwise}; SSIM {c_ssim:.6f}, mean abs {c_mean:.3e}, max abs "
+        f"{c_max:.3e}; rays {int(krays)} vs {int(prays)} ({held} held)")
+    require(bitwise or (c_ssim >= 0.995 and c_mean < 2e-3 and c_max <= 1e-5),
+            "deform K1 vs plain (SSIM >= 0.995, mean abs < 2e-3, max abs <= 1e-5)")
+    require(abs(int(krays) - int(prays)) <= 0.001 * int(prays), "deform K1 rays")
+    out["k1_vs_plain"] = dict(bitwise=bitwise, ssim=c_ssim, mean_abs=c_mean,
+                              max_abs=c_max, held=held, rays=int(krays), plain_rays=int(prays))
+
+    # K2/K3 on the deform tables vs brute force at the 1080p primary rays
+    dcam = camera(W, H)
+    ws = world_from_deforming(v_demo, mat_d, materials, lights)
+    _, muv = pixel_grid(W, H, dev)
+    z = torch.zeros_like(muv[:, 0])
+    ray = megakernel._raygen_tiles(muv[:, 0], muv[:, 1], z, z,
+                                   megakernel._pack_camera(dcam, dev))
+    o, d = torch.stack(ray[:3], 1), torch.stack(ray[3:], 1)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+    ext.reset_launches()
+    hit = walk.closest_hit_bvh2(ws, o, d, act, width=W, height=H)
+    point = lights[0, :3]
+    lv = point - hit.point
+    dist = torch.clamp_min(lv.norm(dim=1), 0.001)
+    ld = lv / dist[:, None]
+    so = hit.point + ld * 0.001
+    vis, _ = walk.shadow_walk_bvh2(ws, so, ld, dist, hit.found, width=W, height=H)
+    check_launches = launched()
+    step = 4096
+    bt, btri, bvis = [], [], []
+    transp = ws.materials[ws.tri_mat.long(), 6][None]
+    for s in range(0, o.shape[0], step):
+        t, _ = traverse._against_all(ws, o[s:s + step], d[s:s + step])
+        k = t.argmin(dim=1)
+        bt.append(t.gather(1, k[:, None])[:, 0])
+        btri.append(k)
+        t2, h2 = traverse._against_all(ws, so[s:s + step], ld[s:s + step])
+        blocking = h2 & (t2 >= 1e-3) & (t2 < dist[s:s + step, None])
+        bvis.append(torch.where(blocking, torch.where(transp > 0, transp, 0.0),
+                                1.0).prod(dim=1))
+    bt, btri, bvis = torch.cat(bt), torch.cat(btri), torch.cat(bvis)
+    bfound = bt < traverse.T_FAR
+    btri = torch.where(bfound, btri, -1)
+    bvis = torch.where(hit.found, bvis, 1.0)
+    same_found = (bfound == hit.found).float().mean().item()
+    same_tri = (btri == hit.tri.long()).float().mean().item()
+    both = bfound & hit.found & (btri == hit.tri.long())
+    t_rel = ((hit.t - bt).abs() / bt.abs()).masked_fill(~both, 0).max().item()
+    vis_same = (vis == bvis).float().mean().item()
+    say(f"[20 deform] K2 vs brute force, {W}x{H} primary rays on the deform tables: "
+        f"same hit/miss {same_found * 100:.4f}%, same triangle {same_tri * 100:.4f}%, "
+        f"t max rel err {t_rel:.3e} ({int(hit.found.sum())} hits); K3 toward the "
+        f"point light: same visibility {vis_same * 100:.4f}%; launches {check_launches}")
+    require(same_found >= 0.9999 and same_tri >= 0.9999 and t_rel <= 1e-5,
+            "K2 on the deform tables vs brute force")
+    require(vis_same >= 0.9999, "K3 on the deform tables vs brute force")
+    out["k2k3_vs_brute"] = dict(same_found=same_found, same_tri=same_tri,
+                                t_max_rel_err=t_rel, k3_same_vis=vis_same,
+                                launches=check_launches)
+
+    # a deforming frame's two parts alone (CUDA events, 5 calls each): the
+    # tables (LBVH included) as render_deforming builds them for K1, and K1
+    # on them with render_deforming's arguments
+    def tables():
+        return world_from_deforming(v_demo, mat_d, materials, lights,
+                                    with_records=False)
+
+    ws_k1 = tables()
+    tables_ms = cuda_ms(tables, 5, torch)
+    k1_deform_ms = cuda_ms(lambda: megakernel.sample_wave(
+        ws_k1, dcfg.replace(sample_fuse=1), muv, act, dcam, 0, 0, 4, n_samples=2),
+        5, torch)
+    say(f"[20 deform] alone at {W}x{H}: the tables (LBVH included) {tables_ms:.3f} ms, "
+        f"K1 (spp 2, 4 bounces) {k1_deform_ms:.3f} ms")
+    out["alone"] = dict(tables_ms=tables_ms, k1_ms=k1_deform_ms)
+
+    # 8 animated 1080p frames under the sync debug mode "error"
+    def frames(base_, mat_, n, cfg_):
+        render_deforming(displace(torch, base_, 0.0), mat_, materials, lights,
+                         dcam, cfg_)  # warm
+        torch.cuda.synchronize()
+        ext.reset_launches()
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        imgs = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            evs[0].record()
+            for i in range(n):
+                imgs.append(render_deforming(displace(torch, base_, i * 0.35), mat_,
+                                             materials, lights, dcam, cfg_,
+                                             with_stats=True))
+                evs[i + 1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(n)]
+        return imgs, ms, launched()
+
+    imgs, frame_ms, flaunch = frames(base, mat_d, DEFORM_FRAMES, dcfg)
+    finite = all(bool(torch.isfinite(im).all()) for im, _ in imgs)
+    moved = all(not torch.equal(imgs[i][0], imgs[i + 1][0]) for i in range(len(imgs) - 1))
+    rays = [int(r) for _, r in imgs]
+    med = statistics.median(frame_ms)
+    say(f"[20 deform] {DEFORM_FRAMES} animated frames {W}x{H}, spp 2, 4 bounces, "
+        f"{base.shape[0]} triangles, under sync debug mode 'error' (no synchronising "
+        f"call): median {med:.2f} ms a frame (the LBVH alone "
+        f"{lbvh['demo']['build_ms']:.3f} ms), {rays[0] / med / 1e3:.1f} Mrays/s; "
+        f"launches {flaunch}; finite "
+        f"{finite}, every frame differs from the last {moved}")
+    require(finite and moved, "deform frames")
+    require(flaunch == {"sample_wave": DEFORM_FRAMES}, f"deform launches {flaunch}")
+    bimgs, big_ms, blaunch = frames(torch.from_numpy(big0).to(dev),
+                                    torch.from_numpy(big_mat).to(dev), 3, dcfg)
+    require(all(bool(torch.isfinite(im).all()) for im, _ in bimgs), "256 grid frames")
+    say(f"[20 deform] {DEFORM_BIG_GRID}x{DEFORM_BIG_GRID} grid ({big0.shape[0]} "
+        f"triangles, depth "
+        f"{lbvh['grid256']['depth']}): median {statistics.median(big_ms):.2f} ms a "
+        f"{W}x{H} frame (the LBVH alone {lbvh['grid256']['build_ms']:.3f} ms); launches "
+        f"{blaunch}")
+    fwall, fbusy, frows = profile_dispatch(lambda: render_deforming(
+        displace(torch, base, 0.7), mat_d, materials, lights, dcam, dcfg), torch, None)
+    fops = sum(r[2] for r in frows)
+    say(f"[20 deform] one demo frame under torch.profiler: wall {fwall:.2f} ms, device "
+        f"busy {fbusy:.3f} ms ({100 * fbusy / fwall:.1f}%), {fops} device operations")
+    out["frame_profiled"] = dict(wall_ms=fwall, busy_ms=fbusy, device_ops=fops)
+    out["frames"] = dict(demo_ms=frame_ms, demo_median_ms=med, rays=rays,
+                         launches=flaunch, grid256_ms=big_ms,
+                         grid256_median_ms=statistics.median(big_ms),
+                         k1_launches_per_frame=flaunch["sample_wave"] / DEFORM_FRAMES)
+
+    # -- sharded: the main path's frame tiled over cuda:0 --
+    mesh = make_mesh()
+    require(mesh == [dev] * torch.cuda.device_count(), f"make_mesh() gave {mesh}")
+    ref, ref_rays = render_radiance_with_stats(marrays, mcam, mcfg)
+    sharded = {}
+    for name, tiles in (("1 tile (make_mesh)", mesh[:1]), ("3 tiles", [dev] * 3),
+                        ("7 tiles (padded)", [dev] * 7)):
+        ext.reset_launches()
+        img, rays = render_radiance_sharded(marrays, mcam, mcfg, tiles, with_stats=True)
+        got = launched()
+        same = bool(torch.equal(img, ref)) and int(rays) == int(ref_rays)
+        sharded[name] = dict(tiles=len(tiles), bitwise=same, launches=got)
+        require(same, f"sharded frame ({name}) differs from the single-device frame")
+        require(got == {"sample_wave": len(tiles)}, f"sharded launches {got}")
+    turns = {"single": [], "1 tile": [], "3 tiles": []}
+    for _ in range(3):
+        for name, tiles in (("single", None), ("1 tile", mesh[:1]), ("3 tiles", [dev] * 3)):
+            fn = ((lambda: render_radiance_with_stats(marrays, mcam, mcfg)) if tiles is None
+                  else (lambda t=tiles: render_radiance_sharded(marrays, mcam, mcfg, t)))
+            turns[name].append(timed(fn, torch)[1])
+    tmed = {k: statistics.median(v) for k, v in turns.items()}
+    say(f"[20 sharded] {mcfg.width}x{mcfg.height}/{mcfg.spp} spp demo: tiled == single "
+        f"bit for bit, rays equal "
+        f"({', '.join(f'{k}: launches {v['launches']}' for k, v in sharded.items())}); "
+        f"dispatch medians in turns: single {tmed['single']:.2f} ms, 1 tile "
+        f"{tmed['1 tile']:.2f} ms, 3 tiles {tmed['3 tiles']:.2f} ms (phase 6 "
+        f"{main_ms:.2f} ms, phase 7's K1 alone {k1_ms:.2f} ms)")
+    cache_dir = tempfile.mkdtemp(prefix="rayzen_sharded_")
+    try:
+        rw, rh = MULTI_CHIP_SIZE
+        rcfg = RenderConfig(width=rw, height=rh, spp=1, max_bounces=5,
+                            cache_dir=cache_dir)
+        single_r = Renderer(build_demo_scene(rw, rh), rcfg, async_compile=False,
+                            use_cache=False, device=dev)
+        multi_r = Renderer.multi_chip(build_demo_scene(rw, rh), rcfg,
+                                      async_compile=False, use_cache=False)
+        mf, sf = multi_r.render_frame(), single_r.render_frame()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    same_r = bool(np.array_equal(mf, sf))
+    say(f"[20 sharded] Renderer.multi_chip over {multi_r.mesh}: {rw}x{rh} frame equals "
+        f"the single-device Renderer's {same_r}")
+    require(same_r and np.isfinite(mf).all(), "Renderer.multi_chip frame")
+    out["sharded"] = dict(checks=sharded, turns_ms=turns, median_ms=tmed,
+                          main_path_median_ms=main_ms, k1_alone_ms=k1_ms,
+                          multi_chip_renderer_equal=same_r)
+
+    # -- native: the C++ BLAS builder vs the numpy builder --
+    require(native.available(), "the native runtime did not build")
+    leaf = RenderConfig().leaf_size
+    monkey = Mesh.load_from_obj(os.path.join(ASSET_DIR, "monkey.obj"))
+    nat = {}
+    grid131 = v_big[:DEFORM_BIG_GRID ** 2 * 2].cpu().numpy()  # the displaced grid
+    for name, verts in (("monkey", monkey.vertices),
+                        (f"{DEFORM_BIG_GRID}x{DEFORM_BIG_GRID} grid", grid131)):
+        t0 = time.perf_counter()
+        nb = native.build_blas(verts, leaf, "sah")
+        t1 = time.perf_counter()
+        pb = builder.build_blas(verts, leaf, "sah")
+        t2 = time.perf_counter()
+        same = all(np.array_equal(getattr(nb, f.name), getattr(pb, f.name))
+                   for f in dataclasses.fields(builder.BLAS))
+        nat[name] = dict(triangles=int(len(verts)), identical=same,
+                         native_ms=(t1 - t0) * 1e3, numpy_ms=(t2 - t1) * 1e3)
+        say(f"[20 native] BLAS of the {name} ({len(verts)} triangles, leaf {leaf}, "
+            f"SAH): native == numpy {same}; native {(t1 - t0) * 1e3:.1f} ms, numpy "
+            f"{(t2 - t1) * 1e3:.1f} ms (host clock)")
+        require(same, f"native BLAS differs from numpy ({name})")
+    out["native"] = nat
+
+    # the demo Renderer's cold start (an empty cache) with the native builder
+    # and without it (the state RAYZEN_NATIVE=0 leaves), in turns
+    def cold_start(use_native):
+        packing._blas_cache.clear()
+        scene = build_demo_scene(*MULTI_CHIP_SIZE)
+        cdir = tempfile.mkdtemp(prefix="rayzen_cold_")
+        saved = native._lib, native._tried
+        if not use_native:
+            native._lib, native._tried = None, True
+        try:
+            t0 = time.perf_counter()
+            r = Renderer(scene, RenderConfig(width=MULTI_CHIP_SIZE[0],
+                                             height=MULTI_CHIP_SIZE[1], spp=1,
+                                             max_bounces=5, cache_dir=cdir),
+                         async_compile=False, device=dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            native._lib, native._tried = saved
+            shutil.rmtree(cdir, ignore_errors=True)
+        return ms, r.startup_steps["Scene pack / BVH build"]
+
+    cold = {True: [], False: []}
+    for use_native in (True, False, False, True, True, False):
+        cold[use_native].append(cold_start(use_native))
+    cmed = {k: (statistics.median(m for m, _ in v), statistics.median(p for _, p in v))
+            for k, v in cold.items()}
+    say(f"[20 native] demo {MULTI_CHIP_SIZE[0]}x{MULTI_CHIP_SIZE[1]} cold start "
+        f"(empty cache), 3 each in turns, medians (host clock): native "
+        f"{cmed[True][0]:.1f} ms (pack {cmed[True][1]:.1f}), numpy {cmed[False][0]:.1f}"
+        f" ms (pack {cmed[False][1]:.1f})")
+    out["cold_start"] = dict(native_ms=[m for m, _ in cold[True]],
+                             numpy_ms=[m for m, _ in cold[False]],
+                             native_pack_ms=[p for _, p in cold[True]],
+                             numpy_pack_ms=[p for _, p in cold[False]])
+    if out_dir:
+        with open(os.path.join(out_dir, "phase20.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    return out
 
 
 def main() -> int:
@@ -2370,6 +2777,29 @@ def main() -> int:
     for k in kernels:
         if k["name"] in per_frame:
             k["frame_loop_launches_per_frame"] = per_frame[k["name"]]
+    # ---- 20 the last modules: deforming meshes, tiled frames, the native
+    # builder ----
+    p20 = deform_sharded_native_phase(torch, np, dev, mcfg, marrays, mcam, med, k1_ms,
+                                      out_dir)
+    k23 = p20["k2k3_vs_brute"]["launches"]
+    phase20 = {
+        "K1 sample_wave": dict(
+            deform_1080p_spp2_per_frame=p20["frames"]["k1_launches_per_frame"],
+            sharded_1080p_64spp_per_dispatch={
+                name: v["launches"]["sample_wave"]
+                for name, v in p20["sharded"]["checks"].items()},
+            deform_frame_median_ms=p20["frames"]["demo_median_ms"],
+            deform_k1_alone_ms=p20["alone"]["k1_ms"],
+            deform_tables_alone_ms=p20["alone"]["tables_ms"],
+            sharded_dispatch_median_ms=p20["sharded"]["median_ms"]),
+        "K2 closest_hit_bvh2 (standalone)": dict(
+            deform_tables_check=k23.get("closest_hit_bvh2", 0)),
+        "K3 shadow_walk_bvh2 (standalone)": dict(
+            deform_tables_check=k23.get("shadow_walk_bvh2", 0)),
+    }
+    for k in kernels:
+        if k["name"] in phase20:
+            k["phase20"] = phase20[k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

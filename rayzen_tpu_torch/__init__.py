@@ -12,7 +12,11 @@ on those walks with torch glue between them, or the portable torch walks
 which the wrappers run for CPU tensors. Above them, the frame loop
 (renderer.Renderer: preview, overlays, picking, the scene cache, the
 profiler, chunked scenes) and the CLI and interactive session
-(``python -m rayzen_tpu_torch``, cli.py, interactive.py).
+(``python -m rayzen_tpu_torch``, cli.py, interactive.py). Deforming meshes
+rebuild an LBVH on the device every frame (deform.py, accel/lbvh.py);
+frames can be cut into tiles over a list of devices (parallel.py); the C++
+SAH builder and OBJ parser (accel/native.py) are built with g++ at first
+use.
 
 Importing this package imports torch and numpy only: no jax, and no kernel
 build.
@@ -30,6 +34,8 @@ from .packing import (  # noqa: F401
 from .integrator import (  # noqa: F401
     render_radiance, render_radiance_with_stats, render_rays,
 )
+from .deform import render_deforming, world_from_deforming  # noqa: F401
+from .parallel import make_mesh, render_radiance_sharded  # noqa: F401
 from . import procedural  # noqa: F401
 
 __version__ = "0.1.0"

@@ -19,9 +19,9 @@ Two TPU-motivated departures from the reference layout:
 
 This is the portable pure-numpy builder, carried over from rayzen_tpu
 unchanged apart from its BVH disk format (save_bvh / load_bvh) and its
-brute-force test oracle, which nothing in this package uses;
-rayzen_tpu.accel.native's C++ implementation of the same algorithm (identical
-arrays, tests/test_native.py) is not ported yet.
+brute-force test oracle, which nothing in this package uses. accel/native.py
+binds the C++ implementation of the same algorithm (identical arrays,
+tests/test_torch_native.py), which the packer uses when it is available.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ output path, camera fly-through, debug overlay toggles (the reference's F1/L/B/N
 keys, main.cpp:441-499, become flags), and --preview (editor mode).
 
 Run: python -m rayzen_tpu_torch [flags]; frames render on --device (default
-cuda; cpu runs the kernels' plain versions). --multichip is not ported yet
-(ROADMAP queue 1 #9) and raises NotImplementedError.
+cuda; cpu runs the kernels' plain versions). --multichip cuts each frame
+into one tile per device of --device's type (parallel.py).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cache-dir", type=str, default=".rayzen_cache")
     p.add_argument("--compile-cache", type=str, default=None)
     p.add_argument("--multichip", action="store_true",
-                   help="shard over all devices (not ported yet: raises)")
+                   help="shard over all devices of --device's type")
     p.add_argument(
         "--split-bounce", type=int, default=0,
         help="trace bounces 0..N-1 fused, stream-compact survivors, finish "

@@ -303,33 +303,57 @@ def render_rays(
 ):
     """Path-trace a wave of pixels on the device of ``arrays`` (tensors, see
     SceneArrays.to); returns (R, 3) clamped colour, and the traced-ray count
-    (0-d int64) when ``with_stats``."""
+    (0-d int64) when ``with_stats``. Every draw is keyed by the pixel (its
+    uv or frag), not by its slot in the wave, so any wave of a frame's
+    pixels renders them as the whole frame does (parallel.py's tiles)."""
+    check_config(cfg, tracer)
+    ws = world_geometry(arrays)  # one refit per frame, shared by all waves
+    return render_world_rays(ws, frag, uv, camera_params, cfg, max_bounces,
+                             tracer, rng_key, active, with_stats)
+
+
+def render_world_rays(ws: WorldArrays, frag, uv, camera_params: dict,
+                      cfg: RenderConfig, max_bounces: Optional[int] = None,
+                      tracer: str = "bvh", rng_key: int = 0, active=None,
+                      with_stats: bool = False):
+    """render_rays over a world already refitted (``ws``)."""
     max_bounces = max_bounces or cfg.max_bounces
     trace_fn, shadow_fn, trace_primary_fn, use_mega = select_kernels(cfg, tracer)
-    ws = world_geometry(arrays)  # one refit per frame, shared by all waves
     if use_mega:
         total, rays = _render_mega(ws, uv, camera_params, cfg, max_bounces,
                                    rng_key, active)
     else:
-        sampler = _make_sampler(cfg, frag, uv, cfg.width, cfg.height, rng_key)
-        total = torch.zeros((uv.shape[0], 3), dtype=torch.float32,
-                            device=uv.device)
-        rays = torch.zeros((), dtype=torch.int64, device=uv.device)
-        for s in range(cfg.spp):
-            samp = _sample_index(cfg, s, rng_key)
-            sampler.start_sample(samp)
-            origin, direction = camera_rays.generate_rays(
-                uv, sampler.camera_jitter(), camera_params["inv_proj"],
-                camera_params["inv_view"], camera_params["position"])
-            radiance, r = trace_wave(
-                ws, origin, direction, camera_params["position"], cfg, sampler,
-                samp, max_bounces, trace_fn=trace_fn, shadow_fn=shadow_fn,
-                trace_primary_fn=trace_primary_fn, active=active)
-            total, rays = total + radiance, rays + r
+        total, rays = trace_samples(ws, frag, uv, camera_params, cfg,
+                                    max_bounces, rng_key, active, trace_fn,
+                                    shadow_fn, trace_primary_fn)
     color = torch.clamp(total / float(cfg.spp), 0.0, 1.0)  # glsl:772-773
     if with_stats:
         return color, rays
     return color
+
+
+def trace_samples(ws: WorldArrays, frag, uv, camera_params: dict,
+                  cfg: RenderConfig, max_bounces: int, rng_key, active=None,
+                  trace_fn=None, shadow_fn=None, trace_primary_fn=None):
+    """The per-wave path's sample loop (integrator.py:433-491): per sample,
+    the sampler's jitter, ``generate_rays`` and ``trace_wave`` on the given
+    walks (None: the portable ones). Returns (colour sum over samples
+    (R, 3), rays () int64)."""
+    sampler = _make_sampler(cfg, frag, uv, cfg.width, cfg.height, rng_key)
+    total = torch.zeros((uv.shape[0], 3), dtype=torch.float32, device=uv.device)
+    rays = torch.zeros((), dtype=torch.int64, device=uv.device)
+    for s in range(cfg.spp):
+        samp = _sample_index(cfg, s, rng_key)
+        sampler.start_sample(samp)
+        origin, direction = camera_rays.generate_rays(
+            uv, sampler.camera_jitter(), camera_params["inv_proj"],
+            camera_params["inv_view"], camera_params["position"])
+        radiance, r = trace_wave(
+            ws, origin, direction, camera_params["position"], cfg, sampler,
+            samp, max_bounces, trace_fn=trace_fn, shadow_fn=shadow_fn,
+            trace_primary_fn=trace_primary_fn, active=active)
+        total, rays = total + radiance, rays + r
+    return total, rays
 
 
 def _render_mega(ws: WorldArrays, uv, camera_params: dict, cfg: RenderConfig,

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 
 from . import logging_util as log
+from .accel import native
 
 
 @dataclasses.dataclass
@@ -55,7 +56,14 @@ class Mesh:
         logs an error — the reference keeps rendering with an empty mesh when
         e.g. car.obj is absent (main.cpp:183-188, exercised at :371).
 
-        Pure-Python parser; rayzen_tpu's C++ twin of it is not ported yet."""
+        Uses the native C++ parser when available (accel/native.py), else
+        the Python parser below (the same triangles)."""
+        native_verts = native.parse_obj_file(path)
+        if native_verts is not None:
+            log.debug(
+                f"Loaded {native_verts.shape[0]} triangles from {path} (native)"
+            )
+            return Mesh.from_triangles(native_verts, material_index)
         try:
             with open(path, "r") as f:
                 text = f.read()

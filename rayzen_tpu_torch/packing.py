@@ -40,7 +40,10 @@ import numpy as np
 import torch
 
 from . import logging_util as log
-from .accel.builder import BLAS, build_blas, build_tlas
+from .accel.builder import BLAS, build_tlas
+# the native C++ BLAS builder, which runs the numpy one where it cannot load:
+# both give the same arrays (rayzen_tpu/packing.py:227-228)
+from .accel.native import build_blas
 from .config import RenderConfig
 from .light import pack_lights
 from .material import pack_materials
@@ -144,14 +147,19 @@ class SceneArrays:
         return dataclasses.replace(self, transforms=t, inv_transforms=inv)
 
     def to(self, device) -> "SceneArrays":
-        """The same arrays as torch tensors on ``device`` (dtypes kept)."""
-        return dataclasses.replace(
-            self,
-            **{
-                f: torch.as_tensor(np.asarray(getattr(self, f))).to(device)
-                for f in _SCENE_ARRAY_FIELDS
-            },
-        )
+        """The same arrays as torch tensors on ``device`` (dtypes kept), from
+        numpy arrays or from tensors on any device (a tensor already there
+        is shared, not copied)."""
+        return dataclasses.replace(self, **{
+            f: to_device(getattr(self, f), device) for f in _SCENE_ARRAY_FIELDS})
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor on ``device`` (dtype kept; a
+    tensor already there is shared, not copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x)).to(device)
 
 
 # SceneArrays fields that hold arrays (all but the static layout)

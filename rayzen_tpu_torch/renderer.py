@@ -28,8 +28,11 @@ On the card:
   (``_can_fuse_overlays``) is kept.
 - ``render_batch`` loops over the stacked cameras and counts rays in int64
   (JAX's scan carry is int32 and overflows past 2^31 rays a batch).
-- Multi-chip rendering (``mesh=``, ``Renderer.multi_chip``) is not ported
-  yet (ROADMAP queue 1 #9) and raises NotImplementedError.
+- Multi-chip rendering: ``mesh=`` takes a list of devices
+  (parallel.make_mesh); path-traced frames are cut into tiles over it
+  (parallel.render_radiance_sharded) and land on mesh[0], where the scene
+  is packed and previews and overlays run. As in JAX, such a scene is not
+  chunked.
 """
 
 from __future__ import annotations
@@ -48,12 +51,10 @@ from .config import RenderConfig
 from .integrator import check_config, render_radiance_with_stats
 from .overlay import build_overlay_inputs, camera_view_proj, composite_core
 from .packing import host_array, pack_scene
+from .parallel import make_mesh, render_radiance_sharded, replicate
 from .preview import render_preview
 from .profiler import FrameProfiler, StartupTimer
 from .scene import Scene
-
-MULTI_CHIP = ("multi-chip rendering (rayzen_tpu/parallel.py) is not ported "
-              "to rayzen_tpu_torch yet: ROADMAP queue 1 #9")
 
 
 def _load_kernels(device: torch.device) -> None:
@@ -74,13 +75,16 @@ class Renderer:
         async_compile=True,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(MULTI_CHIP)
         check_config(cfg)
         timer = StartupTimer()
         log.set_level(cfg.log_level)
         setup_compile_cache(cfg.compile_cache_dir)
-        self.device = torch.device(device)
+        # a device list (parallel.make_mesh) for tiled frames, or None
+        self.mesh = None if mesh is None else [torch.device(d) for d in mesh]
+        if self.mesh is not None and not self.mesh:
+            raise ValueError("mesh: an empty device list")
+        self.device = self.mesh[0] if self.mesh else torch.device(device)
+        self._replicas = None  # (arrays, {device: arrays there}) for the mesh
         self.scene = scene
         self.cfg = cfg
         self.profiler = FrameProfiler()
@@ -96,7 +100,8 @@ class Renderer:
         self._chunk_scenes = None
         self._chunk_tris = cfg.chunk_tris or bigscene.DEFAULT_CHUNK_TRIS
         if (
-            cfg.kernels != "xla"
+            self.mesh is None
+            and cfg.kernels != "xla"
             and cfg.tiered == "off"
             and scene.num_triangles > self._chunk_tris
         ):
@@ -291,8 +296,22 @@ class Renderer:
             return bigscene.render_radiance_chunked(
                 self.arrays_list, cam, self.cfg, max_bounces=max_bounces,
                 rng_key=key, with_stats=True)
+        if self.mesh is not None:
+            return render_radiance_sharded(self.arrays, cam, self.cfg, self.mesh,
+                                           max_bounces=max_bounces, rng_key=key,
+                                           with_stats=True,
+                                           replicas=self._mesh_replicas())
         return render_radiance_with_stats(self.arrays, cam, self.cfg,
                                           max_bounces=max_bounces, rng_key=key)
+
+    def _mesh_replicas(self) -> dict:
+        """The scene on each device of the mesh (parallel.replicate), made
+        again only when self.arrays is replaced (a topology refresh, new
+        transforms), and then only for the tables that changed."""
+        kept = self._replicas
+        if kept is None or kept[0] is not self.arrays:
+            self._replicas = (self.arrays, replicate(self.arrays, self.mesh, kept))
+        return self._replicas[1]
 
     def _preview(self, cam: dict):
         if self.device.type == "cuda":
@@ -513,7 +532,10 @@ class Renderer:
     @staticmethod
     def multi_chip(scene: Scene, cfg: RenderConfig,
                    n_devices: Optional[int] = None, **kw):
-        raise NotImplementedError(MULTI_CHIP)
+        """A Renderer over ``n_devices`` tiles (default: every device) of
+        the type of ``device`` (default cuda)."""
+        device_type = torch.device(kw.pop("device", "cuda")).type
+        return Renderer(scene, cfg, mesh=make_mesh(n_devices, device_type), **kw)
 
 
 def stack_camera_params(param_dicts) -> dict:

@@ -6,7 +6,9 @@ K9 form), the live-ray walks K2/K3 and K7 against each other, K4's
 continuation forms against each other, and the per-wave path's staged
 variants against their plain runs; the frame loop's frames launch their
 kernels (K1, K7, K2/K3) and equal the plain Renderer's, its async dispatch
-makes no synchronising call, a failed build makes frames raise. Marked
+makes no synchronising call, a failed build makes frames raise; the LBVH
+built on the card equals the CPU build, and deforming frames make no
+synchronising call. Marked
 ``cuda``: they skip
 where torch sees no CUDA device, and run on the GPU machine with
 
@@ -735,3 +737,69 @@ def test_failed_kernel_build_makes_frames_raise(setup, tmp_path, monkeypatch):
     for mode in ("auto", "pt", "preview"):
         with pytest.raises(RuntimeError, match="failed to build"):
             r.render_frame(mode=mode)
+
+
+def test_lbvh_on_cuda_matches_cpu(setup):
+    """The LBVH built on the card equals the CPU build bit for bit (random
+    soups, and the coincident centroids that leave the tree to the index
+    tie-break)."""
+    from rayzen_tpu_torch.accel.lbvh import lbvh_for_triangles
+
+    rng = np.random.RandomState(5)
+    soups = [(rng.uniform(-3, 3, (n, 1, 3)) + rng.uniform(-0.2, 0.2, (n, 3, 3)))
+             for n in (2, 3, 1000, 20000)]
+    soups.append(np.tile(rng.uniform(-1, 1, (1, 3, 3)), (300, 1, 1)))
+    for tris in soups:
+        t = torch.from_numpy(tris.astype(np.float32))
+        cpu, gpu = lbvh_for_triangles(t), lbvh_for_triangles(t.to(setup["dev"]))
+        for k, v in cpu.items():
+            assert torch.equal(v, gpu[k].cpu()), (k, t.shape[0])
+
+
+def test_render_deforming_makes_no_synchronising_call(setup):
+    """Deforming frames (vertices displaced on the card, the LBVH, the
+    tables, K1) run under CUDA's sync debug mode "error" after a warm frame,
+    each launching K1 once, and match the plain frames (the same inputs on
+    the CPU) as test_k1_matches_plain holds K1 to its plain version."""
+    from rayzen_tpu_torch.deform import render_deforming
+    from rayzen_tpu_torch.light import Light, pack_lights
+    from rayzen_tpu_torch.material import Material, pack_materials
+
+    dev = setup["dev"]
+    g = 12
+    xs = torch.linspace(-1.0, 1.0, g + 1)
+    gx, gz = torch.meshgrid(xs, xs, indexing="ij")
+    p = torch.stack([gx, torch.zeros_like(gx), gz], -1)
+    a, b, c, d = p[:-1, :-1], p[1:, :-1], p[1:, 1:], p[:-1, 1:]
+    base = torch.cat([torch.stack([a, b, c], 2), torch.stack([a, c, d], 2)]).reshape(-1, 3, 3)
+    tri_mat = torch.zeros(base.shape[0], dtype=torch.int32)
+    mats = torch.from_numpy(pack_materials(
+        [Material(albedo=(0.8, 0.3, 0.2), metallic=0.1, roughness=0.5)]))
+    lights = torch.from_numpy(pack_lights([Light.point((2.0, 4.0, 2.0), power=60.0)]))
+    cfg = RenderConfig(width=W, height=H, spp=2, max_bounces=3)
+    cam = setup["cam"]
+
+    # the inputs go up before the frames (a copy from pageable memory syncs)
+    tables = {on: [x.to(on) for x in (tri_mat, mats, lights)]
+              for on in (torch.device("cpu"), dev)}
+
+    def frame(verts, t):
+        y = 0.3 * torch.sin(2.0 * verts[..., 0] + 3.0 * t) * torch.cos(verts[..., 2] + t)
+        moved = torch.stack([verts[..., 0], y, verts[..., 2]], -1)
+        return render_deforming(moved, *tables[verts.device], cam, cfg,
+                                with_stats=True)
+
+    gbase = base.to(dev)
+    frame(gbase, 0.0)
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = [frame(gbase, t) for t in (0.0, 0.7, 1.4)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ext.LAUNCHES["sample_wave"] == 3
+    for t, (img, rays) in zip((0.0, 0.7, 1.4), frames):
+        ref, ref_rays = frame(base, t)
+        err = (img.cpu() - ref).abs().amax(-1).numpy()
+        assert (err < 1e-4).mean() >= 0.998 and int(rays) == int(ref_rays)

@@ -4,7 +4,7 @@ package: frame 0 at first_frame_bounces and the next at full bounces
 path on both sides), full bounces from frame 0 under accumulate, the
 progressive accumulator against JAX's update formula, update_transforms
 and the auto topology refresh, a failed kernel build, and the multi-chip
-entry points that are not ported. Demo scene, 32x24, 1 spp, 3 bounces."""
+entry points. Demo scene, 32x24, 1 spp, 3 bounces."""
 
 import dataclasses
 
@@ -162,13 +162,23 @@ def test_failed_build_makes_frames_raise(setup, monkeypatch):
 
 
 def test_multichip_entry_points_raise(setup, tmp_path):
+    """The multi-chip entry points render (parallel.py): Renderer.multi_chip
+    tiles every frame over make_mesh's devices and equals the single-device
+    Renderer, and the CLI's --multichip writes its frame; what still raises
+    is a mesh that is no list of devices."""
     from rayzen_tpu_torch.cli import main
 
     scene = demo.build_demo_scene(W, H)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
+    with pytest.raises(TypeError):
         Renderer(scene, setup["cfg"], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        Renderer.multi_chip(scene, setup["cfg"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #9"):
-        main(["--multichip", "--device", "cpu", "--width", "8", "--height", "8",
-              "--cache-dir", str(tmp_path), "--out", str(tmp_path / "x.png")])
+    with pytest.raises(ValueError, match="empty device list"):
+        Renderer(scene, setup["cfg"], mesh=[], device="cpu")
+    r = Renderer.multi_chip(scene, setup["cfg"], n_devices=3, async_compile=False,
+                            device="cpu")
+    assert r.mesh == [torch.device("cpu")] * 3
+    np.testing.assert_array_equal(r.render_frame(), make(setup["cfg"]).render_frame())
+    out = tmp_path / "x.png"
+    assert main(["--multichip", "--device", "cpu", "--width", "8", "--height", "8",
+                 "--bounces", "2", "--cache-dir", str(tmp_path),
+                 "--out", str(out)]) == 0
+    assert out.exists()
