@@ -47,11 +47,13 @@ Phases (each prints its own lines and stops the run when it fails):
                   functions of K1); each kernel launched in phase 7
   9 field         the 520-Suzanne field (bench_large.py), packed with the
                   defaults: it must come out tiered (treelet view)
- 10 K8            K8 closest/shadow vs plain at the field's 1080p primary rays
-                  and shadow rays, and vs K2/K3 on the whole tree
+ 10 K8            K8 (one node loop over both levels) closest/shadow vs
+                  plain (bit for bit) at the field's 1080p primary rays and
+                  shadow rays, and vs K2/K3 on the whole tree; its budget
+                  and walk-loop lane utilisation (the counting K8)
  11 tiered K1     the tiered K1 vs plain at 320x180, 1 spp, both RNG flows;
-                  vs the whole-tree K1 at 1920x1080, 4 spp, with its time
-                  and walk-loop lane utilisation there
+                  vs the whole-tree K1 at 1920x1080, 4 spp (bit for bit),
+                  with its time, budget and walk-loop lane utilisation
  12 field path    the field's 1080p/4 spp frame (render_radiance_with_stats,
                   tiered K1): timed dispatches, launch counts, the refit and
                   one profiled dispatch, then in turns with the whole-tree K1
@@ -91,8 +93,11 @@ Phases (each prints its own lines and stops the run when it fails):
                   frame, its launch counts, timed in turns with K1; the wide
                   + octant K1 once; the wide K1 on the field (tiered="off")
                   at 1080p/4 spp vs the whole-tree K1, in turns
- 17 K6            frustum_primary: the same set for K6 and the frustum K1,
-                  plus the frustum phase 1 and frustum + octant phase 1
+ 17 K6            frustum_primary: the same set for K6 (the standalone walk
+                  on the 1080p waves in K1's warp tiles, bit for bit its
+                  plain version, with its budget and lane utilisation) and
+                  the frustum K1, plus the frustum phase 1 and frustum +
+                  octant phase 1
                   (split_bounce 2) vs plain at 256x192 and 1080p (timed as
                   in 14), and the frustum + octant K1 once
  18 per-wave      K7 closest/shadow vs plain at 256x192 (bit for bit) and
@@ -153,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -1118,14 +1124,18 @@ def main() -> int:
     # the standalone walks: one live-ray template over the walk (K7 and K2/K3
     # with their counting forms; K8 and K5's harness launchers)
     live_labels = {f"live_walk_kernel<{m},{w}{c}>" for m in ("closest", "shadow")
-                   for w in ("MisslinkWalk", "Bvh2Walk") for c in ("", ",count")}
-    live_labels |= {f"live_walk_kernel<{m},{w}>" for m in ("closest", "shadow")
-                    for w in ("TieredWalk", "Bvh8Walk")}
+                   for w in ("MisslinkWalk", "Bvh2Walk", "TieredWalk")
+                   for c in ("", ",count")}
+    live_labels |= {f"live_walk_kernel<{m},Bvh8Walk>" for m in ("closest", "shadow")}
+    # K6's packet walk over the same map, and its counting form
+    live_labels |= {f"frustum_walk_kernel<{m}{c}>" for m in ("closest", "shadow")
+                    for c in ("", ",count")}
     require(live_labels <= set(ptxas),
-            "a live-ray walk (K2/K3, K5, K7, K8) or its counting form was not compiled")
+            "a standalone walk (K2/K3, K5, K6, K7, K8) or its counting form was "
+            "not compiled")
     # ext.ptxas_summary labels the kernels of this tree's templates; any
-    # other kernel (a standalone walk outside the live-ray template) keeps
-    # its mangled name
+    # other kernel (a standalone walk outside the two templates) keeps its
+    # mangled name
     stray = sorted(k for k in ptxas if k.startswith("_Z"))
     require(not stray, f"kernels outside this tree's templates were compiled: {stray}")
     # K4's continuation: the plain and K9 forms, each with its counting form
@@ -1411,30 +1421,49 @@ def main() -> int:
         f"(MB = 2^20 bytes); host pack {pack_s:.2f} s; tiered {fws.tiered}: "
         f"{fws.tre_inner.shape[0]} treelets x {fws.tre_inner.shape[1]} rows, top "
         f"{fws.top_table.shape[0]} rows, top depth {fws.top_depth}, deepest treelet "
-        f"{fws.treelet_depth}, treelet tables {tre_mb:.2f} MB")
+        f"{fws.treelet_depth}, treelet tables {tre_mb:.2f} MB; K8's one stack "
+        f"needs {walk.tiered_stack_need(fws.top_depth, fws.treelet_depth)} of "
+        f"{2 * walk.STACK_DEPTH} entries")
     require(fws.tiered, "the field did not pack tiered (no treelet view)")
 
     # ---- 10 K8 vs plain and vs K2/K3 on the whole tree, 1080p field rays ----
     ext.reset_launches()
     fo, fd = primary_rays(1920, 1080, fcam)
     fact = torch.ones(fo.shape[0], dtype=torch.bool, device=dev)
-    fhit = walk.closest_hit_tiered(fws, fo, fd, fact)
-    (pt, ptri, _pc, _pm), p8_ms, k8_work = counted(
+    k8_out = walk.closest_walk_tiered(fws, fo, fd, fact)
+    fhit = walk.decode_hit(fws, fo, fd, *k8_out)
+    p8_out, p8_ms, k8_work = counted(
         lambda w: walk.tiered_closest_walk_reference(fws, fo, fd, fact, work=w),
         torch, walk)
+    pt, ptri = p8_out[0], p8_out[1]
     same, t_rel, k8_err = hits_agree(fhit.t, fhit.tri, pt, ptri)
+    k8_exact = all(bool(torch.equal(a, b)) for a, b in zip(k8_out, p8_out))
     k8_ms = cuda_ms(lambda: walk.closest_walk_tiered(fws, fo, fd, fact), 10, torch)
     whit = walk.closest_hit_bvh2(fws, fo, fd, fact)
     same2, t_rel2, _ = hits_agree(fhit.t, fhit.tri, whit.t, whit.tri)
     k2f_ms = cuda_ms(lambda: walk.closest_walk(fws, fo, fd, fact), 10, torch)
     say(f"[10 K8] closest vs plain, field 1080p primary: same tri {same * 100:.4f}%, "
-        f"t max rel err {t_rel:.3e}, hits {int(fhit.found.sum())}; {k8_ms:.3f} ms vs "
-        f"plain {p8_ms:.2f} ms")
+        f"t max rel err {t_rel:.3e}, bit for bit (t, tri, cross, menc) {k8_exact}, "
+        f"hits {int(fhit.found.sum())}; {k8_ms:.3f} ms vs plain {p8_ms:.2f} ms")
     say(f"[10 K8] closest vs K2 on the whole tree: same tri {same2 * 100:.4f}%, "
         f"t max rel err {t_rel2:.3e}; K2 {k2f_ms:.3f} ms")
     require(same >= 0.9999, "K8 tri agreement with plain < 99.99%")
     require(t_rel <= 1e-5, "K8 t rtol > 1e-5")
+    require(k8_exact, "K8 closest differs from its plain version")
     require(same2 >= 0.9999, "K8 tri agreement with K2 < 99.99%")
+    # the counting K8 (a diagnostic off the main path): the same results,
+    # and the share of a warp's lanes that take each step of the node loop
+    c8_out, l8_act, l8_slots = walk.live_lane_counts(fws, fo, fd, fact, kind="tiered")
+    require(all(bool(torch.equal(a, b)) for a, b in zip(c8_out, k8_out)),
+            "the counting K8 found other hits")
+    k8_lanes = l8_act / l8_slots
+    k8_budget = {f: walk.live_budget(f) for f in ("closest_tiered", "shadow_tiered")}
+    say(f"[10 K8] closest walk-loop lane utilisation {k8_lanes:.4f} ({l8_act} of "
+        f"{l8_slots}); budget {k8_budget} (ptxas: "
+        + "; ".join(f"{m} {ptxas.get(f'live_walk_kernel<{m},TieredWalk>')}"
+                    for m in ("closest", "shadow")) + ")")
+    require(all(b["threads"] == 128 and b["regs"] <= 64 and b["warps_per_sm"] >= 32
+                for b in k8_budget.values()), "K8's budget")
     k8s_err = 0.0
     for i, (so, sd, sm, sa) in enumerate(shadow_rays(fws, fhit)):
         kv, kr = walk.shadow_walk_tiered(fws, so, sd, sm, sa)
@@ -1446,13 +1475,20 @@ def main() -> int:
         k3f_ms = cuda_ms(lambda: walk.shadow_walk_bvh2(fws, so, sd, sm, sa), 10, torch)
         err, err3 = (kv - pv).abs().max().item(), (kv - wv).abs().max().item()
         k8s_err = max(k8s_err, err)
-        if i == 0:
+        if i == 0:  # the point light
             k8s_ms, p8s_ms, k8s_work = kms, pms, work
+            cv, a_, sl_ = walk.live_lane_counts(fws, so, sd, sa, kind="tiered",
+                                                max_dist=sm)
+            require(bool(torch.equal(cv, kv)), "the counting K8 shadow walk differs")
+            k8s_lanes = a_ / sl_
+            say(f"[10 K8] shadow walk-loop lane utilisation, light 0: "
+                f"{k8s_lanes:.4f} ({a_} of {sl_})")
         say(f"[10 K8] shadow vs plain, field 1080p light {i}: vis max abs err "
             f"{err:.3e} (vs K3 on the whole tree {err3:.3e}), {int(kr)} rays, "
             f"{int((kv < 1).sum())} shadowed; {kms:.3f} ms vs plain {pms:.2f} ms, "
             f"K3 {k3f_ms:.3f} ms")
         require(err <= 1e-5, "K8 shadow vis atol > 1e-5")
+        require(bool(torch.equal(kv, pv)), "K8 shadow vis differs from its plain version")
         require(err3 <= 1e-5, "K8 shadow vis differs from K3 on the whole tree")
     k8_standalone = dict(ext.LAUNCHES)
     require(k8_standalone["closest_hit_tiered"] >= 1
@@ -1486,6 +1522,10 @@ def main() -> int:
     require(s_tw >= 0.995 and diff.mean().item() < 2e-3, "tiered vs whole-tree K1 image")
     require(abs(int(trays) - int(wrays)) <= 0.001 * int(wrays),
             "tiered vs whole-tree K1 rays")
+    # the walks find the same hits and visibilities through either view, so
+    # the frames are equal bit for bit
+    require(bool(torch.equal(tcol, wcol)) and int(trays) == int(wrays),
+            "the tiered K1's frame is not the whole-tree K1's bit for bit")
     k1t_1080_ms = cuda_ms(lambda: megakernel.sample_wave(
         fws, fcfg, fuv, fact, fcam, 0, 0, 5, 4), 3, torch)
     k1w_1080_ms = cuda_ms(lambda: megakernel.sample_wave(
@@ -1502,6 +1542,8 @@ def main() -> int:
         f"{int(lr)} vs {int(trays)}")
     require(torch.equal(lc, tcol) and int(lr) == int(trays),
             "the counting tiered K1 rendered another frame")
+    say(f"[11 tiered K1] budget {budget['tiered']} (ptxas regen_kernel<TieredWalk>: "
+        f"{ptxas.get('regen_kernel<TieredWalk>')})")
 
     # ---- 12 field path: render_radiance_with_stats on the tiered K1 ----
     img, rays = render_radiance_with_stats(farrays, fcam, fcfg)  # warm-up
@@ -1555,6 +1597,10 @@ def main() -> int:
     say("[12 field path] in turns: " + "; ".join(
         f"{name} median {statistics.median(ts):.2f} ms ({', '.join(f'{t:.2f}' for t in ts)}), "
         f"rays {sorted(ab_rays[name])}" for name, ts in ab.items()))
+    field_turns = {k: statistics.median(v) for k, v in ab.items()}
+    say(f"[12 field path] the tiered view {'beats' if field_turns['tiered'] < field_turns['whole'] else 'loses to'} "
+        f"the whole tree (tiered='off') on this card: "
+        f"{field_turns['tiered'] / field_turns['whole']:.3f}x")
 
     def split_kernels(ws, cfg, uv, act, cam, tag):
         """K4's phase 1, the compaction and the continuation of one sample,
@@ -1938,9 +1984,12 @@ def main() -> int:
         return {k: statistics.median(v) for k, v in ab_.items()}
 
     def knob_phase(tag, knobs, kernel, closest, plain_closest, shadow,
-                   plain_shadow, k1_name, forms):
+                   plain_shadow, k1_name, forms, walk_kind=None):
         # k1_name: the launch count of the knob's K1 instantiation; forms:
-        # the budget names of it and of its K9 form
+        # the budget names of it and of its K9 form; walk_kind: the
+        # standalone walk's kind for its counting form and budget
+        # (walk.live_lane_counts, walk.LIVE_FORMS), where it has them, and
+        # then it must equal its plain version bit for bit
         """Phases 16 (K5) and 17 (K6): the standalone walks against their
         plain versions and against K2/K3 at the demo's 1080p rays, the K1
         form and its K9 form against their plain versions, their budgets and
@@ -1950,12 +1999,32 @@ def main() -> int:
         out = {}
         ext.reset_launches()
         # the closest walk at the 1080p primary rays
-        kt, ktri, _kc, _km = closest(mws, mo, md_, mact)
-        (pt_, ptri_, _pc, _pm), p_ms, c_work = counted(
+        k_out = closest(mws, mo, md_, mact)
+        kt, ktri = k_out[0], k_out[1]
+        p_out, p_ms, c_work = counted(
             lambda w: plain_closest(mws, mo, md_, mact, work=w), torch, walk)
+        pt_, ptri_ = p_out[0], p_out[1]
         c_ms = cuda_ms(lambda: closest(mws, mo, md_, mact), 10, torch)
         same, t_rel, t_abs = hits_agree(kt, ktri, pt_, ptri_)
-        exact = bool(torch.equal(kt, pt_) and torch.equal(ktri, ptri_))
+        exact = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+        walk_stats = {}
+        if walk_kind:
+            require(exact, f"{kernel} closest differs from its plain version")
+            c_o, a_, sl_ = walk.live_lane_counts(mws, mo, md_, mact, kind=walk_kind,
+                                                 width=1920, height=1080)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(c_o, k_out)),
+                    f"the counting {kernel} found other hits")
+            walk_stats = dict(budget={m: walk.live_budget(f"{m}_{walk_kind}")
+                                      for m in ("closest", "shadow")},
+                              closest_lanes=a_ / sl_)
+            say(f"[{tag}] {kernel} standalone budget {walk_stats['budget']} "
+                f"(ptxas: " + "; ".join(
+                    f"{m} {ptxas.get(f'{walk_kind}_walk_kernel<{m}>')}"
+                    for m in ("closest", "shadow")) + f"); closest walk-loop lane "
+                f"utilisation {a_ / sl_:.4f} ({a_} of {sl_})")
+            require(all(b["threads"] == 128 and b["regs"] <= 64
+                        and b["warps_per_sm"] >= 32
+                        for b in walk_stats["budget"].values()), f"{kernel}'s budget")
         h2 = mhit.tri >= 0
         t_eq = bool(torch.equal(kt[h2], mhit.t[h2]))
         other = (ktri != mhit.tri) & h2
@@ -1987,6 +2056,7 @@ def main() -> int:
             f"(in turns: {', '.join(f'{t:.3f}' for t in i_ms)}); t bit-equal on the rays "
             f"K2 hits {bool(torch.equal(ik[0][ih], i2[0][ih]))}, other triangle on "
             f"{int(((ik[1] != i2[1]) & ih).sum())}")
+        out["walk"] = walk_stats
         out["closest"] = dict(ms=c_ms, plain_ms=p_ms, work=c_work, err=t_abs,
                               ties=ties, extra=extra,
                               incoherent_ms=(i_ms[1] + i_ms[2]) / 2,
@@ -2006,8 +2076,20 @@ def main() -> int:
             e_3 = (kv - v3).abs()[lit].max().item() if lit.any() else 0.0
             m_3 = bool(torch.equal(lit, v3 > 0.05))
             s_err = max(s_err, e_p)
+            if walk_kind:
+                require(bool(torch.equal(kv, pv)),
+                        f"{kernel} shadow differs from its plain version (light {i})")
             if i == 0:  # the point light
                 out["shadow"] = dict(ms=kms, plain_ms=pms, work=work)
+                if walk_kind:
+                    cv, a_, sl_ = walk.live_lane_counts(
+                        mws, so, sd, sa, kind=walk_kind, max_dist=sm, width=1920,
+                        height=1080)
+                    require(bool(torch.equal(cv, kv)),
+                            f"the counting {kernel} shadow walk differs")
+                    walk_stats["shadow_lanes"] = a_ / sl_
+                    say(f"[{tag}] {kernel} shadow walk-loop lane utilisation, light "
+                        f"0: {a_ / sl_:.4f} ({a_} of {sl_})")
             say(f"[{tag}] {kernel} shadow, 1080p light {i}: vis max abs err vs plain "
                 f"{e_p:.3e}; vis > 0.05 mask equal to K3's {m_3}, max abs err vs K3 "
                 f"where > 0.05 {e_3:.3e}; {int(kr)} rays, {int(lit.sum())} lit; "
@@ -2115,10 +2197,15 @@ def main() -> int:
                     walk.wide_shadow_walk_reference, "sample_wave_wide",
                     ("wide", "wide_octant"))
     # ---- 17 K6: the frustum primary walk ----
+    # (the standalone K6 on the 1080p waves in K1's warp tiles, its packets)
+    frame = dict(width=1920, height=1080)
     k6 = knob_phase("17 K6", dict(frustum_primary=True), "K6",
-                    walk.closest_walk_frustum, walk.frustum_closest_walk_reference,
-                    walk.shadow_walk_frustum, walk.frustum_shadow_walk_reference,
-                    "sample_wave_frustum", ("frustum", "frustum_octant"))
+                    functools.partial(walk.closest_walk_frustum, **frame),
+                    functools.partial(walk.frustum_closest_walk_reference, **frame),
+                    functools.partial(walk.shadow_walk_frustum, **frame),
+                    functools.partial(walk.frustum_shadow_walk_reference, **frame),
+                    "sample_wave_frustum", ("frustum", "frustum_octant"),
+                    walk_kind="frustum")
     # the frustum phase 1 of the split path, vs plain at 256x192 and driven
     # once through the entry point at 1080p/4 spp against K1's frame
     ext.reset_launches()
@@ -2507,6 +2594,8 @@ def main() -> int:
                              "pallas-nomega": {"closest_hit_frustum", "closest_hit_bvh2",
                                                "shadow_walk_bvh2"},
                              "xla": set()}[kn], f"{kn} launches")
+        if kn == "pallas-nomega":  # K6 takes each sample's primary wave
+            require(got["closest_hit_frustum"] == spp_, "pallas-nomega's K6 launches")
 
     inside_k1 = "device function inside K1 (csrc/walk.cuh, called by csrc/sample_kernel.cu)"
     inside_k1t = ("device function inside the tiered K1 (csrc/walk.cuh, called by "
@@ -2550,6 +2639,7 @@ def main() -> int:
         inside = (f"device function inside the {k1_name} instantiation of K1 "
                   f"(csrc/{source_cuh}, called by csrc/sample_kernel.cu)")
         c, sh, k1, ko = out["closest"], out["shadow"], out["k1"], out["k1_octant"]
+        wk = out["walk"]  # the standalone walk's lanes and budget, where counted
         return [
             row(f"{kn} {closest_name}", "walk_kernels.cu", replaces[0],
                 out["launches"][closest_name], c["err"], c["ms"], c["plain_ms"],
@@ -2558,12 +2648,16 @@ def main() -> int:
                 k2_same_rays_ms=k2_ms, exact_t_ties=c["ties"],
                 hits_k2_lacks=c["extra"], incoherent_rays_ms=c["incoherent_ms"],
                 k2_incoherent_rays_ms=c["k2_incoherent_ms"],
-                shape="demo 1080p primary rays"),
+                shape="demo 1080p primary rays",
+                walk_lane_utilisation=wk.get("closest_lanes"),
+                budget=wk.get("budget", {}).get("closest")),
             row(f"{kn} {shadow_name}", "walk_kernels.cu", replaces[1],
                 out["launches"][shadow_name], sh["err"], sh["ms"], sh["plain_ms"],
                 sh["work"], tables_b + R * 33, on_main_path=inside,
                 standalone_launches=out["standalone"][shadow_name],
-                k3_same_rays_ms=k3_ms, shape="demo 1080p shadow rays, point light"),
+                k3_same_rays_ms=k3_ms, shape="demo 1080p shadow rays, point light",
+                walk_lane_utilisation=wk.get("shadow_lanes"),
+                budget=wk.get("budget", {}).get("shadow")),
             row(f"{kn} {k1_name}", "sample_kernel.cu", replaces[2],
                 out["launches"][k1_name], k1["err"], k1["ms"], k1["plain_ms"],
                 k1["work"], k1_tab + R * sample_b,
@@ -2623,13 +2717,16 @@ def main() -> int:
             k8_err, k8_ms, p8_ms, k8_work, ftab - cam_b + R * 49,
             on_main_path=inside_k1t,
             standalone_launches=k8_standalone["closest_hit_tiered"],
-            k2_whole_tree_ms=k2f_ms, shape="field 1080p primary rays"),
+            k2_whole_tree_ms=k2f_ms, shape="field 1080p primary rays",
+            schedule="one node loop over both levels, one tagged stack",
+            walk_lane_utilisation=k8_lanes, budget=k8_budget["closest_tiered"]),
         row("K8 shadow_walk_tiered", "walk_kernels.cu",
             "rayzen_tpu/ops/pallas_traverse.py:879", flaunches["shadow_walk_tiered"],
             k8s_err, k8s_ms, p8s_ms, k8s_work, ftab - cam_b + R * 33,
             on_main_path=inside_k1t,
             standalone_launches=k8_standalone["shadow_walk_tiered"],
-            shape="field 1080p shadow rays, point light"),
+            shape="field 1080p shadow rays, point light",
+            walk_lane_utilisation=k8s_lanes, budget=k8_budget["shadow_tiered"]),
         row("K4 sample_wave_phase1", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:981", xlaunches["sample_wave_phase1"],
             k4_err, ph1_ms, pph1_ms, ph1_work, mtab + R * (sample_b + state_b),

@@ -6,9 +6,10 @@
 // The Pallas walk moves a packet of 4096 rays through the tree with scalar
 // interval tests against the packet's frustum (per-axis origin and
 // inverse-direction intervals); rays do work only at leaves, with no box test
-// of their own. Here the packet is a warp: its active lanes' rays (in the
-// standalone walks and K4's phase 1, 32 consecutive ray ids, ray i on thread
-// i; in K1's K6 forms, the warp's 8 x 4 pixel tile). Every lane runs the
+// of their own. Here the packet is a warp: its active lanes' rays, the
+// warp's 8 x 4 pixel tile of K1's map (common.cuh tile_pixel) in K1's K6
+// forms, K4's phase 1 and, on a whole-frame wave, the standalone walks (32
+// consecutive ray ids on any other wave). Every lane runs the
 // same scalar node loop over one stack, so every branch below that depends
 // only on node data is warp-uniform; leaves are tested per lane. Lanes that
 // are out of range or inactive stay in the loop
@@ -27,10 +28,9 @@
 // Every lane of the warp must call these (``on`` false for a lane without a
 // ray): the shuffles name the full warp.
 //
-// The packet's stack is warp-uniform. The standalone walks and K4's phase 1
-// keep a copy of it in every lane's local memory (LocalStack); K1's K6
-// forms keep one copy per warp in shared memory (SharedStack), which frees
-// the 32 copies' local memory under their 64-register budget.
+// The packet's stack is warp-uniform: one copy per warp in shared memory
+// (SharedStack), which frees the 32 copies of a per-lane stack (256 B of
+// local memory a lane) under the kernels' 64-register budget.
 //
 // What bounds it on an H100: the same dependent loads as the BVH2 walk, but
 // one node sequence per warp instead of 32 divergent ones, and per node two
@@ -114,19 +114,12 @@ RZ_DEV bool frustum_box(const Frustum& f, const float* b, float t_bound,
   return exit_hi >= fmaxf(entry, 0.0f) && entry <= t_bound;
 }
 
-// The packet stacks: get(k) reads entry k and set(k, v) writes it; every
-// lane calls both with the same k and v (the walk's control flow is
-// warp-uniform). sync() comes between a step's pop and its pushes.
-struct LocalStack {  // a copy in every lane's local memory
-  int s[STACK_DEPTH];
-  RZ_DEV int get(int k) const { return s[k]; }
-  RZ_DEV void set(int k, int v) { s[k] = v; }
-  RZ_DEV void sync() const {}
-};
-
-// One copy per warp in shared memory (STACK_DEPTH ints). Every lane writes
-// the same values, so a lane reads its own writes; the sync keeps one lane's
-// pushes from overwriting an entry before another lane has popped it.
+// The packet stack, one copy per warp in shared memory (STACK_DEPTH ints):
+// get(k) reads entry k and set(k, v) writes it; every lane calls both with
+// the same k and v (the walk's control flow is warp-uniform), so a lane
+// reads its own writes. sync() comes between a step's pop and its pushes: it
+// keeps one lane's pushes from overwriting an entry before another lane has
+// popped it.
 struct SharedStack {
   int* s;
   RZ_DEV int get(int k) const { return s[k]; }
@@ -180,28 +173,23 @@ RZ_DEV void frustum_walk_closest(const Tables& tb, const Ray& r, bool on,
   }
 }
 
-// K6 closest hit from T_FAR with a stack copy in every lane (the standalone
-// walk and K4's phase 1).
-RZ_DEV void frustum_closest(const Tables& tb, const Ray& r, bool on,
-                            HitRec& h) {
-  LocalStack stack;
-  frustum_walk_closest(tb, r, on, h, stack);
-}
-
 // K6 transmission visibility (walk_shadow's contract for the lanes that are
-// on; 1 for the others). NaN on stack overflow.
-RZ_DEV float frustum_shadow(const Tables& tb, const Ray& r, bool on,
-                            float maxd, float min_vis, float t_eps) {
+// on; 1 for the others) on the packet stack ``stack``, counting its steps
+// with ``cnt``. NaN on stack overflow.
+template <class Stack, class Count = NoCount>
+RZ_DEV float frustum_walk_shadow(const Tables& tb, const Ray& r, bool on,
+                                 float maxd, float min_vis, float t_eps,
+                                 Stack& stack, const Count& cnt = Count{}) {
   float vis = 1.0f;
   Frustum f;
   if (!packet_frustum(r, on, f)) return vis;
   const float maxd_hi = warp_max(on ? maxd : 0.0f);
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
+  stack.set(0, 0);
   int sp = 1;
   float alive = 1.0f;  // the warp's max visibility after the last leaf work
   while (sp > 0) {  // warp-uniform
-    const int node = stack[--sp];
+    cnt.packet(on);
+    const int node = stack.get(--sp);
     float row[16];
     load_inner(tb.inner, node, row);
     float e;
@@ -214,11 +202,13 @@ RZ_DEV float frustum_shadow(const Tables& tb, const Ray& r, bool on,
     if (hr && on) vis = leaf_shadow(tb, rref, r, maxd, t_eps, vis);
     if (hl || hr) alive = warp_max(on ? vis : 0.0f);
     if (!(alive > min_vis)) return vis;
-    // the left child on top
-    if (!push_children(stack, sp, ok_l && !l_leaf, ok_r && !r_leaf, lref,
-                       rref)) {
-      return nan_f();
-    }
+    // the hit internal children, the left on top
+    const bool push_l = ok_l && !l_leaf, push_r = ok_r && !r_leaf;
+    const int npush = (int)push_l + (int)push_r;
+    if (sp + npush > STACK_DEPTH) return nan_f();  // never write past the stack
+    stack.sync();
+    if (push_r) stack.set(sp++, rref);
+    if (push_l) stack.set(sp++, lref);
   }
   return vis;
 }

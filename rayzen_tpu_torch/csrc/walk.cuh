@@ -309,54 +309,88 @@ RZ_DEV float walk_shadow(const Tables& tb, const Ray& r, float maxd,
   return vis;
 }
 
-// K8 over the tiered view, in mode kMode. Per popped top node, as the packet
-// walk (pallas_traverse.py:836-871, :910): both children's boxes are tested
-// against the bound (the best t so far, or maxd), then the left treelet is
-// walked, then the right one (each by walk_bvh2 from the state so far), and
-// only then are the hit internal children pushed, left on top. So a closest
-// ray processes its depth-first walk of the whole tree with the same pruning
-// and finds the whole-tree walk's hit (ties included); a shadow ray
-// multiplies the treelets' transparencies in the whole-tree walk's order and
-// returns as soon as vis drops to min_vis, which gives the packet walk's
-// product (it tests a top node's boxes only for rays still above min_vis
-// and walks the right treelet with what the left one left). Two stacks: this
-// one for the top tree and walk_bvh2's for the treelet; the host checks both
-// depths.
+// K8 over the tiered view, in mode kMode: one node loop over both levels.
+// The packet walk (pallas_traverse.py:836-871, :910), per popped top node,
+// tests both children's boxes against the bound (the best t so far, or
+// maxd), walks the hit left treelet, then the hit right one (each from the
+// state so far), and only then goes on with the hit internal children, left
+// first. So a closest ray processes its depth-first walk of the whole tree
+// with the same pruning and finds the whole-tree walk's hit (ties included);
+// a shadow ray multiplies the treelets' transparencies in the whole-tree
+// walk's order and returns as soon as vis drops to min_vis, which gives the
+// packet walk's product (it tests a top node's boxes only for rays still
+// above min_vis and walks the right treelet with what the left one left).
+//
+// Here both levels share one stack of tagged entries (kTreeletNode) and one
+// step per iteration. A top pop tests both boxes and pushes, as the
+// decisions of that moment, the hit internal children (left on top, as
+// push_children), then the right treelet's root, then the left treelet's
+// root on top; a treelet pop is walk_bvh2's step on the treelet's rows.
+// Every entry of a treelet lies above the roots still pending, so the
+// treelet a local entry belongs to is the one whose root was popped last
+// (``tid``). Each ray so takes exactly the steps of the nested walk (a
+// treelet walked inside its top node's step, pallas_traverse.py's order) in
+// the same order, and a warp whose lanes stand at different levels no longer
+// runs a treelet loop while the top-level lanes wait. The stack holds
+// kTieredStack entries; the most a walk needs is the top depth plus the
+// treelet depth (ops/walk.py check_tiered), which the host checks.
+// Measured against the nested walk (PERF.md §6): the tiered K1's walk-loop
+// lane utilisation 0.43 -> 0.76 on the field, its time 3% lower, K8 alone
+// 10% lower; 80 or 118 registers (RZ_K1_MIN_BLOCKS 6 or 4) lost to 64.
+constexpr int kTieredStack = 2 * STACK_DEPTH;
+
+// A stack entry is a top node (0 <= e < kTreeletNode), a node of the
+// current treelet (kTreeletNode + its local row) or a treelet's root (~tid).
+constexpr int kTreeletNode = 1 << 30;
+
 template <int kMode, class Count>
 RZ_DEV void walk_tiered(const TieredTables& tt, const Ray& r,
                         bool shadow_lane, float min_vis, float t_eps,
                         HitRec& h, float& vis, const Count& cnt) {
   const bool shadow = kMode == kShadow || (kMode == kEither && shadow_lane);
   if (shadow && !(vis > min_vis)) return;
-  int stack[STACK_DEPTH];
-  stack[0] = 0;
+  int stack[kTieredStack];
+  stack[0] = 0;  // the top tree's root
   int sp = 1;
+  int tid = 0;  // the treelet of the local entries on the stack
   while (sp > 0) {
     cnt.step();
-    const int node = stack[--sp];
+    int e = stack[--sp];
+    const bool in_treelet = e < 0 || e >= kTreeletNode;
+    if (e < 0) {  // a treelet's root: its row 0
+      tid = ~e;
+      e = 0;
+    } else if (e >= kTreeletNode) {
+      e -= kTreeletNode;
+    }
     float row[16];
-    load_inner(tt.top, node, row);
+    load_inner(in_treelet ? tt.tre_inner + (size_t)tid * tt.si * 16 : tt.top, e,
+               row);
     float tminl, tminr;
     const bool hitl = slab(r, row, tminl) && (tminl <= h.t);
     const bool hitr = slab(r, row + 6, tminr) && (tminr <= h.t);
     const int lref = (int)row[12], rref = (int)row[13];
     const int lcnt = (int)row[14], rcnt = (int)row[15];
-    // one call site for both treelets keeps a single inlined sub-walk
-#pragma unroll 1
-    for (int side = 0; side < 2; ++side) {
-      if (side == 0 ? (hitl && lcnt == -2) : (hitr && rcnt == -2)) {
-        walk_bvh2<kMode>(tt.treelet(side == 0 ? lref : rref), r, shadow_lane,
-                         min_vis, t_eps, h, vis, cnt);
-      }
+    if (in_treelet) {  // walk_bvh2's leaf work and early exit
+      const Tables tb = tt.treelet(tid);
+      if (hitl && lcnt >= 0) leaf_walk<kMode>(tb, lref, r, shadow, t_eps, h, vis);
+      if (hitr && rcnt >= 0) leaf_walk<kMode>(tb, rref, r, shadow, t_eps, h, vis);
+      if (shadow && !(vis > min_vis)) return;
     }
-    // a closest ray stops on a treelet's overflow (t NaN); a shadow ray once
-    // vis <= min_vis, which a NaN from an overflow also is
-    if (shadow ? !(vis > min_vis) : isnan(h.t)) return;
-    if (!push_children(stack, sp, hitl && lcnt == -1, hitr && rcnt == -1,
-                       lref, rref)) {
+    // the pushes, bottom to top: right internal, left internal, right
+    // treelet root, left treelet root (a treelet row has count -1 or a leaf)
+    const int tag = in_treelet ? kTreeletNode : 0;
+    const bool push_ri = hitr && rcnt == -1, push_li = hitl && lcnt == -1;
+    const bool push_rt = hitr && rcnt == -2, push_lt = hitl && lcnt == -2;
+    if (sp + (int)push_ri + (int)push_li + (int)push_rt + (int)push_lt >
+        kTieredStack) {  // never write past the stack
       poison(h, vis);
       return;
     }
+    if (push_ri) stack[sp++] = rref + tag;
+    if (push_li) stack[sp++] = lref + tag;
+    if (push_rt) stack[sp++] = ~rref;
+    if (push_lt) stack[sp++] = ~lref;
   }
 }
 

@@ -21,9 +21,10 @@
 // registers for 32 resident warps per SM.
 // K6 replaces ::_make_closest_kernel_frustum (:1093) and
 // ::_make_shadow_kernel_frustum (:1191), launched by
-// pallas_closest_hit_frustum (:1361) and pallas_shadow_walk_frustum (:1370);
-// its packet is a warp of 32 consecutive rays, so every thread of a
-// launched block stays to the end.
+// pallas_closest_hit_frustum (:1361) and pallas_shadow_walk_frustum (:1370):
+// the primary walk of kernels="pallas-nomega". Its kernel,
+// frustum_walk_kernel, takes the same map and budget, but its packet is a
+// warp: every lane of a warp with a live slot stays to the end.
 // The walks themselves (and what bounds them on the card) are in walk.cuh
 // and frustum.cuh. These kernels add only the per-ray loads and stores:
 // rays are (R, 3) rows, read once, so the launch is latency-bound like the
@@ -34,8 +35,6 @@
 #include "frustum.cuh"
 
 namespace {
-
-constexpr int kBlock = 128;  // K6's blocks
 
 // ---- the live rays only: K2, K3, K5, K7, K8 ----
 //
@@ -180,53 +179,86 @@ int launch_shadow(Walk w, const float* orig, const float* dir,
                                          t_eps, stream);
 }
 
-// K6: every thread of the block stays (the frustum's shuffles name the whole
-// warp); threads past n are lanes without a ray
-__global__ void closest_frustum_kernel(rz::Tables tb,
-                                       const float* __restrict__ orig,
-                                       const float* __restrict__ dir,
-                                       const uint8_t* __restrict__ act, int n,
-                                       float* __restrict__ t_out,
-                                       int* __restrict__ tri_out,
-                                       float* __restrict__ cross_out,
-                                       float* __restrict__ menc_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n && act[i] != 0;
-  rz::HitRec h{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
-  rz::Ray r{};
-  if (on) {
-    r = rz::make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
-                     dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
+// ---- K6: the packet walks over the wave's warp tiles ----
+//
+// The packet is a warp of the same map as the live-ray walks' (wave_slot:
+// K1's 8 x 4 warp tiles on a whole-frame wave, 32 consecutive slots on any
+// other), so a frame's packet is the compact tile whose frustum K1's K6
+// forms walk, not a 32 x 1 strip of a row. Its stack is one copy per warp
+// in shared memory (frustum.cuh SharedStack). Every lane of a warp with a
+// live slot stays to the end (the frustum's shuffles name the whole warp);
+// a warp with none stores its slots' results (as an inactive slot's below)
+// and retires at once. The same budget as the live-ray walks: 128 x 8.
+// Measured against 32 x 1 strips with a per-lane stack and no budget
+// (PERF.md §6): 5-6% faster at the demo's 1080p waves, where every lane of
+// a packet takes every step; 70 registers (RZ_LIVE_MIN_BLOCKS 6) tied.
+template <int kMode, class Count>
+__global__ void __launch_bounds__(kLiveThreads, RZ_LIVE_MIN_BLOCKS)
+    frustum_walk_kernel(rz::Tables tb, WaveIO io, int n, int width,
+                        int height, float min_vis, float t_eps) {
+  __shared__ int stacks[(kLiveThreads / 32) * rz::STACK_DEPTH];
+  const int i = wave_slot((long long)blockIdx.x * kLiveThreads + threadIdx.x,
+                          n, width, height);
+  const bool on = i >= 0 && io.act[i] != 0;
+  // an inactive slot's result (the packet walks give a lane without a ray
+  // none of its own): t = T_FAR, tri = -1 (closest); vis = 1 (shadow)
+  const rz::HitRec none{rz::T_FAR, -1, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (__ballot_sync(rz::kFullMask, on) == 0u) {
+    if (i >= 0) store_result<kMode>(io, i, none, 1.0f);
+    return;
   }
-  rz::frustum_closest(tb, r, on, h);
-  if (i >= n) return;
-  t_out[i] = h.t;
-  tri_out[i] = h.tri;
-  cross_out[3 * i] = h.cx;
-  cross_out[3 * i + 1] = h.cy;
-  cross_out[3 * i + 2] = h.cz;
-  menc_out[i] = h.menc;
+  rz::SharedStack stack{stacks + (threadIdx.x >> 5) * rz::STACK_DEPTH};
+  rz::Ray r{};
+  float maxd = 0.0f;
+  if (on) {
+    r = rz::make_ray(io.orig[3 * i], io.orig[3 * i + 1], io.orig[3 * i + 2],
+                     io.dir[3 * i], io.dir[3 * i + 1], io.dir[3 * i + 2]);
+    if constexpr (kMode == rz::kShadow) maxd = io.maxd[i];
+  }
+  rz::HitRec h = none;
+  float vis = 1.0f;
+  if constexpr (kMode == rz::kClosest) {
+    rz::frustum_walk_closest(tb, r, on, h, stack, Count{});
+  } else {
+    vis = rz::frustum_walk_shadow(tb, r, on, maxd, min_vis, t_eps, stack,
+                                  Count{});
+  }
+  if (i >= 0) store_result<kMode>(io, i, on ? h : none, on ? vis : 1.0f);
 }
 
-__global__ void shadow_frustum_kernel(rz::Tables tb,
-                                      const float* __restrict__ orig,
-                                      const float* __restrict__ dir,
-                                      const float* __restrict__ maxd,
-                                      const uint8_t* __restrict__ act, int n,
-                                      float min_vis, float t_eps,
-                                      float* __restrict__ vis_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n && act[i] != 0;
-  rz::Ray r{};
-  float md = 0.0f;
-  if (on) {
-    r = rz::make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
-                     dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
-    md = maxd[i];
+template <int kMode, class Count>
+int launch_frustum(const rz::Tables& tb, const WaveIO& io, int n, int width,
+                   int height, float min_vis, float t_eps, void* stream) {
+  if (n > 0) {
+    frustum_walk_kernel<kMode, Count>
+        <<<(wave_positions(n, width, height) + kLiveThreads - 1) / kLiveThreads,
+           kLiveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            tb, io, n, width, height, min_vis, t_eps);
   }
-  // inactive rays report 1 (pallas_shadow_walk_frustum)
-  const float vis = rz::frustum_shadow(tb, r, on, md, min_vis, t_eps);
-  if (i < n) vis_out[i] = vis;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Count = rz::NoCount>
+int launch_frustum_closest(const rz::Tables& tb, const float* orig,
+                           const float* dir, const uint8_t* act, int n,
+                           int width, int height, float* t_out, int* tri_out,
+                           float* cross_out, float* menc_out, void* stream) {
+  const WaveIO io{orig,  dir,     nullptr,   nullptr,  act,
+                  t_out, tri_out, cross_out, menc_out, nullptr};
+  return launch_frustum<rz::kClosest, Count>(tb, io, n, width, height, 0.0f,
+                                             0.0f, stream);
+}
+
+template <class Count = rz::NoCount>
+int launch_frustum_shadow(const rz::Tables& tb, const float* orig,
+                          const float* dir, const float* maxd,
+                          const uint8_t* act, int n, int width, int height,
+                          float min_vis, float t_eps, float* vis_out,
+                          void* stream) {
+  const WaveIO io{orig,    dir,     maxd,    nullptr, act,
+                  nullptr, nullptr, nullptr, nullptr, vis_out};
+  return launch_frustum<rz::kShadow, Count>(tb, io, n, width, height, min_vis,
+                                            t_eps, stream);
 }
 
 }  // namespace
@@ -278,25 +310,39 @@ int rz_shadow_bvh2_count(RZ_BVH2_SHADOW_ARGS) {
 }
 
 // K8 and K5 (the harness launchers): linear waves
-int rz_closest_tiered(const float* top, const float* tre_inner,
-                      const float* tre_leaf, int si, int sl, int leaf_w,
-                      int leaf_k, const float* orig, const float* dir,
-                      const uint8_t* act, int n, float* t_out, int* tri_out,
-                      float* cross_out, float* menc_out, void* stream) {
-  const rz::TieredWalk w{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}};
-  return launch_closest(w, orig, dir, act, nullptr, n, 0, 0, t_out, tri_out,
-                        cross_out, menc_out, stream);
+#define RZ_K8_CLOSEST_ARGS                                                  \
+  const float *top, const float *tre_inner, const float *tre_leaf, int si, \
+      int sl, int leaf_w, int leaf_k, const float *orig, const float *dir, \
+      const uint8_t *act, int n, float *t_out, int *tri_out,               \
+      float *cross_out, float *menc_out, void *stream
+#define RZ_K8_SHADOW_ARGS                                                   \
+  const float *top, const float *tre_inner, const float *tre_leaf, int si, \
+      int sl, int leaf_w, int leaf_k, const float *orig, const float *dir, \
+      const float *maxd, const uint8_t *act, int n, float min_vis,         \
+      float t_eps, float *vis_out, void *stream
+#define RZ_K8_POLICY \
+  rz::TieredWalk { { top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k } }
+
+int rz_closest_tiered(RZ_K8_CLOSEST_ARGS) {
+  return launch_closest(RZ_K8_POLICY, orig, dir, act, nullptr, n, 0, 0, t_out,
+                        tri_out, cross_out, menc_out, stream);
 }
 
-int rz_shadow_tiered(const float* top, const float* tre_inner,
-                     const float* tre_leaf, int si, int sl, int leaf_w,
-                     int leaf_k, const float* orig, const float* dir,
-                     const float* maxd, const uint8_t* act, int n,
-                     float min_vis, float t_eps, float* vis_out,
-                     void* stream) {
-  const rz::TieredWalk w{{top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k}};
-  return launch_shadow(w, orig, dir, maxd, act, n, 0, 0, min_vis, t_eps,
-                       vis_out, stream);
+int rz_shadow_tiered(RZ_K8_SHADOW_ARGS) {
+  return launch_shadow(RZ_K8_POLICY, orig, dir, maxd, act, n, 0, 0, min_vis,
+                       t_eps, vis_out, stream);
+}
+
+// The counting K8 (as the counting K2 / K3).
+int rz_closest_tiered_count(RZ_K8_CLOSEST_ARGS) {
+  return launch_closest<rz::LaneCount>(RZ_K8_POLICY, orig, dir, act, nullptr,
+                                       n, 0, 0, t_out, tri_out, cross_out,
+                                       menc_out, stream);
+}
+
+int rz_shadow_tiered_count(RZ_K8_SHADOW_ARGS) {
+  return launch_shadow<rz::LaneCount>(RZ_K8_POLICY, orig, dir, maxd, act, n, 0,
+                                      0, min_vis, t_eps, vis_out, stream);
 }
 
 int rz_closest_bvh8(const float* inner8, const float* leaf8, int leaf_w,
@@ -317,31 +363,37 @@ int rz_shadow_bvh8(const float* inner8, const float* leaf8, int leaf_w,
                        vis_out, stream);
 }
 
-int rz_closest_frustum(const float* inner, const float* leaf, int leaf_w,
-                       int leaf_k, const float* orig, const float* dir,
-                       const uint8_t* act, int n, float* t_out, int* tri_out,
-                       float* cross_out, float* menc_out, void* stream) {
-  if (n > 0) {
-    closest_frustum_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        rz::Tables{inner, leaf, leaf_w, leaf_k}, orig, dir, act, n, t_out,
-        tri_out, cross_out, menc_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+// K6 over the BVH2 tables; width x height as K2's (K2's arguments without
+// t_init, K3's)
+#define RZ_K6_CLOSEST_ARGS                                                  \
+  const float *inner, const float *leaf, int leaf_w, int leaf_k,            \
+      const float *orig, const float *dir, const uint8_t *act, int n,       \
+      int width, int height, float *t_out, int *tri_out, float *cross_out,  \
+      float *menc_out, void *stream
+#define RZ_K6_TABLES rz::Tables{inner, leaf, leaf_w, leaf_k}
+
+int rz_closest_frustum(RZ_K6_CLOSEST_ARGS) {
+  return launch_frustum_closest(RZ_K6_TABLES, orig, dir, act, n, width, height,
+                                t_out, tri_out, cross_out, menc_out, stream);
 }
 
-int rz_shadow_frustum(const float* inner, const float* leaf, int leaf_w,
-                      int leaf_k, const float* orig, const float* dir,
-                      const float* maxd, const uint8_t* act, int n,
-                      float min_vis, float t_eps, float* vis_out,
-                      void* stream) {
-  if (n > 0) {
-    shadow_frustum_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        rz::Tables{inner, leaf, leaf_w, leaf_k}, orig, dir, maxd, act, n,
-        min_vis, t_eps, vis_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+int rz_shadow_frustum(RZ_BVH2_SHADOW_ARGS) {
+  return launch_frustum_shadow(RZ_K6_TABLES, orig, dir, maxd, act, n, width,
+                               height, min_vis, t_eps, vis_out, stream);
+}
+
+// The counting K6 (LaneCount at every packet step, which every lane of the
+// warp takes; read with rz_live_walk_lanes): a diagnostic.
+int rz_closest_frustum_count(RZ_K6_CLOSEST_ARGS) {
+  return launch_frustum_closest<rz::LaneCount>(
+      RZ_K6_TABLES, orig, dir, act, n, width, height, t_out, tri_out,
+      cross_out, menc_out, stream);
+}
+
+int rz_shadow_frustum_count(RZ_BVH2_SHADOW_ARGS) {
+  return launch_frustum_shadow<rz::LaneCount>(RZ_K6_TABLES, orig, dir, maxd,
+                                              act, n, width, height, min_vis,
+                                              t_eps, vis_out, stream);
 }
 
 // K7: over ml_nodes / ml_tris; width x height as K2's
@@ -392,7 +444,7 @@ int rz_live_walk_lanes(unsigned long long* out, int reset) {
 }
 
 // The compiled budget (rz::budget_of) of a live-ray walk: 0 K7 closest, 1 K7
-// shadow, 2 K2, 3 K3.
+// shadow, 2 K2, 3 K3, 4 K8 closest, 5 K8 shadow, 6 K6 closest, 7 K6 shadow.
 int rz_live_walk_budget(int form, int* out) {
   using rz::kClosest;
   using rz::kShadow;
@@ -407,6 +459,18 @@ int rz_live_walk_budget(int form, int* out) {
     case 3:
       return rz::budget_of(live_walk_kernel<kShadow, rz::Bvh2Walk, NoCount>,
                            kLiveThreads, out);
+    case 4:
+      return rz::budget_of(live_walk_kernel<kClosest, rz::TieredWalk, NoCount>,
+                           kLiveThreads, out);
+    case 5:
+      return rz::budget_of(live_walk_kernel<kShadow, rz::TieredWalk, NoCount>,
+                           kLiveThreads, out);
+    case 6:
+      return rz::budget_of(frustum_walk_kernel<kClosest, NoCount>, kLiveThreads,
+                           out);
+    case 7:
+      return rz::budget_of(frustum_walk_kernel<kShadow, NoCount>, kLiveThreads,
+                           out);
     default:
       return rz::budget_of(
           live_walk_kernel<kClosest, rz::MisslinkWalk, NoCount>, kLiveThreads,

@@ -16,10 +16,12 @@ wide, tiered and K7 views are not built: deforming frames never walk them.
 
 Stack guard: the port's walks hold ``ops.walk.STACK_DEPTH`` (64) entries
 and pop one node at a time, so a tree of depth D needs D + 1. The LBVH's
-depth is at most 64 by construction and is computed on the device
-(accel/lbvh.py); a frame whose tree is too deep is poisoned with NaN on the
-device, never walked silently. (The JAX package's packet walks hold 128
-entries, so a tree of depth 63 or 64 poisons here and not there.)
+depth is computed on the device (accel/lbvh.py) and is at most 62: Karras'
+delta strictly increases down a path and takes at most 62 values (clz of
+the xor of two distinct 30-bit codes in a 32-bit word, 2-31, else 32 +
+clz of the two indices' xor, 32-63). So the guard, which poisons a frame
+whose tree is too deep with NaN on the device, never fires on an LBVH; it
+keeps a tree of unknown depth from being walked silently.
 """
 
 from __future__ import annotations

@@ -22,7 +22,8 @@ the K9 and K6 forms of both run the warp-tiled lockstep ``sample_kernel``.
 K4's continuation runs ``continuation_kernel`` over the live rays of the
 split, read through the compaction's permutation. The standalone walks
 K2, K3, K5, K7 and K8 run ``live_walk_kernel``, one template over the
-walk, over the live rays of their wave.
+walk, over the live rays of their wave; K6 runs ``frustum_walk_kernel``
+over the same map, a packet per warp.
 
 ``build`` also takes another source tree, output path and ``-D`` defines,
 and ``bind`` loads any such library: scripts/k1_schedule.py builds K1, K4
@@ -75,8 +76,10 @@ LAUNCHES = {
     "closest_hit_bvh2": 0, "shadow_walk_bvh2": 0,
     "closest_hit_bvh2_count": 0, "shadow_walk_bvh2_count": 0,
     "closest_hit_tiered": 0, "shadow_walk_tiered": 0,
+    "closest_hit_tiered_count": 0, "shadow_walk_tiered_count": 0,
     "closest_hit_bvh8": 0, "shadow_walk_bvh8": 0,
     "closest_hit_frustum": 0, "shadow_walk_frustum": 0,
+    "closest_hit_frustum_count": 0, "shadow_walk_frustum_count": 0,
     "closest_hit_misslink": 0, "shadow_walk_misslink": 0,
     "closest_hit_misslink_count": 0, "shadow_walk_misslink_count": 0,
     "sample_wave_phase1_count": 0, "sample_wave_phase1_octant_count": 0,
@@ -156,7 +159,8 @@ def ptxas_summary(log: str) -> dict:
     -Xptxas -v report, keyed "kernel<Walk>" (",octant" for the K9 forms,
     ",frustum" for those with the K6 primary walk, ",count" for the counting
     forms; the standalone walks' kernel is "live_walk_kernel<closest,Walk>"
-    or "<shadow,Walk>")."""
+    or "<shadow,Walk>", K6's "frustum_walk_kernel<closest>" or
+    "<shadow>")."""
     import re
 
     out, cur = {}, None
@@ -167,17 +171,17 @@ def ptxas_summary(log: str) -> dict:
             # every kernel of sample_kernel.cu holds "sample_kernel")
             kernel = next((k for k in ("continuation_kernel", "regen_kernel",
                                        "regen_phase1_kernel", "live_walk_kernel",
-                                       "sample_kernel", "closest_frustum_kernel",
-                                       "shadow_frustum_kernel")
+                                       "frustum_walk_kernel", "sample_kernel")
                            if k in mangled), mangled)
             count = (",count" if "LaneCount" in mangled or "Counted" in mangled
                      else "")
             walk = next((w for w in ("TieredWalk", "Bvh8Walk", "Bvh2Walk",
                                      "MisslinkWalk") if w in mangled), "Bvh2Walk")
-            if kernel == "live_walk_kernel":
+            if kernel in ("live_walk_kernel", "frustum_walk_kernel"):
                 # template <int kMode, ...>: 0 closest, 1 shadow
                 mode = "closest" if f"{kernel}ILi0E" in mangled else "shadow"
-                cur = f"{kernel}<{mode},{walk}{count}>"
+                of = f",{walk}" if kernel == "live_walk_kernel" else ""
+                cur = f"{kernel}<{mode}{of}{count}>"
                 out[cur] = {}
                 continue
             flags = re.findall(r"Lb([01])E", mangled)
@@ -239,6 +243,11 @@ def bind(path: str) -> ctypes.CDLL:
     # min_vis, t_eps, vis, stream
     k2 = [p, p, i, i, p, p, p, p, i, i, i, p, p, p, p, p]
     k3 = [p, p, i, i, p, p, p, p, i, i, i, f, f, p, p]
+    # K6: K2's arguments without t_init, and K3's
+    k6 = [p, p, i, i, p, p, p, i, i, i, p, p, p, p, p]
+    # K8: top, tre_inner, tre_leaf, si, sl, leaf_w, leaf_k, then as K5's
+    k8_closest = [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p]
+    k8_shadow = [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p]
     # K7: nodes, tris, leaf_k, orig, dir, (maxd,) act, n, width, height, ...
     k7_closest = [p, p, i, p, p, p, i, i, i, p, p, p, p, p]
     k7_shadow = [p, p, i, p, p, p, p, i, i, i, f, f, p, p]
@@ -252,16 +261,20 @@ def bind(path: str) -> ctypes.CDLL:
         ("rz_shadow_bvh2_count", k3, i),
         ("rz_closest_bvh8", closest, i),
         ("rz_shadow_bvh8", shadow, i),
-        ("rz_closest_frustum", closest, i),
-        ("rz_shadow_frustum", shadow, i),
+        ("rz_closest_frustum", k6, i),
+        ("rz_shadow_frustum", k3, i),
+        ("rz_closest_frustum_count", k6, i),
+        ("rz_shadow_frustum_count", k3, i),
         ("rz_closest_misslink", k7_closest, i),
         ("rz_shadow_misslink", k7_shadow, i),
         ("rz_closest_misslink_count", k7_closest, i),
         ("rz_shadow_misslink_count", k7_shadow, i),
         ("rz_live_walk_lanes", [p, i], i),
         ("rz_live_walk_budget", [i, p], i),
-        ("rz_closest_tiered", [p, p, p, i, i, i, i, p, p, p, i, p, p, p, p, p], i),
-        ("rz_shadow_tiered", [p, p, p, i, i, i, i, p, p, p, p, i, f, f, p, p], i),
+        ("rz_closest_tiered", k8_closest, i),
+        ("rz_shadow_tiered", k8_shadow, i),
+        ("rz_closest_tiered_count", k8_closest, i),
+        ("rz_shadow_tiered_count", k8_shadow, i),
         ("rz_sample_wave", bvh2 + [p], i),
         ("rz_sample_wave_octant", bvh2 + [p], i),
         ("rz_sample_wave_tiered", tiered + [p], i),

@@ -100,7 +100,8 @@ def select_kernels(cfg: RenderConfig, tracer: str = "bvh"):
     check_config(cfg, tracer)
     if tracer == "brute":
         return brute_force_world, shadow_brute, None, False
-    # the live-ray walks take a whole frame's wave in K1's warp tiles
+    # the live-ray walks take a whole frame's wave in K1's warp tiles, and
+    # the frustum walk its packets as those tiles
     frame = dict(width=cfg.width, height=cfg.height)
     if cfg.kernels == "pallas-ml":  # the miss-link kernels (K7)
         return (functools.partial(walk.closest_hit_misslink, **frame),
@@ -111,7 +112,8 @@ def select_kernels(cfg: RenderConfig, tracer: str = "bvh"):
     if cfg.kernels == "pallas-bvh2":  # K2 / K3
         return (*bvh2, None, False)
     if cfg.kernels == "pallas-nomega":  # the frustum walk for the primary hit
-        return (*bvh2, walk.closest_hit_frustum, False)
+        return (*bvh2, functools.partial(walk.closest_hit_frustum, **frame),
+                False)
     if cfg.kernels == "xla":
         return None, None, None, False
     return None, None, None, True  # "auto", "pallas": K1

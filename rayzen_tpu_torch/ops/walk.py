@@ -19,18 +19,18 @@ the kernels can be held against them on the card. Every kernel but K6's
 walks only the live rays of its wave (and a whole frame's rays in K1's warp
 tiles, when the wrapper is given the frame's width and height); each ray's
 walk is its own, so the order in which a kernel takes them changes no
-result.
+result. K6 takes the same map, and its packets are its warps.
 
 The BVH2 forms walk each ray's own depth-first, left-first path through the
 tables with t pruning, exactly as csrc/walk.cuh does; see there why that
 reproduces the Pallas packet walk's hits. The plain versions carry one stack
 per ray and advance all unfinished rays one node per step; the tiered ones
-walk the flattened treelet tables with each ray's refs offset by its
-treelet's first row, so rays in different treelets share one loop. The wide
+hold top-tree and treelet entries on that one stack, as the kernel does,
+and walk the flattened treelet tables with each ray's refs offset by its
+treelet's first row, so rays at either level share one loop. The wide
 walk does the same over the 8-wide nodes (csrc/walk.cuh says in which
 order). The frustum walk is a packet walk, as csrc/frustum.cuh: one stack
-per packet of ``packet`` consecutive ray ids (a warp on the card), all
-packets advancing one node per step. The miss-link walk needs no stack: a
+per packet (the kernel's warp), all packets advancing one node per step. The miss-link walk needs no stack: a
 ray's state is its node, and all unfinished rays advance one node per step.
 """
 
@@ -106,16 +106,44 @@ def check_depth(ws: WorldArrays) -> None:
     _check_stack("BVH", ws.tree_depth)
 
 
+# The tiered walks hold both levels' entries on one stack of 2 * STACK_DEPTH
+# (csrc/walk.cuh kTieredStack). An entry is a top node (< TREELET_NODE), a
+# node of the ray's current treelet (TREELET_NODE + its local row) or a
+# treelet's root (~tid).
+TREELET_NODE = 1 << 30
+
+
+def tiered_stack_need(top_depth: int, treelet_depth: int) -> int:
+    """The most entries the one stack of the tiered walks (K8) holds, with
+    the top tree ``top_depth`` levels deep and the deepest treelet
+    ``treelet_depth`` (packing.tiered_depths; 0 = unknown, and so is the
+    need). A top node of level l pops with at most l - 1 entries below it
+    (one pending sibling per level above it), pushes its two children
+    (internal nodes or treelet roots) and pops the left one; a treelet's
+    walk from its root then holds at most treelet_depth entries above the
+    l left below. So the need is top_depth + treelet_depth; a walk of the
+    top tree alone holds at most top_depth."""
+    if not (top_depth and treelet_depth):
+        return 0
+    return top_depth + treelet_depth
+
+
 def check_tiered(ws: WorldArrays) -> None:
-    """The tiered walks (K8) need the treelet view, and each of their two
-    stacks (top tree, treelet) its depth + 1 slots."""
+    """The tiered walks (K8) need the treelet view, and their one stack
+    (2 * STACK_DEPTH entries) tiered_stack_need (0 = unknown: the walks then
+    NaN-poison a result whose stack would overflow)."""
     if not ws.tiered:
         raise ValueError(
             "the scene has no treelet view: pack it with tiered='on', or "
             "'auto' past packing.SINGLE_TREE_VMEM_BUDGET"
         )
-    _check_stack("top-tree", ws.top_depth)
-    _check_stack("treelet", ws.treelet_depth)
+    need = tiered_stack_need(ws.top_depth, ws.treelet_depth)
+    if need > 2 * STACK_DEPTH:
+        raise ValueError(
+            f"top-tree depth {ws.top_depth} and treelet depth "
+            f"{ws.treelet_depth} need {need} stack entries; the tiered walks "
+            f"hold {2 * STACK_DEPTH}"
+        )
 
 
 def check_wide(ws: WorldArrays) -> None:
@@ -308,37 +336,40 @@ def _shadow_ops(vis, maxd, min_visibility, t_eps, work=None,
                  lambda ids: ~(vis[ids] > min_visibility), poison, work)
 
 
-def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp, ibase=None,
-          lbase=None):
+def _step(w: _Walk, inner, leaf, K, r_all, ids, stack, sp):
     """One node for each ray of ``ids``: pop it, test both children's boxes,
     run the hit leaf children (left first), push the hit internal children
-    (left on top). ``ibase``/``lbase`` (by ray id) offset the local inner and
-    leaf refs: the ray's treelet in the flattened tiered tables. Returns the
-    rays that stop: by ``w.stop`` (before pushing) or by a stack overflow
-    (poisoned)."""
+    (left on top). Returns the rays that stop: by ``w.stop`` (before
+    pushing) or by a stack overflow (poisoned)."""
     sp_l = sp[ids] - 1
-    node = stack[ids, sp_l]
-    row = inner[node if ibase is None else node + ibase[ids]]
+    row = inner[stack[ids, sp_l]]
     r = r_all[ids]
     hitl, hitr = _boxes(r, row, w.bound(ids))
     if w.work is not None:
         w.work.nodes += ids.numel()
+    _leaf_children(w, leaf, K, r, ids, row, hitl, hitr)
+    stop = w.stop(ids)
+    ovf = _push(stack, sp, ids, sp_l, row, hitl & ~stop, hitr & ~stop)
+    if ovf.any():  # never write past the stack: poison and stop
+        w.poison(ids[ovf])
+    return stop | ovf
+
+
+def _leaf_children(w: _Walk, leaf, K, r, ids, row, hitl, hitr, lbase=None):
+    """Run the hit leaf children of the rows (left, then right) for the rays
+    ``ids`` (r = their rows); ``lbase`` offsets the leaf refs (a treelet's
+    first leaf row in the flattened tiered tables)."""
     for hit, ref, cnt in ((hitl, row[:, 12], row[:, 14]),
                           (hitr, row[:, 13], row[:, 15])):
         m = hit & (cnt >= 0)
         if m.any():
             li = ref[m].long()
             if lbase is not None:
-                li = li + lbase[ids[m]]
+                li = li + lbase[m]
             if w.work is not None:
                 w.work.tris = w.work.tris + leaf[li, 10 * K + 1].clamp(
                     max=K).sum(dtype=torch.int64)
             w.leaves(leaf, K, li, r[m], ids[m])
-    stop = w.stop(ids)
-    ovf = _push(stack, sp, ids, sp_l, row, hitl & ~stop, hitr & ~stop)
-    if ovf.any():  # never write past the stack: poison and stop
-        w.poison(ids[ovf])
-    return stop | ovf
 
 
 def _walk(w: _Walk, inner, leaf, K, r_all, rays, step=_step):
@@ -436,63 +467,59 @@ _step8_closest, _step8_shadow = _make_step8(True), _make_step8(False)
 
 
 def _walk_tiered(w: _Walk, ws: WorldArrays, r_all, rays):
-    """K8's walk of the ray ids ``rays`` as one vectorised loop. Per top node
-    (walk.cuh's order): both boxes against the bound of the node's start, the
-    hit left treelet, the hit right treelet, then the hit internal children
-    pushed, left on top. Each step a ray either pops a top node (after the
-    pushes its last one left pending), starts its next pending treelet, or
-    walks one treelet node, so rays in different treelets advance together
-    on the flattened treelet tables. Two stacks, as in the kernel."""
+    """K8's walk of the ray ids ``rays`` as one vectorised loop over both
+    levels, as csrc/walk.cuh walk_tiered: one stack of 2 * STACK_DEPTH
+    tagged entries per ray (a top node, a node of the ray's current treelet, a
+    treelet's root), one node per step for every unfinished ray. A top pop
+    tests both boxes against the bound of the moment and pushes the hit
+    internal children (left on top), then the hit right treelet's root,
+    then the left one's; a treelet pop is the K2 step on the flattened
+    treelet tables, offset by the ray's treelet."""
     n, dev = r_all.shape[0], r_all.device
     inner, leaf, si, sl = _treelet_rows(ws)
-    top, top_sp = _stacks(n, rays, dev)
-    tre, tre_sp = _stacks(n, rays[:0], dev)
-    ibase = torch.zeros((n,), dtype=torch.long, device=dev)
-    lbase = torch.zeros_like(ibase)
-    pend = torch.full((n, 2), -1, dtype=torch.long, device=dev)  # treelet ids
-    prow = torch.zeros((n, 16), dtype=ws.top_table.dtype, device=dev)
-    phit = torch.zeros((n, 2), dtype=torch.bool, device=dev)
-    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    cap = 2 * STACK_DEPTH
+    stack = torch.zeros((n, cap), dtype=torch.long, device=dev)  # top root 0
+    sp = torch.zeros((n,), dtype=torch.long, device=dev)
+    sp[rays] = 1
+    tid = torch.zeros_like(sp)  # the treelet of each ray's local entries
     live = rays
     while live.numel():
-        # between treelets, none pending: the last top node's pushes, then
-        # the next top node
-        idle = live[(tre_sp[live] == 0) & (pend[live] < 0).all(1)]
-        if idle.numel():
-            ovf = _push(top, top_sp, idle, top_sp[idle], prow[idle],
-                        phit[idle, 0], phit[idle, 1])
-            if ovf.any():
-                w.poison(idle[ovf])
-            done[idle[ovf | (top_sp[idle] == 0)]] = True
-            go = idle[~ovf & (top_sp[idle] > 0)]
-            sp_l = top_sp[go] - 1
-            top_sp[go] = sp_l
-            row = ws.top_table[top[go, sp_l]]
-            hitl, hitr = _boxes(r_all[go], row, w.bound(go))
-            if w.work is not None:
-                w.work.nodes += go.numel()
-            pend[go] = torch.stack([
-                torch.where(hitl & (row[:, 14] == -2), row[:, 12].long(), -1),
-                torch.where(hitr & (row[:, 15] == -2), row[:, 13].long(), -1),
-            ], 1)
-            prow[go] = row
-            phit[go] = torch.stack([hitl, hitr], 1)
-        # between treelets: start the next pending one, left first
-        st = live[(tre_sp[live] == 0) & (pend[live] >= 0).any(1)]
-        if st.numel():
-            side = (pend[st, 0] < 0).long()
-            tid = pend[st, side]
-            pend[st, side] = -1
-            tre[st, 0] = 0
-            tre_sp[st] = 1
-            ibase[st] = tid * si
-            lbase[st] = tid * sl
-        inside = live[tre_sp[live] > 0]
-        if inside.numel():
-            stop = _step(w, inner, leaf, ws.leaf_k, r_all, inside, tre, tre_sp,
-                         ibase, lbase)
-            done[inside[stop]] = True
-        live = live[~done[live]]
+        sp_l = sp[live] - 1
+        e = stack[live, sp_l]
+        root = e < 0
+        tre = root | (e >= TREELET_NODE)
+        tid[live[root]] = ~e[root]
+        t_of = tid[live]
+        local = torch.where(root, 0, torch.where(tre, e - TREELET_NODE, e))
+        row = torch.empty((live.numel(), 16), dtype=ws.top_table.dtype,
+                          device=dev)
+        row[~tre] = ws.top_table[local[~tre]]
+        row[tre] = inner[t_of[tre] * si + local[tre]]
+        r = r_all[live]
+        hitl, hitr = _boxes(r, row, w.bound(live))
+        if w.work is not None:
+            w.work.nodes += live.numel()
+        _leaf_children(w, leaf, ws.leaf_k, r[tre], live[tre], row[tre],
+                       hitl[tre], hitr[tre], t_of[tre] * sl)
+        stop = w.stop(live)
+        # the pushes, bottom to top: right internal, left internal, right
+        # treelet root, left treelet root
+        lref, rref = row[:, 12].long(), row[:, 13].long()
+        lcnt, rcnt = row[:, 14], row[:, 15]
+        tag = torch.where(tre, TREELET_NODE, 0)
+        push = torch.stack([hitr & (rcnt == -1), hitl & (lcnt == -1),
+                            hitr & (rcnt == -2), hitl & (lcnt == -2)], 1)
+        push &= ~stop[:, None]
+        vals = torch.stack([rref + tag, lref + tag, ~rref, ~lref], 1)
+        npush = push.sum(1)
+        ovf = sp_l + npush > cap
+        pos = sp_l[:, None] + push.long().cumsum(1) - 1
+        wr = push & ~ovf[:, None]
+        stack[live[:, None].expand_as(pos)[wr], pos[wr]] = vals[wr]
+        sp[live] = sp_l + torch.where(ovf, 0, npush)
+        if ovf.any():  # never write past the stack: poison and stop
+            w.poison(live[ovf])
+        live = live[~stop & ~ovf & (sp[live] > 0)]
 
 
 def _closest_state(n, dev, t_init):
@@ -567,7 +594,20 @@ def wide_shadow_walk_reference(ws: WorldArrays, origin, direction, max_dist,
 
 # ---- K6: the packet-frustum walks (pallas_traverse.py:948-1190) ----------
 
-PACKET = 32  # rays per frustum packet: one warp of consecutive ray ids
+PACKET = 32  # rays per frustum packet: one warp
+
+
+def _frame_packets(origin, packet_ids, width, height):
+    """The packets of a K6 plain walk: ``packet_ids`` if given, else on a
+    whole width x height frame the kernel's, the warps of the live-ray
+    launches' map (K1's 8 x 4 warp tiles, megakernel.pixel_warps), else
+    None (ray id // packet)."""
+    from .megakernel import pixel_warps  # (megakernel imports this module)
+
+    n = origin.shape[0]
+    if packet_ids is None and width and width * height == n:
+        return pixel_warps(n, width, height, origin.device)
+    return packet_ids
 
 
 def _interval_inv(dlo, dhi):
@@ -744,12 +784,15 @@ class _ShadowBound:
 
 def frustum_closest_walk_reference(ws: WorldArrays, origin, direction, active,
                                    packet: int = PACKET, packet_ids=None,
-                                   work: Work | None = None):
+                                   work: Work | None = None, width: int = 0,
+                                   height: int = 0):
     """Plain K6 closest-hit walk: packets of ``packet`` consecutive ray ids
-    (or of equal ``packet_ids``), each walked once with interval tests
-    against its active rays' frustum and the bound max t_best. Returns (t,
-    tri, cross (R, 3), menc)."""
+    (or of equal ``packet_ids``, or, on a whole ``width`` x ``height``
+    frame, the kernel's warp tiles: _frame_packets), each walked once with
+    interval tests against its active rays' frustum and the bound max
+    t_best. Returns (t, tri, cross (R, 3), menc)."""
     check_depth(ws)
+    packet_ids = _frame_packets(origin, packet_ids, width, height)
     state = _closest_state(origin.shape[0], origin.device, None)
     ops = _closest_ops(state)
     r = _rays9(origin, direction)
@@ -765,13 +808,15 @@ def frustum_shadow_walk_reference(ws: WorldArrays, origin, direction,
                                   max_dist, active,
                                   min_visibility: float = 0.05,
                                   t_eps: float = 1e-3, packet: int = PACKET,
-                                  packet_ids=None, work: Work | None = None):
+                                  packet_ids=None, work: Work | None = None,
+                                  width: int = 0, height: int = 0):
     """Plain K6 transmission walk per packet (see
     frustum_closest_walk_reference): a packet stops once the visibility of
     all its active rays is at or below min_visibility, so a ray that is
     already there may keep losing visibility until then. Returns vis (R,),
     1 for inactive rays."""
     check_depth(ws)
+    packet_ids = _frame_packets(origin, packet_ids, width, height)
     n, dev = origin.shape[0], origin.device
     vis = torch.ones((n,), dtype=torch.float32, device=dev)
     maxd = _max_dist(max_dist, n, dev)
@@ -987,8 +1032,9 @@ _KERNELS = {
 
 def _closest_cuda(ws, origin, direction, active, t_init, kind, frame=(),
                   count=False):
-    """Launch a closest walk; K2 ("bvh2") and K7 ("misslink") take the
-    frame (width, height) their wave covers; ``count``: the counting form."""
+    """Launch a closest walk; K2 ("bvh2"), K6 ("frustum") and K7
+    ("misslink") take the frame (width, height) their wave covers, K8 and
+    K5 none; ``count``: the counting form."""
     view, entry, name, _, _ = _KERNELS[kind]
     entry, name = (entry + "_count", name + "_count") if count else (entry, name)
     o, d, a = _ray_operands(origin, direction, active)
@@ -1035,16 +1081,26 @@ _PLAIN_CLOSEST = {
     "bvh2": lambda ws, o, d, a, ti: closest_walk_reference(ws, o, d, a, ti),
     "tiered": lambda ws, o, d, a, ti: tiered_closest_walk_reference(ws, o, d, a),
     "bvh8": lambda ws, o, d, a, ti: wide_closest_walk_reference(ws, o, d, a),
-    "frustum": lambda ws, o, d, a, ti: frustum_closest_walk_reference(ws, o, d, a),
+    "frustum": lambda ws, o, d, a, ti, width=0, height=0: (
+        frustum_closest_walk_reference(ws, o, d, a, width=width, height=height)),
     "misslink": lambda ws, o, d, a, ti: misslink_closest_walk_reference(ws, o, d, a),
 }
 _PLAIN_SHADOW = {
     "bvh2": shadow_walk_reference, "tiered": tiered_shadow_walk_reference,
-    "bvh8": wide_shadow_walk_reference, "frustum": frustum_shadow_walk_reference,
+    "bvh8": wide_shadow_walk_reference,
+    "frustum": lambda ws, o, d, md, a, mv, te, width=0, height=0: (
+        frustum_shadow_walk_reference(ws, o, d, md, a, mv, te, width=width,
+                                      height=height)),
     "misslink": misslink_shadow_walk_reference,
 }
 _NAMES = {"bvh2": ("K2", "K3"), "tiered": ("K8", "K8"), "bvh8": ("K5", "K5"),
           "frustum": ("K6", "K6"), "misslink": ("K7", "K7")}
+
+
+def _plain_frame(kind, frame):
+    """The frame a plain walk takes after its arguments: K6's packets cover
+    it (the others' results do not depend on the map)."""
+    return tuple(frame) if kind == "frustum" else ()
 
 
 def _closest(ws, origin, direction, active, t_init, kind, frame=()):
@@ -1052,7 +1108,8 @@ def _closest(ws, origin, direction, active, t_init, kind, frame=()):
         return _closest_cuda(ws, origin, direction, active, t_init, kind, frame)
     if origin.device.type != "cpu":
         raise ValueError(f"no {_NAMES[kind][0]} for device {origin.device}")
-    return _PLAIN_CLOSEST[kind](ws, origin, direction, active, t_init)
+    return _PLAIN_CLOSEST[kind](ws, origin, direction, active, t_init,
+                                *_plain_frame(kind, frame))
 
 
 def closest_walk(ws: WorldArrays, origin, direction, active, t_init=None,
@@ -1076,10 +1133,14 @@ def closest_walk_bvh8(ws: WorldArrays, origin, direction, active):
     return _closest(ws, origin, direction, active, None, "bvh8")
 
 
-def closest_walk_frustum(ws: WorldArrays, origin, direction, active):
-    """Raw packet-frustum closest-hit walk (packets of 32 consecutive ray
-    ids): K6 on CUDA tensors, the plain version on CPU tensors."""
-    return _closest(ws, origin, direction, active, None, "frustum")
+def closest_walk_frustum(ws: WorldArrays, origin, direction, active,
+                         width: int = 0, height: int = 0):
+    """Raw packet-frustum closest-hit walk, a packet per warp of the
+    live-ray map (K1's warp tiles of the width x height frame when the wave
+    is a whole one, else 32 consecutive ray ids): K6 on CUDA tensors, the
+    plain version on CPU tensors."""
+    return _closest(ws, origin, direction, active, None, "frustum",
+                    (width, height))
 
 
 def closest_walk_misslink(ws: WorldArrays, origin, direction, active,
@@ -1134,10 +1195,12 @@ def closest_hit_bvh8(ws: WorldArrays, origin, direction, active) -> Hit:
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
-def closest_hit_frustum(ws: WorldArrays, origin, direction, active) -> Hit:
+def closest_hit_frustum(ws: WorldArrays, origin, direction, active,
+                        width: int = 0, height: int = 0) -> Hit:
     """Closest hit per ray by the packet-frustum walk (K6,
-    pallas_closest_hit_frustum) over packets of 32 consecutive ray ids."""
-    t, tri, cross, menc = closest_walk_frustum(ws, origin, direction, active)
+    pallas_closest_hit_frustum) over the packets of closest_walk_frustum."""
+    t, tri, cross, menc = closest_walk_frustum(ws, origin, direction, active,
+                                               width, height)
     return decode_hit(ws, origin, direction, t, tri, cross, menc)
 
 
@@ -1158,7 +1221,7 @@ def _shadow(ws, origin, direction, max_dist, active, min_visibility, t_eps,
                            min_visibility, t_eps, kind, frame)
     elif origin.device.type == "cpu":
         vis = _PLAIN_SHADOW[kind](ws, origin, direction, max_dist, active,
-                                  min_visibility, t_eps)
+                                  min_visibility, t_eps, *_plain_frame(kind, frame))
     else:
         raise ValueError(f"no {_NAMES[kind][1]} for device {origin.device}")
     return vis, active.sum(dtype=torch.int64)
@@ -1192,13 +1255,14 @@ def shadow_walk_bvh8(ws: WorldArrays, origin, direction, max_dist, active,
 
 
 def shadow_walk_frustum(ws: WorldArrays, origin, direction, max_dist, active,
-                        min_visibility: float = 0.05, t_eps: float = 1e-3):
+                        min_visibility: float = 0.05, t_eps: float = 1e-3,
+                        width: int = 0, height: int = 0):
     """Transmission visibility by the packet-frustum walk (K6,
-    pallas_shadow_walk_frustum) over packets of 32 consecutive ray ids. A
+    pallas_shadow_walk_frustum) over the packets of closest_walk_frustum. A
     packet stops once all its rays are at or below min_visibility, so a
     ray's vis is exact only where it ends above it."""
     return _shadow(ws, origin, direction, max_dist, active, min_visibility,
-                   t_eps, "frustum")
+                   t_eps, "frustum", (width, height))
 
 
 def shadow_walk_misslink(ws: WorldArrays, origin, direction, max_dist, active,
@@ -1218,35 +1282,39 @@ def live_lane_counts(ws: WorldArrays, origin, direction, active, kind="misslink"
                      max_dist=None, min_visibility: float = 0.05,
                      t_eps: float = 1e-3, width: int = 0, height: int = 0,
                      t_init=None):
-    """A diagnostic of K7 (``kind`` "misslink") or K2/K3 ("bvh2") on CUDA
-    tensors: the counting instantiation walks the wave (closest rays, or
-    shadow rays when ``max_dist`` is given) and sums, over every step of
-    every walk's node loop, the lanes of the warp that take the step and
-    32. Returns (the walk's outputs, active lane-steps, warp-steps x 32)."""
+    """A diagnostic of K7 (``kind`` "misslink"), K2/K3 ("bvh2"), K8
+    ("tiered", a linear wave: no frame) or K6 ("frustum") on CUDA tensors:
+    the counting instantiation walks the wave (closest rays, or shadow rays
+    when ``max_dist`` is given) and sums, over every step of every walk's
+    node loop, the lanes of the warp that take the step (K6: the lanes with
+    a ray in the packet) and 32. Returns (the walk's outputs, active
+    lane-steps, warp-steps x 32)."""
     if not origin.is_cuda:
         raise ValueError("the counting walks run on CUDA tensors only")
     sums = (ctypes.c_ulonglong * 2)()
     torch.cuda.synchronize(origin.device)
     ext.check(ext.lib().rz_live_walk_lanes(sums, 1), "rz_live_walk_lanes")
+    frame = () if kind == "tiered" else (width, height)
     if max_dist is None:
-        out = _closest_cuda(ws, origin, direction, active, t_init, kind,
-                            (width, height), count=True)
+        out = _closest_cuda(ws, origin, direction, active, t_init, kind, frame,
+                            count=True)
     else:
         out = _shadow_cuda(ws, origin, direction, max_dist, active,
-                           min_visibility, t_eps, kind, (width, height),
-                           count=True)
+                           min_visibility, t_eps, kind, frame, count=True)
     torch.cuda.synchronize(origin.device)
     ext.check(ext.lib().rz_live_walk_lanes(sums, 1), "rz_live_walk_lanes")
     return out, int(sums[0]), int(sums[1])
 
 
-# the live-ray walks' forms, by their rz_live_walk_budget id
+# the standalone walks' forms, by their rz_live_walk_budget id: the live-ray
+# walks (K7, K2/K3, K8) and K6's packet walk over the same map
 LIVE_FORMS = ("closest_misslink", "shadow_misslink", "closest_bvh2",
-              "shadow_bvh2")
+              "shadow_bvh2", "closest_tiered", "shadow_tiered",
+              "closest_frustum", "shadow_frustum")
 
 
 def live_budget(form: str) -> dict:
-    """The compiled budget of a live-ray walk (a name of LIVE_FORMS):
+    """The compiled budget of a standalone walk (a name of LIVE_FORMS):
     threads per block, registers per thread, local memory per thread in
     bytes and resident warps per SM."""
     out = (ctypes.c_int * 4)()

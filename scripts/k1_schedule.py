@@ -39,7 +39,14 @@ K4 and the standalone walks the same way, where --forms names them:
     build), with the live-ray walks' budgets and lane utilisation, and each
     is timed (20 launches a call); K2/K3 also with the slots in wave order
     (no warp tiles: "_flat"); with k2 also the "pallas-bvh2" dispatch at
-    1080p/4 spp.
+    1080p/4 spp;
+  - k8: the tiered walk's harness launch (K8) on the field's 1080p primary
+    rays and on the shadow rays from their hits toward its point light:
+    each build against the first (bit for bit) and the first against the
+    plain version, the K8 budgets and lane utilisation (where the build has
+    the counting K8), each wave timed (20 launches a call), and the field
+    dispatch through the tiered view and over the whole tree
+    (tiered="off").
 
 A tree whose kernels take other arguments than this tree's (an earlier
 PR's) is timed with --own instead: each such build runs in a process of
@@ -51,8 +58,14 @@ phase 1 alone, and the split dispatch, plus one split dispatch per build
 under torch.profiler (the continuation's and phase 1's device time, the
 torch gathers and the compaction's scans); with "k2", the K2/K3 waves of
 one "pallas-bvh2" sample replayed through the wrappers as the per-wave
-loop calls them, and the "pallas-bvh2" dispatch. The results of the
-builds are held to each other by digest (bit for bit).
+loop calls them, and the "pallas-bvh2" dispatch; with "k6", the
+standalone K6 (the frustum walk of kernels="pallas-nomega") at the demo's
+1080p primary rays and point-light shadow rays, each through its tree's
+wrapper (with the frame where the wrapper takes it, so in K1's warp
+tiles), held to its tree's plain version with the same packets (bit for
+bit), with its lanes and budget where the tree has them, and the
+"pallas-nomega" dispatch at 1080p/4 spp. The results of the builds are
+held to each other by digest (bit for bit).
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc:
 
@@ -251,12 +264,19 @@ def own_worker(name: str, tree: str, prefixes: tuple, defines: tuple) -> int:
                 [a for a in args if isinstance(a, torch.Tensor)])
         calls["dispatch_bvh2_ms"] = (lambda: render_radiance_with_stats(
             marrays, mcam, mcfg.replace(kernels="pallas-bvh2", spp=4)), 1)
+    info = {}
+    if on("k6"):
+        info = k6_waves(torch, walk, megakernel, mws, mcam, uv, act, calls,
+                        digests)
+        calls["dispatch_nomega_ms"] = (lambda: render_radiance_with_stats(
+            marrays, mcam, mcfg.replace(kernels="pallas-nomega", spp=4)), 1)
 
     def say(msg):
         proto.write(json.dumps(msg) + "\n")
         proto.flush()
 
-    say(dict(quantities=list(calls), digests=digests, package=ext.__file__))
+    say(dict(quantities=list(calls), digests=digests, package=ext.__file__,
+             info=info))
     while True:
         line = sys.stdin.readline()
         if not line:
@@ -283,6 +303,70 @@ def own_worker(name: str, tree: str, prefixes: tuple, defines: tuple) -> int:
             say({})
             break
     return 0
+
+
+def wave_rays(torch, walk, megakernel, ws, cam, uv, act, hit_fn):
+    """A frame's primary rays (K1's ray generation, no jitter), and the
+    shadow rays from the closest hits (``hit_fn``) toward the scene's
+    light 0, a point light: (origin, direction, active), (origin,
+    direction, max_dist, active)."""
+    z = torch.zeros_like(uv[:, 0])
+    ray = megakernel._raygen_tiles(uv[:, 0], uv[:, 1], z, z,
+                                   megakernel._pack_camera(cam, uv.device))
+    o, d = torch.stack(ray[:3], 1), torch.stack(ray[3:], 1)
+    hit = hit_fn(ws, o, d, act)
+    g = ws.lights[0]
+    if float(g[3]) != 1.0:
+        raise RuntimeError("light 0 is not a point light")
+    lv = g[:3] - hit.point
+    dist = torch.clamp_min(lv.norm(dim=1), 0.001)
+    ld = (lv / dist[:, None]).contiguous()
+    return (o, d, act), (hit.point + ld * 0.001, ld, dist, hit.found)
+
+
+def k6_waves(torch, walk, megakernel, ws, cam, uv, act, calls, digests) -> dict:
+    """The standalone K6 of the tree in use at the demo's 1080p primary and
+    point-light waves, through the tree's wrappers: adds their timed calls
+    (20 launches each) and digests; returns whether each equals the tree's
+    plain version (same packets), its lane utilisation and budgets where
+    the tree has them."""
+    import inspect
+
+    framed = "width" in inspect.signature(walk.closest_walk_frustum).parameters
+    frame = (1920, 1080) if framed else ()
+    pframe = dict(width=1920, height=1080) if framed else {}
+    prim, shad = wave_rays(torch, walk, megakernel, ws, cam, uv, act,
+                            walk.closest_hit_bvh2)
+    runs = {"k6_closest": lambda: walk.closest_walk_frustum(ws, *prim, *frame),
+            "k6_shadow": lambda: walk.shadow_walk_frustum(
+                ws, *shad, 0.05, 1e-3, *frame)[0]}
+    plain = {"k6_closest": lambda: walk.frustum_closest_walk_reference(
+        ws, *prim, **pframe), "k6_shadow": lambda: walk.frustum_shadow_walk_reference(
+            ws, *shad, **pframe)}
+    info = dict(packets="warp tiles" if framed else "32 consecutive rays")
+    for wname, run in runs.items():
+        out = run()
+        digests[wname] = _digest(out)
+        ref = plain[wname]()
+        info[f"{wname}_equals_plain"] = bool(
+            torch.equal(out, ref) if isinstance(out, torch.Tensor)
+            else all(torch.equal(a, b) for a, b in zip(out, ref)))
+
+        def replay(run=run):
+            for _ in range(20):
+                out_ = run()
+            return out_
+        calls[f"{wname}_ms"] = (replay, 20)
+    if "closest_frustum" in walk.LIVE_FORMS:
+        for wname, args, kw in (("k6_closest", prim, {}),
+                                ("k6_shadow", (*shad[:2], shad[3]),
+                                 dict(max_dist=shad[2]))):
+            _o, a_, sl_ = walk.live_lane_counts(ws, *args, kind="frustum",
+                                                **kw, **pframe)
+            info[f"{wname}_lanes"] = a_ / sl_
+        info["budget"] = {f: walk.live_budget(f)
+                          for f in ("closest_frustum", "shadow_frustum")}
+    return info
 
 
 def own_turns(owns, prefixes, say) -> dict:
@@ -476,7 +560,7 @@ def in_turns(trees, counts, prefixes, say) -> dict:
         "k6_k9_demo": (mws, mcfg.replace(**k6, **k9), mcam, 64, "k1_demo_reference"),
     }
     field_forms = ("k1_field_tiered", "k1_field_whole", "k9_field_tiered",
-                   "k9_field_whole", "k6_field_whole", "k6_k9_field_whole")
+                   "k9_field_whole", "k6_field_whole", "k6_k9_field_whole", "k8")
     need_field = not prefixes or any(f.startswith(prefixes) for f in field_forms)
     if need_field:
         fcfg = RenderConfig(width=1920, height=1080, spp=4, max_bounces=5)
@@ -485,7 +569,8 @@ def in_turns(trees, counts, prefixes, say) -> dict:
         fws, fcam = world_geometry(farrays), fscene.camera.device_params()
         if not fws.tiered:
             raise RuntimeError("the field did not pack tiered")
-        whole = world_geometry(pack_scene(fscene, fcfg.replace(tiered="off"), dev))
+        warrays = pack_scene(fscene, fcfg.replace(tiered="off"), dev)
+        whole = world_geometry(warrays)
         field, fwhole = (fws, fcfg, fcam, 4), (whole, fcfg, fcam, 4)
         forms.update({
             "k1_field_tiered": (*field, None),
@@ -513,7 +598,7 @@ def in_turns(trees, counts, prefixes, say) -> dict:
         p1_forms = {f: v for f, v in p1_forms.items() if f.startswith(prefixes)}
         cont_forms = {f: v for f, v in cont_forms.items() if f.startswith(prefixes)}
     on = {w: not prefixes or any(w.startswith(p) for p in prefixes)
-          for w in ("k7", "k2")}
+          for w in ("k7", "k2", "k8")}
 
     def p1(cfg):
         return lambda: megakernel.sample_wave_phase1(mws, cfg, uv, act, mcam, 0, 0, 5)
@@ -581,6 +666,33 @@ def in_turns(trees, counts, prefixes, say) -> dict:
                                                 height=frame[1])[:1]
             return out
         return run
+
+    # K8's harness waves on the field (the tiered view), made with the first
+    # build, and the plain version's results of them
+    k8_waves, k8_plain = {}, {}
+    if on["k8"]:
+        with using(trees[0][0]):
+            prim, shad = wave_rays(torch, walk, megakernel, fws, fcam, uv, act,
+                                   walk.closest_hit_tiered)
+        k8_waves = {"k8_closest": ("closest", prim), "k8_shadow": ("shadow", shad)}
+        k8_plain = {"k8_closest": walk.tiered_closest_walk_reference(fws, *prim),
+                    "k8_shadow": walk.tiered_shadow_walk_reference(fws, *shad)}
+        say("[k8] field 1080p waves: " + ", ".join(
+            f"{k} {int(v[1][-1].sum())} live" for k, v in k8_waves.items()))
+
+    def k8_walk(kind, args, reps=1):
+        """K8 on a recorded wave through the build in use (``reps``
+        launches; the last's result)."""
+        def run():
+            for _ in range(reps):
+                out = (walk.closest_walk_tiered(fws, *args) if kind == "closest"
+                       else walk.shadow_walk_tiered(fws, *args)[0])
+            return out
+        return run
+
+    def same(a, b):
+        return (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else all(torch.equal(x, y) for x, y in zip(a, b)))
 
     # K4's continuation on phase 1's 1080p rows (one phase 1 a split point,
     # with this tree's kernels): each build's colour and rays added in
@@ -682,7 +794,23 @@ def in_turns(trees, counts, prefixes, say) -> dict:
             rep["budget_continuation"] = {f: megakernel.sample_budget(f)
                                           for f in megakernel.CONTINUATION_FORMS}
         if has(name, "rz_live_walk_budget"):
-            rep["budget_live_walks"] = {f: walk.live_budget(f) for f in walk.LIVE_FORMS}
+            # an older build knows forms 0-3 (K7, K2/K3)
+            n_live = (len(walk.LIVE_FORMS) if has(name, "rz_closest_tiered_count")
+                      else 4)
+            rep["budget_live_walks"] = {f: walk.live_budget(f)
+                                        for f in walk.LIVE_FORMS[:n_live]}
+        for wname, (kind, args) in k8_waves.items() if timed_ else ():
+            out = k8_walk(kind, args)()
+            if wname not in ref:
+                ref[wname] = out
+            bit[wname] = dict(equal=same(out, ref[wname]),
+                              equals_plain=same(out, k8_plain[wname]))
+            if has(name, "rz_closest_tiered_count"):
+                cargs = (dict(max_dist=args[2]) if kind == "shadow" else {})
+                o, d, a = args[0], args[1], args[-1]
+                _out, la, ls = walk.live_lane_counts(fws, o, d, a, kind="tiered",
+                                                     **cargs)
+                bit[wname]["lanes"] = la / ls if ls else None
         for wname, w_kind, kind, args, frame in waves if timed_ else ():
             out = wave_walk(w_kind, kind, args, frame)()
             if wname not in ref:
@@ -759,6 +887,15 @@ def in_turns(trees, counts, prefixes, say) -> dict:
         if w_kind == "k2":  # K2/K3 with the slots in wave order, not tiles
             quantities[f"{wname}_flat_ms"] = ((lambda *a_: lambda _n: wave_walk(
                 *a_, reps=reps))(w_kind, kind, args, (0, 0)), reps)
+    for wname, (kind, args) in k8_waves.items():
+        quantities[f"{wname}_ms"] = ((lambda *a_: lambda _n: k8_walk(
+            *a_, reps=reps))(kind, args), reps)
+    if on["k8"]:  # the field dispatch, tiered and over the whole tree
+        quantities["dispatch_field_ms"] = (lambda _n: lambda: render_radiance_with_stats(
+            farrays, fcam, fcfg), 1)
+        quantities["dispatch_field_whole_ms"] = (
+            lambda _n: lambda: render_radiance_with_stats(
+                warrays, fcam, fcfg.replace(tiered="off")), 1)
     if on["k2"]:  # K2/K3's path: the kernels="pallas-bvh2" dispatch, 4 spp
         quantities["dispatch_bvh2_ms"] = (lambda _n: lambda: render_radiance_with_stats(
             marrays, mcam, mcfg.replace(kernels="pallas-bvh2", spp=4)), 1)

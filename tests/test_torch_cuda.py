@@ -98,8 +98,10 @@ def test_k8_matches_plain_and_whole_tree(setup):
     k = walk.closest_walk_tiered(tws, o, d, act)
     assert ext.LAUNCHES["closest_hit_tiered"] == before + 1
     p = walk.tiered_closest_walk_reference(tws, o, d, act)
-    for a, b in zip(k, p):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    counted, lanes, slots = walk.live_lane_counts(tws, o, d, act, kind="tiered")
+    assert all(torch.equal(a, b) for a, b in zip(counted, k))
+    assert 0 < lanes <= slots and slots % 32 == 0
     whole = walk.closest_walk(tws, o, d, act)  # K2 on the whole tree
     assert (k[1] != whole[1]).sum() == 0
     hit = walk.decode_hit(tws, o, d, *k)
@@ -109,8 +111,11 @@ def test_k8_matches_plain_and_whole_tree(setup):
     kv, kr = walk.shadow_walk_tiered(tws, so, ldir, 50.0, hit.found)
     pv = walk.tiered_shadow_walk_reference(tws, so, ldir, 50.0, hit.found)
     wv, _ = walk.shadow_walk_bvh2(tws, so, ldir, 50.0, hit.found)
-    torch.testing.assert_close(kv, pv, rtol=0, atol=1e-6)
+    assert torch.equal(kv, pv)
     torch.testing.assert_close(kv, wv, rtol=0, atol=1e-6)
+    cv, _lanes, _slots = walk.live_lane_counts(tws, so, ldir, hit.found,
+                                               kind="tiered", max_dist=50.0)
+    assert torch.equal(cv, kv)
     assert int(kr) == int(hit.found.sum()) and (kv < 1).any()
 
 
@@ -314,27 +319,41 @@ def test_k5_matches_plain_and_k2(setup):
     assert int(kr) == int(kh.found.sum()) and (kv < 1).any()
 
 
-def test_k6_matches_plain_and_k2(setup):
+@pytest.mark.parametrize("frame", [(0, 0), (W, H)], ids=["linear", "tiles"])
+def test_k6_matches_plain_and_k2(setup, frame):
+    """K6 over 32 consecutive rays a packet and over the frame's warp tiles:
+    bit for bit its plain version with the same packets (closest and
+    shadow, and their counting forms), K2's t, K3's vis where lit."""
     ws, o, d = setup["ws"], setup["o"], setup["d"]
     act = torch.rand(o.shape[0], device=o.device) < 0.9
     before = dict(ext.LAUNCHES)
-    k = walk.closest_walk_frustum(ws, o, d, act)
-    p = walk.frustum_closest_walk_reference(ws, o, d, act)
-    for a, b in zip(k, p):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    k = walk.closest_walk_frustum(ws, o, d, act, *frame)
+    p = walk.frustum_closest_walk_reference(ws, o, d, act, width=frame[0],
+                                            height=frame[1])
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    counted, lanes, slots = walk.live_lane_counts(ws, o, d, act, kind="frustum",
+                                                  width=frame[0], height=frame[1])
+    assert all(torch.equal(a, b) for a, b in zip(counted, k))
+    assert 0 < lanes <= slots and slots % 32 == 0
     k2 = walk.closest_walk(ws, o, d, act)
     hit = k2[1] >= 0
     assert hit.any() and torch.equal(k[0][hit], k2[0][hit])
     kh = walk.decode_hit(ws, o, d, *k2)
     so, ldir = _light_rays(kh, o)
-    kv, kr = walk.shadow_walk_frustum(ws, so, ldir, 50.0, kh.found)
-    pv = walk.frustum_shadow_walk_reference(ws, so, ldir, 50.0, kh.found)
+    kv, kr = walk.shadow_walk_frustum(ws, so, ldir, 50.0, kh.found, 0.05, 1e-3,
+                                      *frame)
+    pv = walk.frustum_shadow_walk_reference(ws, so, ldir, 50.0, kh.found,
+                                            width=frame[0], height=frame[1])
     v3, _ = walk.shadow_walk_bvh2(ws, so, ldir, 50.0, kh.found)
     lit = pv > 0.05
+    assert torch.equal(kv, pv)
     assert torch.equal(kv > 0.05, lit) and torch.equal(v3 > 0.05, lit)
-    torch.testing.assert_close(kv[lit], pv[lit], rtol=0, atol=1e-6)
     torch.testing.assert_close(kv[lit], v3[lit], rtol=0, atol=1e-6)
     assert int(kr) == int(kh.found.sum()) and (kv < 1).any()
+    cv, _lanes, _slots = walk.live_lane_counts(
+        ws, so, ldir, kh.found, kind="frustum", max_dist=50.0, width=frame[0],
+        height=frame[1])
+    assert torch.equal(cv, kv)
     for name in ("closest_hit_frustum", "shadow_walk_frustum"):
         assert ext.LAUNCHES[name] == before[name] + 1
 
@@ -491,8 +510,9 @@ def test_live_walks_match_plain_and_k7(setup, wave):
 
 
 def test_live_walk_budget():
-    """Every live-ray walk (K7, K2, K3) compiles and holds its register
-    budget (__launch_bounds__: at least 32 resident warps per SM)."""
+    """Every standalone walk (K7, K2, K3, K8 and K6) compiles and holds its
+    register budget (__launch_bounds__: at least 32 resident warps per
+    SM)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     for form in walk.LIVE_FORMS:

@@ -3,7 +3,8 @@ instantiation. An anonymous namespace's mangling names the source file, so
 every kernel of sample_kernel.cu holds "sample_kernel"; the regenerating K1
 must still be told from the lockstep one, the counting K1 forms from both,
 the K9 and K6 forms (the lockstep loop with warp tiles) from phase 1's,
-and the standalone walks' instantiations (mode, walk, counting) apart."""
+and the standalone walks' instantiations (mode, walk, counting; K6's packet
+walk by mode and counting) apart."""
 
 from rayzen_tpu_torch import ext
 
@@ -99,6 +100,11 @@ LOG_LIVE = "\n".join(
          "NS_6WaveIOEiiiff", 62),
         (f"{_WPFX}16live_walk_kernelILi1EN2rz8Bvh2WalkENS1_48{_WANON}9LaneCountEEEv"
          "T0_NS_6WaveIOEiiiff", 54),
+        # K6's packet walk: template <int kMode, class Count>
+        (f"{_WPFX}19frustum_walk_kernelILi0EN2rz7NoCountEEEvNS1_6TablesENS_6WaveIO"
+         "Eiiiff", 53),
+        (f"{_WPFX}19frustum_walk_kernelILi1ENS1_48{_WANON}9LaneCountEEEvN2rz6Tables"
+         "ENS_6WaveIOEiiiff", 52),
         # the continuation: template <class Walk, bool kOctant>, and the
         # counting form (the walk through Counted)
         (f"_ZN55{_CANON}19continuation_kernelIN2rz8Bvh2WalkELb0EEEvT_PKfNS_5Split"
@@ -123,6 +129,8 @@ def test_ptxas_summary_labels_the_live_walks_and_the_continuation():
     assert {k: v["regs"] for k, v in got.items()} == {
         "live_walk_kernel<closest,MisslinkWalk>": 62,
         "live_walk_kernel<shadow,Bvh2Walk,count>": 54,
+        "frustum_walk_kernel<closest>": 53,
+        "frustum_walk_kernel<shadow,count>": 52,
         "continuation_kernel<Bvh2Walk>": 64,
         "continuation_kernel<Bvh2Walk,octant>": 63,
         "continuation_kernel<Bvh2Walk,count>": 61,

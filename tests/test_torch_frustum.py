@@ -1,8 +1,9 @@
 """The packet-frustum walks (K6) of the port against the JAX package: the
-plain K6 walks against pallas_closest_hit_frustum / pallas_shadow_walk_frustum
-(interpret mode) and against the port's plain K2/K3, the plain K1 with
-frustum_primary against the JAX megakernel with it, and the rules that
-select the frustum walk.
+plain K6 walks, with packets of 32 consecutive ray ids and with the
+kernel's warp tiles of the frame, against pallas_closest_hit_frustum /
+pallas_shadow_walk_frustum (interpret mode) and against the port's plain
+K2/K3, the plain K1 with frustum_primary against the JAX megakernel with
+it, and the rules that select the frustum walk.
 
 Seven tests: pytest-xdist queues test files by their number of tests, so a
 file with more than tests/test_parallel.py's seven would start before that
@@ -71,13 +72,24 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
+# the packets of the port's K6: 32 consecutive ray ids, and the kernel's 8 x
+# 4 warp tiles of the 48 x 32 frame the rays cover
+FRAMES = ((0, 0), (48, 32))
+
+
 def test_plain_frustum_closest_matches_jax_frustum(jax_world):
     jw = jax_world
     act = np.random.RandomState(3).uniform(size=jw["o"].shape[0]) < 0.9
     jh = pallas_closest_hit_frustum(jw["jws"], jnp.asarray(jw["o"]),
                                     jnp.asarray(jw["d"]), jnp.asarray(act),
                                     interpret=True)
-    th = walk.closest_hit_frustum(jw["tws"], _t(jw["o"]), _t(jw["d"]), _t(act))
+    for frame in FRAMES:
+        th = walk.closest_hit_frustum(jw["tws"], _t(jw["o"]), _t(jw["d"]),
+                                      _t(act), *frame)
+        _assert_jax_closest(jh, th)
+
+
+def _assert_jax_closest(jh, th):
     jt, tt = np.asarray(jh.t), th.t.numpy()
     jtri, ttri = np.asarray(jh.tri), th.tri.numpy()
     np.testing.assert_array_equal(th.found.numpy(), np.asarray(jh.found))
@@ -101,16 +113,19 @@ def test_plain_frustum_shadow_matches_jax_frustum(jax_world):
     jv, jr = pallas_shadow_walk_frustum(
         jw["jws"], jnp.asarray(so.numpy()), jnp.asarray(ldir.numpy()), 50.0,
         jnp.asarray(hit.found.numpy()), interpret=True)
-    tv, tr = walk.shadow_walk_frustum(jw["tws"], so, ldir, 50.0, hit.found)
-    jv, tv = np.asarray(jv), tv.numpy()
+    jv = np.asarray(jv)
     lit = jv > 0.05
-    np.testing.assert_array_equal(tv > 0.05, lit)
-    assert lit.any() and not lit.all() and int(tr) == int(jr)
-    np.testing.assert_allclose(tv[lit], jv[lit], rtol=0, atol=1e-6)
-    # and against the plain K3 (which stops each ray at min_visibility)
+    # the plain K3 stops each ray at min_visibility
     v3 = walk.shadow_walk_reference(jw["tws"], so, ldir, 50.0, hit.found).numpy()
     np.testing.assert_array_equal(v3 > 0.05, lit)
-    np.testing.assert_allclose(tv[lit], v3[lit], rtol=0, atol=1e-6)
+    for frame in FRAMES:
+        tv, tr = walk.shadow_walk_frustum(jw["tws"], so, ldir, 50.0, hit.found,
+                                          0.05, 1e-3, *frame)
+        tv = tv.numpy()
+        np.testing.assert_array_equal(tv > 0.05, lit)
+        assert lit.any() and not lit.all() and int(tr) == int(jr)
+        np.testing.assert_allclose(tv[lit], jv[lit], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(tv[lit], v3[lit], rtol=0, atol=1e-6)
 
 
 def test_plain_frustum_k1_matches_jax_frustum_render(jax_world):
