@@ -10,7 +10,8 @@ wide_nodes) and the warp-packet frustum walk (K6, frustum_primary), and the per-
 miss-link walks K7 for "pallas-ml" and the live-ray K2/K3 for
 "pallas-bvh2"), the frame loop, deforming meshes on an LBVH built on the
 card, frames tiled over a device list and the native BLAS builder, and time
-them.
+them; then the last host and scene functions (the BLAS and scene walks, the
+BVH and PPM files, ref_rand, build_scene_tlas).
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--out-dir DIR]
@@ -37,12 +38,14 @@ Phases (each prints its own lines and stops the run when it fails):
   6 main path     1080p/64 spp frame: warm-up + timed dispatches
   7 kernels       K1 (64 spp, both RNG flows), K2 and K3 vs plain at the main
                   path's 1080p shapes with the bars of phases 3/4 (the plain
-                  K1 renders the whole frame in the configured flow and a
-                  1-in-8 strided subset of its pixels in the other), their
-                  times, the regenerating K1's compiled budget (registers,
-                  spills, resident warps per SM) and its walk-loop lane
-                  utilisation (the counting K1), and where one dispatch's
-                  time goes (torch.profiler)
+                  K1 renders every 8th column of the frame in the configured
+                  reference flow and every 16th in the threefry flow,
+                  K1_PLAIN_STRIDE; K1's bound is estimated from the subset's
+                  walk work times the pixel ratio), their times, the
+                  regenerating K1's compiled budget (registers, spills,
+                  resident warps per SM) and its walk-loop lane utilisation
+                  (the counting K1), and where one dispatch's time goes
+                  (torch.profiler)
   8 launches      K1 launched in the main-path run (K2/K3 run there as device
                   functions of K1); each kernel launched in phase 7
   9 field         the 520-Suzanne field (bench_large.py), packed with the
@@ -51,7 +54,8 @@ Phases (each prints its own lines and stops the run when it fails):
                   plain (bit for bit) at the field's 1080p primary rays and
                   shadow rays, and vs K2/K3 on the whole tree; its budget
                   and walk-loop lane utilisation (the counting K8)
- 11 tiered K1     the tiered K1 vs plain at 320x180, 1 spp, both RNG flows;
+ 11 tiered K1     the tiered K1 vs plain at 1 spp, 320x180 in the configured
+                  flow and 160x90 in the other;
                   vs the whole-tree K1 at 1920x1080, 4 spp (bit for bit),
                   with its time, budget and walk-loop lane utilisation
  12 field path    the field's 1080p/4 spp frame (render_radiance_with_stats,
@@ -79,7 +83,7 @@ Phases (each prints its own lines and stops the run when it fails):
                   256x192 (both RNG flows) and 1080p/1 spp; K9's phase 1 and
                   continuation (split + octant walks) alone vs plain at 256x192
                   and 1080p (timed as in 14), and
-                  its tiered instantiation (field 320x180) vs
+                  its tiered instantiation (field 160x90) vs
                   plain; the K9 forms' budget and the walk-loop lane
                   utilisation of K9 (1080p/64 spp) and the tiered K9 (field
                   1080p/4 spp); then the split path
@@ -114,10 +118,10 @@ Phases (each prints its own lines and stops the run when it fails):
                   gates for kernels="xla" and "pallas-ml"; "pallas-ml",
                   "pallas-bvh2", "pallas-nomega" and "xla" vs K1's frame at
                   256x192; the 1080p/64 spp frame with kernels="pallas-ml"
-                  (3 timed dispatches after a warm-up, launch counts: K7
-                  only, vs K1's frame, one more dispatch with K7's own time
-                  summed from CUDA events around each of its launches, one
-                  profiled 4-spp dispatch); "pallas-bvh2"
+                  (3 dispatches in all: the warm-up; one timed, with launch
+                  counts, K7 only, vs K1's frame; one with K7's own time
+                  summed from CUDA events around each of its launches; and
+                  one profiled 4-spp dispatch); "pallas-bvh2"
                   and "pallas-nomega" at 1080p/4 spp and "xla" at 1080p/1
                   spp once each, timed, with launch counts
  19 frame loop    the Renderer on the demo: cold start (an empty port cache)
@@ -152,6 +156,16 @@ Phases (each prints its own lines and stops the run when it fails):
                   Renderer.multi_chip; the native builder: the C++ BLAS vs
                   the numpy builder (monkey, the 131k grid) with build times,
                   the demo's cold start with and without it in turns
+ 21 last functions
+                  on the demo scene: traverse_scene vs brute_force_scene and
+                  vs K2 on 4,096 random rays (same triangle, t within 1e-6
+                  relative), traverse_blas over a monkey's BLAS vs the float64
+                  brute_force_closest_hit, save_bvh / load_bvh and write_ppm /
+                  read_ppm round trips, ref_rand on the card bit for bit its
+                  CPU result, build_scene_tlas from the card's arrays equal
+                  to the CPU pack's
+Before the card's name and the kernels line, one JSON line gives each
+phase's wall seconds ("phase_seconds") and the total.
 """
 
 from __future__ import annotations
@@ -195,6 +209,10 @@ OPS_PER_PACKET_NODE = 174
 # A miss-link node visit (K7, walk.cuh walk_closest_misslink): one slab test
 # and its pruning compare, 25.
 OPS_PER_ML_NODE = 25
+# Phase 7 holds the 1080p/64 spp K1 frame to the plain version on every
+# n-th column, n by RNG flow (the configured reference flow on more
+# pixels: its subset's walk work also estimates K1's bound).
+K1_PLAIN_STRIDE = {"reference": 8, "threefry": 16}
 
 
 class PhaseFailed(Exception):
@@ -202,11 +220,27 @@ class PhaseFailed(Exception):
 
 
 START = time.perf_counter()
+PHASE_END = {}  # phase number -> seconds since the start at its last line
 
 
 def say(msg: str) -> None:
-    """A phase line, stamped with the seconds since the script started."""
-    print(f"{msg} [{time.perf_counter() - START:.0f} s]", flush=True)
+    """A phase line ("[N ...] ..."), stamped with the seconds since the
+    script started."""
+    now = time.perf_counter() - START
+    head = msg[1:].split(" ", 1)[0]
+    if msg.startswith("[") and head.isdigit():
+        PHASE_END[int(head)] = now
+    print(f"{msg} [{now:.0f} s]", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's wall seconds: from the previous phase's last line to
+    its own last line (phase 1 from the start)."""
+    out, prev = {}, 0.0
+    for n in sorted(PHASE_END):
+        out[str(n)] = round(PHASE_END[n] - prev, 1)
+        prev = PHASE_END[n]
+    return out
 
 
 def require(cond: bool, what: str) -> None:
@@ -1042,6 +1076,129 @@ def deform_sharded_native_phase(torch, np, dev, mcfg, marrays, mcam, main_ms,
     return out
 
 
+def last_functions_phase(torch, np, dev):
+    """Phase 21: the port's last host and scene functions on the card, on
+    the demo scene at small shapes. traverse_scene against
+    brute_force_scene and against K2 (walk.closest_hit_bvh2) on 4,096
+    random rays: the same triangle on every ray (or an exact-t tie), t
+    within 1e-6 relative; traverse_blas over the monkey's BLAS in object
+    space against the float64 brute_force_closest_hit: the same hit or
+    miss on every ray, t within 1e-4 relative; a save_bvh / load_bvh and a
+    write_ppm / read_ppm round trip with equal arrays; ref_rand on the card
+    bit for bit its CPU result; build_scene_tlas from the card's arrays
+    equal to the CPU pack's. Returns the numbers."""
+    import tempfile
+
+    from rayzen_tpu_torch import ext
+    from rayzen_tpu_torch.accel import builder
+    from rayzen_tpu_torch.config import RenderConfig
+    from rayzen_tpu_torch.demo import build_demo_scene
+    from rayzen_tpu_torch.image_io import read_ppm, to_uint8, write_ppm
+    from rayzen_tpu_torch.integrator import render_radiance_with_stats
+    from rayzen_tpu_torch.ops import traverse, walk
+    from rayzen_tpu_torch.ops.rng import ref_rand
+    from rayzen_tpu_torch.packing import (
+        build_scene_tlas, pack_scene_host, world_geometry,
+    )
+
+    def rays(n, seed, spread):
+        rs = np.random.RandomState(seed)
+        o = rs.uniform(-spread, spread, (n, 3)).astype(np.float32)
+        d = rs.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                torch.ones(n, dtype=torch.bool, device=dev))
+
+    out = {}
+    cfg = RenderConfig(width=256, height=192, spp=1, max_bounces=5)
+    scene = build_demo_scene(256, 192)
+    host = pack_scene_host(scene, cfg)
+    arrays = host.to(dev)
+    o, d, act = rays(4096, 31, 4.0)
+    ext.reset_launches()
+    walked = traverse.traverse_scene(arrays, o, d, act)
+    brute = traverse.brute_force_scene(arrays, o, d, act)
+    k2 = walk.closest_hit_bvh2(world_geometry(arrays), o, d, act)
+    launches = {k: v for k, v in ext.LAUNCHES.items() if v}
+    require(walked.t.device == brute.t.device == o.device,
+            "21: traverse_scene or brute_force_scene left the rays' device")
+    require(launches == {"closest_hit_bvh2": 1},
+            f"21: the comparison launched other kernels: {launches}")
+    n_hit = int(walked.found.sum())
+    require(n_hit > 400, f"21: only {n_hit} of 4096 random rays hit the demo scene")
+    for name, other in (("brute_force_scene", brute), ("K2", k2)):
+        require(torch.equal(other.found, walked.found), f"21: {name} hits other rays")
+        other_tri = (other.tri != walked.tri) & walked.found
+        ties = other_tri & (other.t == walked.t)
+        f = walked.found & ~other_tri
+        rel = ((other.t - walked.t).abs() / walked.t.abs()).masked_fill(~f, 0).max().item()
+        say(f"[21 last functions] traverse_scene vs {name}, 4096 random rays: "
+            f"{n_hit} hits, another triangle on {int(other_tri.sum())} "
+            f"({int(ties.sum())} exact-t ties), t max rel err {rel:.3e}")
+        require(torch.equal(other_tri, ties), f"21: {name} finds another triangle")
+        require(rel <= 1e-6, f"21: {name} t rtol > 1e-6")
+        out[f"traverse_scene_vs_{name}"] = dict(hits=n_hit, ties=int(ties.sum()),
+                                                t_max_rel_err=rel)
+
+    # traverse_blas over the monkey's BLAS, object-space rays
+    meta = max(arrays.instance_meta, key=lambda m: m.num_triangles)  # a monkey
+    lo, hi = meta.tri_offset, meta.tri_offset + meta.num_triangles
+    v0 = host.tri_v0[lo:hi].astype(np.float32)
+    soup = np.stack([v0, v0 + host.tri_e1[lo:hi], v0 + host.tri_e2[lo:hi]], axis=1)
+    bo, bd, bact = rays(4096, 32, 1.5)
+    t, tri = traverse.traverse_blas(arrays, bo, bd, bact, meta.node_offset,
+                                    meta.tri_offset, leaf_size=cfg.leaf_size)
+    t, tri = t.cpu().numpy(), tri.cpu().numpy()
+    bo, bd = bo.cpu().numpy(), bd.cpu().numpy()
+    ref = [builder.brute_force_closest_hit(bo[i], bd[i], soup) for i in range(4096)]
+    ref_tri = np.asarray([r[0] for r in ref])
+    ref_t = np.asarray([r[1] for r in ref])
+    hit = ref_tri >= 0
+    same_hit = bool(((tri >= 0) == hit).all())
+    t_rel = float((np.abs(t[hit] - ref_t[hit]) / ref_t[hit]).max()) if hit.any() else 0.0
+    other = int((tri[hit] - lo != ref_tri[hit]).sum())
+    say(f"[21 last functions] traverse_blas, monkey BLAS ({meta.num_triangles} "
+        f"triangles), 4096 object-space rays vs brute_force_closest_hit (float64): "
+        f"{int(hit.sum())} hits, same hit/miss {same_hit}, another triangle on "
+        f"{other}, t max rel err {t_rel:.3e}")
+    require(hit.sum() > 400, "21: too few rays hit the monkey")
+    require(same_hit and t_rel <= 1e-4, "21: traverse_blas vs brute_force_closest_hit")
+    out["traverse_blas_vs_brute"] = dict(hits=int(hit.sum()), other_triangle=other,
+                                         t_max_rel_err=t_rel)
+
+    with tempfile.TemporaryDirectory(prefix="rayzen_last_") as tmp:
+        bvh = builder.build_blas(soup, cfg.leaf_size)
+        builder.save_bvh(os.path.join(tmp, "monkey"), bvh)
+        back = builder.load_bvh(os.path.join(tmp, "monkey.npz"))
+        same_bvh = all(np.array_equal(getattr(bvh, f.name), getattr(back, f.name))
+                       and getattr(bvh, f.name).dtype == getattr(back, f.name).dtype
+                       for f in dataclasses.fields(builder.BLAS))
+        img, _ = render_radiance_with_stats(arrays, scene.camera.device_params(), cfg)
+        img = img.cpu().numpy()
+        write_ppm(os.path.join(tmp, "frame.ppm"), img)
+        frame = read_ppm(os.path.join(tmp, "frame.ppm"))
+        same_ppm = bool(np.array_equal(frame, to_uint8(img)[::-1]))
+    say(f"[21 last functions] save_bvh / load_bvh round trip equal {same_bvh}; "
+        f"write_ppm / read_ppm round trip of the 256x192 frame equal {same_ppm}")
+    require(same_bvh and same_ppm, "21: a disk round trip")
+
+    uv = np.random.RandomState(33).uniform(0, 3000, (1 << 20, 2)).astype(np.float32)
+    on_card = ref_rand(torch.from_numpy(uv).to(dev))
+    cpu = ref_rand(torch.from_numpy(uv))
+    same_rand = bool(torch.equal(on_card.cpu().view(torch.int32), cpu.view(torch.int32)))
+    tlas, tlas_cpu = build_scene_tlas(arrays), build_scene_tlas(host.to("cpu"))
+    same_tlas = all(np.array_equal(getattr(tlas, f.name), getattr(tlas_cpu, f.name))
+                    for f in dataclasses.fields(builder.BLAS))
+    say(f"[21 last functions] ref_rand on {on_card.numel()} draws: card == CPU bit "
+        f"for bit {same_rand}; build_scene_tlas from the card's arrays == the CPU "
+        f"pack's {same_tlas} ({tlas.num_nodes} nodes)")
+    require(same_rand, "21: ref_rand on the card is not its CPU result")
+    require(same_tlas, "21: build_scene_tlas differs between the card and the CPU")
+    out.update(disk_round_trips=same_bvh and same_ppm, ref_rand_bitwise=same_rand,
+               tlas_equal=same_tlas)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1318,6 +1475,7 @@ def main() -> int:
     # Launches from here on compare kernels with their plain versions; they
     # are not counted as the main path's.
     ext.reset_launches()
+    R = 1920 * 1080
     mws = world_geometry(marrays)
     mo, md_ = primary_rays(1920, 1080, mcam)
     mact = torch.ones(mo.shape[0], dtype=torch.bool, device=dev)
@@ -1348,30 +1506,33 @@ def main() -> int:
         require(err <= 1e-5, "K3 vis atol > 1e-5 at 1080p")
     _, muv = pixel_grid(1920, 1080, dev)
     # K1 renders the whole 1080p frame in both flows. The plain version
-    # renders it whole in the configured flow (its walks count the bound's
-    # work) and, in the other, the 1-in-8 strided subset of the pixels
-    # (every 8th column, a 240x1080 image), held against the kernel's
-    # pixels there with the same bars.
+    # renders a strided subset of its pixels in each flow (every
+    # K1_PLAIN_STRIDE[rng]-th column: a pixel's draws are keyed by the pixel,
+    # so its plain result does not depend on the other pixels), held against
+    # the kernel's pixels there with the same bars. The bound's work is
+    # estimated from the configured flow's subset: its plain walks' work
+    # times the pixel ratio.
     for rng in ("threefry", "reference"):
         c7 = mcfg.replace(rng=rng)
         kc, kr, _ = megakernel._launch_sample(
             mws, megakernel._consts(c7, 0, 0, 5, 64), muv, mact, mcam, 5,
             phase1=False)
+        st = K1_PLAIN_STRIDE[rng]
+        p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
+            mws, c7, muv[::st], mact[::st], mcam, 0, 0, 5, 64, work=w), torch, walk)
+        k = (kc[::st], kr[::st].sum(dtype=torch.int64))
+        k1_err = max(k1_err, k1_compare("7 kernels", rng, k, p, 1920 // st, 1080, 64))
         if rng == mcfg.rng:
-            p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
-                mws, c7, muv, mact, mcam, 0, 0, 5, 64, work=w), torch, walk)
-            p1_ms, k1_work, k1_frame = pms, work, kc
-            k, shape = (kc, kr.sum(dtype=torch.int64)), (1920, 1080)
-        else:
-            p = megakernel.sample_wave_reference(mws, c7, muv[::8], mact[::8], mcam,
-                                                 0, 0, 5, 64)
-            k, shape = (kc[::8], kr[::8].sum(dtype=torch.int64)), (240, 1080)
-        k1_err = max(k1_err, k1_compare("7 kernels", rng, k, p, *shape, 64))
+            p1_ms, p1_pixels, k1_frame = pms, muv[::st].shape[0], kc
+            k1_work = {key: v if key == "ml_chain" else v * R // p1_pixels
+                       for key, v in work.items()}
     k1_ms = cuda_ms(lambda: megakernel.sample_wave(
         mws, mcfg, muv, mact, mcam, 0, 0, 5, 64), 3, torch)
     refit_ms = cuda_ms(lambda: world_geometry(marrays), 10, torch)
-    say(f"[7 kernels] 1080p on {kind} ({smi}): K1 64 spp {k1_ms:.2f} ms vs plain "
-        f"{p1_ms:.2f} ms; refit {refit_ms:.3f} ms")
+    say(f"[7 kernels] 1080p on {kind} ({smi}): K1 64 spp {k1_ms:.2f} ms (the "
+        f"frame) vs plain {p1_ms:.2f} ms ({p1_pixels} pixels, every "
+        f"{K1_PLAIN_STRIDE[mcfg.rng]}th column, {mcfg.rng} flow); refit "
+        f"{refit_ms:.3f} ms")
     # the regenerating K1's compiled budget and its walk loop's lane
     # utilisation (the counting instantiation, a diagnostic off the main
     # path) on the same 1080p/64 spp frame
@@ -1494,16 +1655,21 @@ def main() -> int:
     require(k8_standalone["closest_hit_tiered"] >= 1
             and k8_standalone["shadow_walk_tiered"] >= 1, "K8 was never launched")
 
-    # ---- 11 tiered K1 vs plain (320x180, 1 spp) and vs the whole-tree K1 ----
-    _, guv = pixel_grid(320, 180, dev)
-    gact = torch.ones(guv.shape[0], dtype=torch.bool, device=dev)
+    # ---- 11 tiered K1 vs plain (1 spp: 320x180 in the configured flow,
+    # 160x90 in the other) and vs the whole-tree K1 ----
+    def field_grid(w, h):
+        _, uv_ = pixel_grid(w, h, dev)
+        return uv_, torch.ones(uv_.shape[0], dtype=torch.bool, device=dev)
+
     k1t_err = 0.0
     for rng in ("threefry", "reference"):
-        gcfg = fcfg.replace(width=320, height=180, spp=1, rng=rng)
+        gw, gh = (320, 180) if rng == fcfg.rng else (160, 90)
+        guv, gact = field_grid(gw, gh)
+        gcfg = fcfg.replace(width=gw, height=gh, spp=1, rng=rng)
         k = megakernel.sample_wave(fws, gcfg, guv, gact, fcam, 0, 0, 5, 1)
         p, pms, work = counted(lambda w: megakernel.sample_wave_reference(
             fws, gcfg, guv, gact, fcam, 0, 0, 5, 1, work=w), torch, walk)
-        k1t_err = max(k1t_err, k1_compare("11 tiered K1", rng, k, p, 320, 180, 1))
+        k1t_err = max(k1t_err, k1_compare("11 tiered K1", rng, k, p, gw, gh, 1))
         if rng == fcfg.rng:
             p1t_ms, k1t_work, p1t_rays = pms, work, int(p[1])
             k1t_ms = cuda_ms(lambda: megakernel.sample_wave(
@@ -1911,16 +2077,20 @@ def main() -> int:
                         mcam, "15 K9")
     k9xp = phase1_1080p("15 K9", xcfg.replace(octant_bounce_walks=True))
     k9xc = cont_1080p("15 K9", xcfg.replace(octant_bounce_walks=True), k9x)
-    # the tiered K9 at phase 11's 320x180 (guv, gact)
-    t9 = fcfg.replace(width=320, height=180, spp=1, octant_bounce_walks=True)
-    k = megakernel.sample_wave(fws, t9, guv, gact, fcam, 0, 0, 5, 1)
+    # the tiered K9 at 160x90
+    huv, hact = field_grid(160, 90)
+    t9 = fcfg.replace(width=160, height=90, spp=1, octant_bounce_walks=True)
+    k = megakernel.sample_wave(fws, t9, huv, hact, fcam, 0, 0, 5, 1)
     p, p9t_ms, k9t_work = counted(lambda w: megakernel.sample_wave_reference(
-        fws, t9, guv, gact, fcam, 0, 0, 5, 1, work=w), torch, walk)
-    k9t_err = k1_compare("15 K9", t9.rng, k, p, 320, 180, 1, "tiered K9")
+        fws, t9, huv, hact, fcam, 0, 0, 5, 1, work=w), torch, walk)
+    k9t_err = k1_compare("15 K9", t9.rng, k, p, 160, 90, 1, "tiered K9")
     k9t_ms = cuda_ms(lambda: megakernel.sample_wave(
-        fws, t9, guv, gact, fcam, 0, 0, 5, 1), 5, torch)
-    say(f"[15 K9] tiered K9, field 320x180/1 spp: {k9t_ms:.3f} ms vs plain "
-        f"{p9t_ms:.2f} ms; the tiered K1 {k1t_ms:.3f} ms")
+        fws, t9, huv, hact, fcam, 0, 0, 5, 1), 5, torch)
+    k1t_160_ms = cuda_ms(lambda: megakernel.sample_wave(
+        fws, t9.replace(octant_bounce_walks=False), huv, hact, fcam, 0, 0, 5, 1), 5,
+        torch)
+    say(f"[15 K9] tiered K9, field 160x90/1 spp: {k9t_ms:.3f} ms vs plain "
+        f"{p9t_ms:.2f} ms; the tiered K1 {k1t_160_ms:.3f} ms")
     k9_standalone = dict(ext.LAUNCHES)
     require(all(k9_standalone[k] >= 1 for k in (
         "sample_wave_octant", "sample_wave_tiered_octant",
@@ -2358,25 +2528,23 @@ def main() -> int:
 
     # the slice's path at full width: the demo at 1080p/64 spp through
     # render_radiance_with_stats with kernels="pallas-ml"
+    # (three 64-spp dispatches in all, ~5.5 s each: the warm-up, one timed
+    # dispatch, and the evented one below)
     mlcfg = mcfg.replace(kernels="pallas-ml")
-    render_radiance_with_stats(marrays, mcam, mlcfg)  # warm-up
-    torch.cuda.synchronize()
+    (_, warm_rays), warm_ms = timed(lambda: render_radiance_with_stats(
+        marrays, mcam, mlcfg), torch)
     ext.reset_launches()
-    ml_times, ml_rays = [], set()
-    for _ in range(3):
-        (mlimg, r_), ms = timed(lambda: render_radiance_with_stats(
-            marrays, mcam, mlcfg), torch)
-        ml_times.append(ms)
-        ml_rays.add(int(r_))
+    (mlimg, r_), ml_ms = timed(lambda: render_radiance_with_stats(
+        marrays, mcam, mlcfg), torch)
     ml_launches = dict(ext.LAUNCHES)
-    n_disp = len(ml_times)
+    ml_rays = {int(warm_rays), int(r_)}
+    n_disp = 1
     got = {k: v for k, v in ml_launches.items() if v}
-    ml_med = statistics.median(ml_times)
-    ml_rays_pd = min(ml_rays)
+    ml_rays_pd = int(r_)
     say(f"[18 pallas-ml] 1920x1080 spp 64, 5 bounces, kernels='pallas-ml' on {kind} "
-        f"({smi}): median {ml_med:.2f} ms, best {min(ml_times):.2f} ms per dispatch "
-        f"over {n_disp} ({', '.join(f'{t:.2f}' for t in ml_times)}); {ml_rays_pd} rays "
-        f"per dispatch, {ml_rays_pd / ml_med / 1e3:.1f} Mrays/s median; launches {got}")
+        f"({smi}): {ml_ms:.2f} ms per dispatch (one timed dispatch; the warm-up "
+        f"{warm_ms:.2f} ms); {ml_rays_pd} rays per dispatch, "
+        f"{ml_rays_pd / ml_ms / 1e3:.1f} Mrays/s; launches {got}")
     require(mlimg.shape == (1080, 1920, 3) and bool(torch.isfinite(mlimg).all()),
             "pallas-ml frame shape or values")
     require(len(ml_rays) == 1, "pallas-ml ray count differs between dispatches")
@@ -2692,6 +2860,11 @@ def main() -> int:
         row("K1 sample_wave", "sample_kernel.cu", "rayzen_tpu/ops/megakernel.py:460",
             launches["sample_wave"], k1_err, k1_ms, p1_ms, k1_work,
             mtab + R * sample_b, shape="demo 1080p, 64 spp",
+            plain_shape=f"{p1_pixels} pixels of the frame (every "
+            f"{K1_PLAIN_STRIDE[mcfg.rng]}th column, {mcfg.rng} flow)",
+            plain_pixels=p1_pixels,
+            bound_ms_estimate="walk work of the plain version's column subset "
+            "times the pixel ratio",
             walk_lane_utilisation=lanes_demo, budget=budget["bvh2"]),
         row("K2 closest_hit_bvh2", "walk_kernels.cu",
             "rayzen_tpu/ops/pallas_traverse.py:243", launches["closest_hit_bvh2"],
@@ -2761,9 +2934,9 @@ def main() -> int:
         row("K9 sample_wave_tiered_octant", "sample_kernel.cu",
             "rayzen_tpu/ops/megakernel.py:215",
             k9_paths["field"]["sample_wave_tiered_octant"], k9t_err, k9t_ms, p9t_ms,
-            k9t_work, ftab + 320 * 180 * sample_b,
+            k9t_work, ftab + 160 * 90 * sample_b,
             standalone_launches=k9_standalone["sample_wave_tiered_octant"],
-            shape="field 320x180, 1 spp", field_1080p_4spp_ms=k9t_1080_ms,
+            shape="field 160x90, 1 spp", field_1080p_4spp_ms=k9t_1080_ms,
             walk_lane_utilisation_field_1080p_4spp=lanes9t,
             budget=budget9["tiered_octant"]),
         row("K9 sample_wave_phase1_octant", "sample_kernel.cu",
@@ -2816,7 +2989,8 @@ def main() -> int:
             incoherent_rays_ms=k7_inc_ms, k2_incoherent_rays_ms=k2_inc_ms,
             shape="demo 1080p primary rays",
             main_path="kernels='pallas-ml', demo 1080p/64 spp",
-            pallas_ml_dispatch_median_ms=ml_med, pallas_ml_profile=ml_profile,
+            pallas_ml_dispatch_timed_ms=ml_ms, pallas_ml_warmup_ms=warm_ms,
+            pallas_ml_profile=ml_profile,
             staged_dispatches=staged, budget=k7_budget["closest_misslink"],
             pallas_ml_sample_waves=[w for w in k7_waves if w["wave"].startswith("closest")],
             pallas_ml_dispatch_ms=k7_dispatch_closest,
@@ -2897,6 +3071,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in phase20:
             k["phase20"] = phase20[k["name"]]
+    # ---- 21 the last functions: the BLAS and scene walks, the BVH and PPM
+    # files, ref_rand, build_scene_tlas ----
+    last_functions_phase(torch, np, dev)
+    print(json.dumps({"phase_seconds": phase_seconds(),
+                      "total_s": round(time.perf_counter() - START, 1)}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

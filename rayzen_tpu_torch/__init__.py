@@ -34,7 +34,10 @@ from .packing import (  # noqa: F401
 from .integrator import (  # noqa: F401
     render_radiance, render_radiance_with_stats, render_rays,
 )
+from .renderer import Renderer  # noqa: F401
 from .deform import render_deforming, world_from_deforming  # noqa: F401
+from .bigscene import partition_scene, render_radiance_chunked  # noqa: F401
+from .interactive import InteractiveSession  # noqa: F401
 from .parallel import make_mesh, render_radiance_sharded  # noqa: F401
 from . import procedural  # noqa: F401
 

@@ -18,9 +18,10 @@ Two TPU-motivated departures from the reference layout:
    indirection buffer (blasTriIndices, fragment_shader.glsl:81-83) disappears.
 
 This is the portable pure-numpy builder, carried over from rayzen_tpu
-unchanged apart from its BVH disk format (save_bvh / load_bvh) and its
-brute-force test oracle, which nothing in this package uses. accel/native.py
-binds the C++ implementation of the same algorithm (identical arrays,
+unchanged, with its BVH disk format (``save_bvh`` / ``load_bvh``: the same
+NPZ files, so either package loads the other's) and its numpy brute-force
+oracle (``brute_force_closest_hit``). accel/native.py binds the C++
+implementation of the same algorithm (identical arrays,
 tests/test_torch_native.py), which the packer uses when it is available.
 """
 
@@ -248,3 +249,59 @@ def compute_miss_links(left_first: np.ndarray, count: np.ndarray) -> np.ndarray:
             stack.append((right, m))
     return miss
 
+
+def save_bvh(path: str, bvh: BLAS) -> None:
+    """Serialize a built BVH to disk (BVH::saveToFile parity, BVH.cpp:242-253;
+    NPZ instead of raw PODs)."""
+    np.savez_compressed(
+        path if path.endswith(".npz") else path + ".npz",
+        bounds_min=bvh.bounds_min,
+        bounds_max=bvh.bounds_max,
+        left_first=bvh.left_first,
+        count=bvh.count,
+        miss=bvh.miss,
+        order=bvh.order,
+    )
+
+
+def load_bvh(path: str) -> BLAS:
+    """Load a serialized BVH (BVH::loadFromFile parity, BVH.cpp:254-265)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    with np.load(path) as z:
+        return BLAS(
+            bounds_min=z["bounds_min"],
+            bounds_max=z["bounds_max"],
+            left_first=z["left_first"],
+            count=z["count"],
+            miss=z["miss"],
+            order=z["order"],
+        )
+
+
+def brute_force_closest_hit(origin, direction, tri_verts, t_eps=1e-4, det_eps=1e-4):
+    """Numpy Moller-Trumbore in float64 over *all* triangles of a (T, 3, 3)
+    soup for one ray: (index of the nearest hit, its t), or (-1, inf) — the
+    oracle for BVH property tests."""
+    o = np.asarray(origin, np.float64)
+    d = np.asarray(direction, np.float64)
+    v = np.asarray(tri_verts, np.float64)
+    if v.shape[0] == 0:
+        return -1, np.inf
+    e1 = v[:, 1] - v[:, 0]
+    e2 = v[:, 2] - v[:, 0]
+    h = np.cross(d[None, :], e2)
+    a = np.einsum("ij,ij->i", e1, h)
+    ok = np.abs(a) >= det_eps
+    f = np.where(ok, 1.0 / np.where(ok, a, 1.0), 0.0)
+    s = o[None, :] - v[:, 0]
+    u = f * np.einsum("ij,ij->i", s, h)
+    q = np.cross(s, e1)
+    vv = f * np.einsum("j,ij->i", d, q)
+    t = f * np.einsum("ij,ij->i", e2, q)
+    ok &= (u >= 0) & (u <= 1) & (vv >= 0) & (u + vv <= 1) & (t > t_eps)
+    if not ok.any():
+        return -1, np.inf
+    t = np.where(ok, t, np.inf)
+    idx = int(np.argmin(t))
+    return idx, float(t[idx])

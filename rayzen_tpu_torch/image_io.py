@@ -1,5 +1,5 @@
-"""Framebuffer output (a minimal dependency-free PNG writer) and the SSIM
-image-parity metric.
+"""Framebuffer output (a minimal dependency-free PNG writer, and binary PPM
+read and write) and the SSIM image-parity metric.
 
 The reference presents frames to a GLFW window; this framework renders offscreen
 (SURVEY.md §7 "interactive layer") and presents via image files. Frames are
@@ -49,6 +49,34 @@ def write_png(path: str, img: np.ndarray, compress_level: int = 6) -> None:
     )
     with open(path, "wb") as f:
         f.write(png)
+
+
+def write_ppm(path: str, img: np.ndarray, flip_vertical: bool = True) -> None:
+    """img: (H, W, 3) float [0,1] or uint8, as a binary PPM (P6); rows are
+    flipped to top-down unless ``flip_vertical`` is False."""
+    data = img if img.dtype == np.uint8 else to_uint8(img)
+    if flip_vertical:
+        data = data[::-1]
+    h, w = data.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(data.tobytes())
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """A binary PPM (P6, maxval 255, comment lines before the size) as (H,
+    W, 3) uint8 in file row order."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"P6":
+            raise ValueError(f"{path}: not a binary PPM (P6)")
+        line = f.readline()
+        while line.startswith(b"#"):
+            line = f.readline()
+        w, h = (int(x) for x in line.split())
+        if int(f.readline()) != 255:
+            raise ValueError(f"{path}: maxval is not 255")
+        data = np.frombuffer(f.read(w * h * 3), dtype=np.uint8)
+    return data.reshape(h, w, 3)
 
 
 def ssim(a: np.ndarray, b: np.ndarray, window: int = 8) -> float:

@@ -84,3 +84,17 @@ def moller_trumbore(origin, direction, v0, e1, e2):
 
 def face_normal(e1, e2):
     return normalize(cross3(e1, e2), eps=1e-20)
+
+
+class Ray:
+    """Host-side ray (origin + direction) with point_at: API parity with the
+    reference's CPU Ray (RayZen/include/Ray.h:6-18), which the render path
+    does not use either (rays are (R, 3) tensors there). Float32 tensors on
+    the device the inputs carry (the CPU for numbers and arrays)."""
+
+    def __init__(self, origin, direction):
+        self.origin = torch.as_tensor(origin, dtype=torch.float32)
+        self.direction = torch.as_tensor(direction, dtype=torch.float32)
+
+    def point_at(self, t):
+        return self.origin + self.direction * t

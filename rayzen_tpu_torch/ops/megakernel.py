@@ -385,21 +385,28 @@ def octant_walk_reference(ws: WorldArrays, origin, direction, active,
     return tuple(out)
 
 
+def _per_ray(x, sel):
+    """x[sel] for a per-ray tensor, x itself for one value shared by all."""
+    return x[sel] if isinstance(x, torch.Tensor) and x.dim() else x
+
+
 def _ref_draws(s0, s1, samp_f):
     """Per-bounce sin-hash draws of the rays ``sel`` (indices into s0/s1)."""
 
     def draws(b, sel):
         b_f = torch.tensor(float(b), dtype=torch.float32, device=s0.device)
-        return _bounce_draws_reference(s0[sel], s1[sel], samp_f, b_f)
+        return _bounce_draws_reference(s0[sel], s1[sel], _per_ray(samp_f, sel), b_f)
 
     return draws
 
 
-def _sampler(c: _Consts, u, v, h_pix, s: int):
+def _sampler(c: _Consts, u, v, h_pix, s):
     """Sample ``s``'s jitter and per-bounce draws for rays (u, v): (jx, jy,
-    draws(b, sel), the sin-hash seeds (s0, s1) or None)."""
+    draws(b, sel), the sin-hash seeds (s0, s1) or None). ``s`` is one sample
+    index, or an int64 tensor of one per ray."""
     dev = u.device
-    samp_f = torch.tensor(c.samp0, dtype=torch.float32, device=dev) + float(s)
+    samp_f = torch.tensor(c.samp0, dtype=torch.float32, device=dev) + (
+        s.float() if isinstance(s, torch.Tensor) else float(s))
     if not c.hash_rng:
         # seed = uv * (fragX + fragY + samp + 1) (glsl:688); frag =
         # floor(uv * res) + 0.5, so fragX + fragY = floor(u*W) + floor(v*H) + 1
@@ -415,7 +422,7 @@ def _sampler(c: _Consts, u, v, h_pix, s: int):
     jy = (_u32_to_unit_float(_hash_u32(jbase + 1)) - 0.5) / c.height
 
     def draws(b, sel):
-        return _bounce_draws_hash(h_pix[sel], samp_u, b)
+        return _bounce_draws_hash(h_pix[sel], _per_ray(samp_u, sel), b)
 
     return jx, jy, draws, None
 
@@ -576,16 +583,24 @@ def _bounces(ws, c: _Consts, sel, path, color, rays, draws, b_start: int,
     return sel, (ox, oy, oz, dx, dy, dz, tx, ty, tz, ior)
 
 
-def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s: int, b_stop: int, work,
+def _one_sample(ws, c: _Consts, cam, u, v, h_pix, s, b_stop: int, work,
                 packet_ids):
-    """One sample for rays with uv (u, v), all active, through bounce
-    b_stop - 1. Returns (color (n, 3), rays (n,) int64, the rays alive at the
-    end, their paths, the sin-hash seeds or None)."""
+    """One sample (``s``: its index, or one per ray) for rays with uv (u,
+    v), all active, through bounce b_stop - 1. Returns (color (n, 3), rays
+    (n,) int64, the rays alive at the end, their paths, the sin-hash seeds
+    or None)."""
     jx, jy, draws, seeds = _sampler(c, u, v, h_pix, s)
     color, rays, sel, path = _bounce0(ws, c, cam, u, v, jx, jy, draws, work,
                                       packet_ids)
     sel, path = _bounces(ws, c, sel, path, color, rays, draws, 1, b_stop, work)
     return color, rays, sel, path, seeds
+
+
+# (pixel, sample) rays a pass of the plain K1 traces at most: on the card,
+# where a pass costs its torch launches more than its arithmetic, about one
+# 1080p frame; on the CPU, whose passes cost their arithmetic, few enough
+# to keep a pass's walk stacks (512 B a ray or more) small
+PLAIN_BATCH_RAYS = {"cuda": 1 << 21, "cpu": 1 << 16}
 
 
 def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
@@ -598,7 +613,14 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
     rays () int64). ``work`` counts the walks' steps.
 
     K6's packets are the kernel's warps (pixel_warps): a warp's 8 x 4 pixel
-    tile, its active pixels, in every sample."""
+    tile, its active pixels, in every sample.
+
+    Each pixel's path depends only on its pixel and sample, so up to
+    PLAIN_BATCH_RAYS[device type] (pixel, sample) rays are traced in one
+    pass; the samples' colours are still summed one sample at a time in the
+    kernel's order. On the card a pass costs about as much at 30,000 rays as
+    at 2 million (its walks' torch launches), so batching the samples of a
+    small wave saves most of its time."""
     c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
     walk.check_walks(ws, c.wide)
     n, dev = uv.shape[0], uv.device
@@ -617,14 +639,22 @@ def sample_wave_reference(ws: WorldArrays, cfg: RenderConfig, uv, active,
         h_pix = _hash_u32(pixel_id ^ key_h)
     groups = n_samples // c.fuse
     packets = pixel_warps(n, c.width, c.height, dev)[idx] if c.frustum else None
+    m = idx.numel()
+    cap = PLAIN_BATCH_RAYS.get(dev.type, PLAIN_BATCH_RAYS["cpu"])
+    per = max(1, min(groups, cap // max(1, m)))  # samples a pass
     for sb in range(c.fuse):  # sample fusion's order of summation
-        acc = torch.zeros((idx.numel(), 3), dtype=torch.float32, device=dev)
-        for g in range(groups):
-            col_s, rays_s, *_ = _one_sample(ws, c, cam, u, v, h_pix,
-                                            g * c.fuse + sb, max_bounces, work,
-                                            packets)
-            acc = acc + col_s
-            rays[idx] = rays[idx] + rays_s
+        acc = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+        for g0 in range(0, groups, per):
+            k = min(per, groups - g0)
+            gs = torch.arange(g0, g0 + k, device=dev)
+            col_s, rays_s, *_ = _one_sample(
+                ws, c, cam, u.repeat(k), v.repeat(k),
+                None if h_pix is None else h_pix.repeat(k),
+                (gs * c.fuse + sb).repeat_interleave(m), max_bounces, work,
+                None if packets is None else (packets + n * gs[:, None]).reshape(-1))
+            for j in range(k):
+                acc = acc + col_s[j * m:(j + 1) * m]
+            rays[idx] = rays[idx] + rays_s.reshape(k, m).sum(0)
         color[idx] = color[idx] + acc
     return color, rays.sum()
 

@@ -125,6 +125,12 @@ def _ref_rand(x, y):
     return s - torch.floor(s)
 
 
+def ref_rand(uv):
+    """The sin hash over a (..., 2) float32 tensor (rand(), glsl:188-190),
+    bit for bit XLA's CPU arithmetic on any device."""
+    return _ref_rand(uv[..., 0], uv[..., 1])
+
+
 def _tempseed(s, b_f):
     """seed * (b * b) * 12793.46 + b * 1423.34 (glsl:696), fused as XLA
     fuses it; ``b_f`` the bounce as a float32 tensor."""

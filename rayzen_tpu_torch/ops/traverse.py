@@ -1,4 +1,5 @@
-"""The portable walks of the per-wave path, and the brute-force oracles.
+"""The portable walks of the per-wave path, the object-space BLAS walk, and
+the brute-force oracles.
 
 Port of rayzen_tpu/ops/traverse.py: ``traverse_world`` and ``shadow_walk``
 are the stackless miss-link walks over WorldArrays.records (one row gather
@@ -10,7 +11,10 @@ the hit's attributes from the world triangle arrays, and the shadow walk
 takes a blocker's transparency from its material row. ``brute_force_world``
 and ``shadow_brute`` intersect every world triangle (the ground truth the
 reference never had); they are chunked over rays to bound memory. Ray counts
-are int64.
+are int64. ``traverse_blas`` is the stackless walk over one instance's BLAS
+in object space (SceneArrays.node_bounds / node_meta and the packed
+triangles), and ``traverse_scene`` / ``brute_force_scene`` refit a
+SceneArrays with ``world_geometry`` before walking it.
 """
 
 from __future__ import annotations
@@ -18,10 +22,57 @@ from __future__ import annotations
 import torch
 
 from ..material import TRANSPARENCY
-from ..packing import WorldArrays
+from ..packing import SceneArrays, WorldArrays, world_geometry
 from . import walk
-from .intersect import T_FAR, cross3, face_normal, moller_trumbore
+from .intersect import (
+    T_FAR, cross3, face_normal, moller_trumbore, safe_inv, slab_test,
+)
 from .walk import Hit
+
+
+def traverse_blas(arrays: SceneArrays, origin, direction, active,
+                  node_offset: int, tri_offset: int, leaf_size: int = 4):
+    """Stackless walk over one BLAS (rows node_offset.. of node_bounds /
+    node_meta) for object-space rays (R, 3), directions normalized. At node
+    cur a ray prunes the node unless its box is hit at tmin <= the ray's
+    best t; a hit internal node (count -1) sends it to its left child, a hit
+    leaf tests its first ``count`` of ``leaf_size`` contiguous triangles
+    (from tri_offset + left_first) and, like a miss or the empty mesh's
+    count-0 root, sends it to the node's miss link; -1 ends the walk. The
+    unfinished rays advance one node per step until none is left. Returns
+    (t_local (R,), T_FAR where nothing is hit; tri (R,) int32 global
+    triangle index or -1)."""
+    n, dev = origin.shape[0], origin.device
+    inv_dir = safe_inv(direction)
+    t_best = torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
+    tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    last = arrays.tri_v0.shape[0] - 1
+    live = active.nonzero()[:, 0]
+    cur = torch.zeros_like(live)
+    while live.numel():
+        bounds = arrays.node_bounds[node_offset + cur]
+        left_first, count, miss = arrays.node_meta[node_offset + cur].long().unbind(1)
+        o, d, tb = origin[live], direction[live], t_best[live]
+        tmin, _, box_hit = slab_test(o, inv_dir[live], bounds[:, :3], bounds[:, 3:])
+        box_ok = box_hit & (tmin <= tb)
+        is_leaf = count >= 0
+        rows = (box_ok & is_leaf).nonzero()[:, 0]
+        if rows.numel():
+            ids, o, d, tb = live[rows], o[rows], d[rows], tb[rows]
+            tri = tri_best[ids]
+            base, cnt = tri_offset + left_first[rows], count[rows]
+            for k in range(leaf_size):
+                tid = (base + k).clamp(max=last)
+                t, h = moller_trumbore(o, d, arrays.tri_v0[tid], arrays.tri_e1[tid],
+                                       arrays.tri_e2[tid])
+                better = (k < cnt) & h & (t < tb)
+                tb = torch.where(better, t, tb)
+                tri = torch.where(better, tid.to(torch.int32), tri)
+            t_best[ids], tri_best[ids] = tb, tri
+        nxt = torch.where(box_ok & ~is_leaf, left_first, miss)
+        live, cur = live[nxt >= 0], nxt[nxt >= 0]
+    return t_best, tri_best
+
 
 def _resolve_hit(ws: WorldArrays, origin, direction, t_best, tri_best) -> Hit:
     """A Hit from (t, winning triangle): point, instance, the oriented
@@ -130,3 +181,14 @@ def hit_shading_data(ws: WorldArrays, hit: Hit):
     (glsl:411, :489-490)."""
     mat_idx = hit.mat.clamp(min=0)
     return hit.normal, material_rows(ws, mat_idx), mat_idx
+
+
+def traverse_scene(arrays: SceneArrays, origin, direction, active) -> Hit:
+    """Refit to world space, then walk. Hot paths call world_geometry once
+    per frame and use traverse_world directly."""
+    return traverse_world(world_geometry(arrays), origin, direction, active)
+
+
+def brute_force_scene(arrays: SceneArrays, origin, direction, active) -> Hit:
+    """brute_force_world over the refit world arrays."""
+    return brute_force_world(world_geometry(arrays), origin, direction, active)

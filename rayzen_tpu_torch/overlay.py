@@ -364,6 +364,11 @@ def composite_core(
     return torch.clamp(color, 0.0, 1.0).reshape(height, width, 3)
 
 
+# JAX splits the overlays into composite_traced and its jit, composite_core;
+# torch has no trace to split, so both names are the one function.
+composite_traced = composite_core
+
+
 def build_overlay_inputs(arrays: SceneArrays, cfg):
     """The box operands of composite_core for the current toggles, on the
     device of ``arrays``: ((t_corners, t_colors, t_mask, use_t), (b_...)).

@@ -43,7 +43,7 @@ from . import logging_util as log
 from .accel.builder import BLAS, build_tlas
 # the native C++ BLAS builder, which runs the numpy one where it cannot load:
 # both give the same arrays (rayzen_tpu/packing.py:227-228)
-from .accel.native import build_blas
+from .accel.native import build_blas, build_tlas as native_build_tlas
 from .config import RenderConfig
 from .light import pack_lights
 from .material import pack_materials
@@ -1046,6 +1046,15 @@ def instance_world_aabbs(arrays: SceneArrays):
     w = _mat3_apply(arrays.transforms[:, None, :3, :3], corners)
     w = w + arrays.transforms[:, None, :3, 3]
     return w.amin(dim=1), w.amax(dim=1)
+
+
+def build_scene_tlas(arrays: SceneArrays):
+    """A TLAS over the instances' current world AABBs (BVH::buildTLAS
+    parity), built on the host by the native builder where it is built (the
+    numpy one otherwise: the same arrays). The AABBs are computed on the
+    arrays' device and read back."""
+    wmin, wmax = instance_world_aabbs(arrays)
+    return native_build_tlas(host_array(wmin), host_array(wmax))
 
 
 def _det3_sign(m):

@@ -59,8 +59,8 @@ def test_tile_map(shape):
 def test_plain_frustum_k1_with_tile_packets(rng, monkeypatch):
     """At 64x48 with an inactive pixel in every warp, 2 spp: the plain
     frustum K1 walks each sample's primary rays in the packets of the
-    kernel's warps and renders the plain K1's image bit for bit, with equal
-    rays."""
+    kernel's warps (both samples in one pass, each sample's packets apart)
+    and renders the plain K1's image bit for bit, with equal rays."""
     w, h = 64, 48
     scene = build_small_scene(w, h)
     cfg = RenderConfig(width=w, height=h, spp=2, max_bounces=5, rng=rng)
@@ -79,9 +79,9 @@ def test_plain_frustum_k1_with_tile_packets(rng, monkeypatch):
                                     cam, 0, 0, 5, 2)
     monkeypatch.undo()
     idx = act.nonzero()[:, 0]
-    assert len(packets) == 2  # one packet walk per sample, over the warps
-    for p in packets:
-        assert torch.equal(p, megakernel.pixel_warps(n, w, h)[idx])
+    assert len(packets) == 1  # one pass: both samples' packet walks, over the warps
+    warps = megakernel.pixel_warps(n, w, h)[idx]
+    assert torch.equal(packets[0], torch.cat([warps, warps + n]))
     kc, kr = megakernel.sample_wave(ws, cfg, uv, act, cam, 0, 0, 5, 2)
     assert torch.equal(fc, kc) and int(fr) == int(kr) > 0
     assert (fc[~act] == 0).all()
