@@ -1,0 +1,12 @@
+"""glue_device_ms: device time of every kernel that is not K1 (the refit,
+the pixel grid, the /spp clip, the accumulation), per frame, from the
+trace."""
+
+from benchmark.harness.trace import K1_KERNEL
+
+
+def read(run):
+    if run.trace is None or not run.trace.frames:
+        return None
+    us = run.trace.total_us(lambda o: o.cat == "kernel" and not K1_KERNEL.search(o.name))
+    return us * 1e-3 / run.trace.frames if us else None
