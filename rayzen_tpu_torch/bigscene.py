@@ -39,6 +39,7 @@ from .mesh import Mesh
 from .ops import camera_rays, walk
 from .ops.traverse import shadow_walk, traverse_world
 from .packing import SINGLE_TREE_VMEM_BUDGET, world_geometry
+from .profiler import span
 from .scene import GameObject, Scene
 
 # Per-chunk world-triangle budget: JAX's, derived from its single-tree VMEM
@@ -195,7 +196,10 @@ def render_radiance_chunked(
 
     max_bounces = max_bounces or cfg.max_bounces
     use_kernels = cfg.kernels != "xla"
-    ws_list = [world_geometry(a) for a in arrays_list]
+    ws_list = []
+    for a in arrays_list:
+        with span("rz.refit"):
+            ws_list.append(world_geometry(a))
     frame = dict(width=cfg.width, height=cfg.height)
 
     def trace_fn(_ws, origin, direction, active):

@@ -76,6 +76,7 @@ from .ops.traverse import (
     brute_force_world, hit_shading_data, shadow_brute, traverse_world,
 )
 from .packing import SceneArrays, WorldArrays, world_geometry
+from .profiler import span
 
 KERNELS = ("auto", "pallas", "pallas-ml", "pallas-bvh2", "pallas-nomega", "xla")
 TRACERS = ("bvh", "brute")
@@ -309,7 +310,8 @@ def render_rays(
     uv or frag), not by its slot in the wave, so any wave of a frame's
     pixels renders them as the whole frame does (parallel.py's tiles)."""
     check_config(cfg, tracer)
-    ws = world_geometry(arrays)  # one refit per frame, shared by all waves
+    with span("rz.refit"):
+        ws = world_geometry(arrays)  # one refit per frame, shared by all waves
     return render_world_rays(ws, frag, uv, camera_params, cfg, max_bounces,
                              tracer, rng_key, active, with_stats)
 

@@ -30,6 +30,11 @@ def set_level(level: str) -> None:
     _logger.setLevel(_LEVELS[level.lower()])
 
 
+def debug_on() -> bool:
+    """Whether debug messages are written (to skip building them)."""
+    return _logger.isEnabledFor(logging.DEBUG)
+
+
 def debug(msg: str) -> None:
     _logger.debug(msg)
 

@@ -41,6 +41,7 @@ from .. import ext
 from .. import logging_util as log
 from ..config import RenderConfig
 from ..packing import WorldArrays
+from ..profiler import span
 from . import camera_rays, walk
 from .shade import pow5
 from .rng import (  # noqa: F401 (sinf_libm: the K1 tests read it here)
@@ -727,18 +728,19 @@ def sample_wave(ws: WorldArrays, cfg: RenderConfig, uv, active,
     its wide one under cfg.wide_nodes, the K6 primary walk under
     cfg.frustum_primary, K9 bounce walks under cfg.octant_bounce_walks), the
     plain version on CPU tensors."""
-    if ws.tiered and cfg.wide_nodes:  # megakernel.py:1101-1105
-        log.info("wide_nodes ignored: the scene packed the treelet view; "
-                 "using the tiered walks")
-    if uv.device.type == "cpu":
-        return sample_wave_reference(ws, cfg, uv, active, camera_params, samp,
-                                     rng_key, max_bounces, n_samples)
-    if not uv.is_cuda:
-        raise ValueError(f"no K1 for device {uv.device}")
-    c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
-    color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
-                                    max_bounces, phase1=False)
-    return color, rays.sum(dtype=torch.int64)
+    with span("rz.k1.launch"):
+        if ws.tiered and cfg.wide_nodes:  # megakernel.py:1101-1105
+            log.info("wide_nodes ignored: the scene packed the treelet view; "
+                     "using the tiered walks")
+        if uv.device.type == "cpu":
+            return sample_wave_reference(ws, cfg, uv, active, camera_params,
+                                         samp, rng_key, max_bounces, n_samples)
+        if not uv.is_cuda:
+            raise ValueError(f"no K1 for device {uv.device}")
+        c = _consts(cfg, samp, rng_key, max_bounces, n_samples, ws.tiered)
+        color, rays, _ = _launch_sample(ws, c, uv, active, camera_params,
+                                        max_bounces, phase1=False)
+        return color, rays.sum(dtype=torch.int64)
 
 
 def walk_lane_counts(ws: WorldArrays, cfg: RenderConfig, uv, active,

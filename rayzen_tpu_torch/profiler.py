@@ -1,4 +1,5 @@
-"""Frame timing, throughput counters, and FPS smoothing.
+"""Frame timing, throughput counters, FPS smoothing, and the frame loop's
+spans.
 
 Reference (SURVEY.md §5 "Tracing / profiling"): std::chrono spans everywhere —
 startup step timers (main.cpp:163-176), per-frame total/input/bvh/send/render/swap
@@ -7,15 +8,100 @@ alpha=0.1 for the overlay (main.cpp:624-630). This module reproduces those
 patterns for the port's frame loop (phases: update/render/overlay/readback) and adds
 what the reference lacked (SURVEY.md §6): a rays/second counter, since the
 benchmark target is Mrays/s.
+
+Spans (``span``) mark the frame loop's layer boundaries. They are on
+exactly while a torch profiler records (as an operator does to look at a
+frame): each is then a ``torch.profiler.record_function`` range, in the
+exported trace beside the kernels and copies and on their clock, and a
+record ``(name, frame, parent, t0_ns, t1_ns)`` on the host's
+``perf_counter_ns`` clock in a bounded buffer that ``spans()`` reads. Off,
+``span`` costs one check and returns a shared no-op context.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+import torch
+
 from . import logging_util as log
+
+_profiler_enabled = torch.autograd._profiler_enabled  # whether a profiler records
+SPAN_BUFFER = 65536
+_SPANS: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack = []  # the thread's open spans, innermost last
+
+
+_open = _OpenSpans()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "frame", "parent", "t0", "_range")
+
+    def __init__(self, name: str, frame: Optional[int]):
+        self.name = name
+        self.frame = frame
+
+    def __enter__(self):
+        stack = _open.stack
+        outer = stack[-1] if stack else None
+        self.parent = outer.name if outer else None
+        if self.frame is None and outer is not None:
+            self.frame = outer.frame  # a frame's spans all carry its number
+        stack.append(self)
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        _open.stack.pop()
+        _SPANS.append((self.name, self.frame, self.parent, self.t0, t1))
+        return False
+
+
+def span(name: str, frame: Optional[int] = None):
+    """A context around one step of the frame loop, recorded only while a
+    torch profiler records. ``frame``: the frame's number; a span opened
+    without one takes its enclosing span's. A span inside an open span of
+    the same name (the synchronous frame's overlay phase around the
+    composite) adds nothing."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    stack = _open.stack
+    if stack and stack[-1].name == name:
+        return _NO_SPAN
+    return _Span(name, frame)
+
+
+def spans() -> list:
+    """The recorded spans, oldest first: (name, frame, parent name or None,
+    start, end), the times in ``time.perf_counter_ns()`` nanoseconds. The
+    buffer keeps the newest SPAN_BUFFER."""
+    return list(_SPANS)
 
 
 class StartupTimer:
@@ -23,7 +109,6 @@ class StartupTimer:
 
     def __init__(self):
         self._last = time.perf_counter()
-        self._t0 = self._last
 
     def step(self, name: str) -> float:
         now = time.perf_counter()
@@ -31,9 +116,6 @@ class StartupTimer:
         self._last = now
         log.info(f"[startup] {name}: {dt:.1f} ms")
         return dt
-
-    def total(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e3
 
 
 class FrameProfiler:
@@ -55,9 +137,11 @@ class FrameProfiler:
 
     @contextmanager
     def phase(self, name: str):
+        """Time a phase of the synchronous frame, as the span ``rz.<name>``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span("rz." + name):
+                yield
         finally:
             self._phases[name] = self._phases.get(name, 0.0) + (
                 time.perf_counter() - t0
@@ -99,7 +183,7 @@ class FrameProfiler:
         rec["fps"] = fps
         if rays_traced:
             rec["mrays_per_s"] = rays_traced / (total_ms * 1e3)
-        if self.frame_index < self.log_first_n:
+        if self.frame_index < self.log_first_n and log.debug_on():
             parts = " ".join(
                 f"{k}={v:.2f}ms" for k, v in self._phases.items()
             )

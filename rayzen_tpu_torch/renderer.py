@@ -53,7 +53,7 @@ from .overlay import build_overlay_inputs, camera_view_proj, composite_core
 from .packing import host_array, pack_scene
 from .parallel import make_mesh, render_radiance_sharded, replicate
 from .preview import render_preview
-from .profiler import FrameProfiler, StartupTimer
+from .profiler import FrameProfiler, StartupTimer, span
 from .scene import Scene
 
 
@@ -324,14 +324,15 @@ class Renderer:
         """The progressive average, accum * (1 - a) + img * a with a =
         1 / count in float32, in that order (JAX's _accum_update). Out of
         place, so a frame in flight keeps its own accumulator."""
-        if self._accum is None:
-            self._accum = img
-            self._accum_count = 1
-        else:
-            self._accum_count += 1
-            a = np.float32(1.0 / self._accum_count)
-            self._accum = (self._accum * float(np.float32(1.0) - a)
-                           + img * float(a))
+        with span("rz.accumulate"):
+            if self._accum is None:
+                self._accum = img
+                self._accum_count = 1
+            else:
+                self._accum_count += 1
+                a = np.float32(1.0 / self._accum_count)
+                self._accum = (self._accum * float(np.float32(1.0) - a)
+                               + img * float(a))
         return self._accum
 
     def _use_preview(self, mode: str) -> bool:
@@ -342,8 +343,12 @@ class Renderer:
         return self.frame_index if self.cfg.accumulate else 0
 
     def _readback(self, img, rays):
-        out = img.cpu().numpy()  # the sync point
-        return out, (0 if rays is None else int(rays))
+        with span("rz.readback.image"):
+            out = img.cpu().numpy()  # the sync point
+        if rays is None:
+            return out, 0
+        with span("rz.readback.rays"):
+            return out, int(rays)
 
     def render_frame(self, mode: str = "auto") -> np.ndarray:
         """Render one frame; returns (H, W, 3) float32 in [0, 1] (bottom-up).
@@ -351,6 +356,10 @@ class Renderer:
         mode: "auto" (preview until the kernel library is loaded, then path
         tracing), "pt", "preview"."""
         self._check_usable()
+        with span("rz.frame", frame=self.frame_index):
+            return self._render_frame(mode)
+
+    def _render_frame(self, mode: str) -> np.ndarray:
         prof = self.profiler
         prof.begin_frame()
         cfg = self.cfg
@@ -403,6 +412,10 @@ class Renderer:
         preview's walk waits on the host (as JAX's preview blocks)."""
         self._check_usable()
         t0 = time.perf_counter()
+        with span("rz.frame.dispatch", frame=self.frame_index):
+            return self._dispatch(mode, t0)
+
+    def _dispatch(self, mode: str, t0: float) -> "PendingFrame":
         cfg = self.cfg
         cam = self._camera_params()
         rays = None
@@ -509,13 +522,14 @@ class Renderer:
     def _composite_overlays(self, img, cam: dict, fps: Optional[float] = None):
         """composite_core over ``img`` with the current toggles."""
         cfg = self.cfg
-        ops, flags = self._overlay_operands()
-        if fps is None:
-            fps = self.profiler.fps_ema or 0.0
-        return composite_core(
-            img, *ops, camera_view_proj(cam), self.arrays.lights, fps,
-            width=cfg.width, height=cfg.height, **flags,
-        )
+        with span("rz.overlay"):
+            ops, flags = self._overlay_operands()
+            if fps is None:
+                fps = self.profiler.fps_ema or 0.0
+            return composite_core(
+                img, *ops, camera_view_proj(cam), self.arrays.lights, fps,
+                width=cfg.width, height=cfg.height, **flags,
+            )
 
     def warmup(self, frames: int) -> None:
         """Hidden frames without readback (runPathTracerWarmup,
@@ -563,8 +577,9 @@ class PendingFrame:
         self.frame_no = renderer.frame_index - 1
 
     def resolve(self) -> np.ndarray:
-        out, rays = self._r._readback(self._img, self._rays)
-        self._r.profiler.record(
-            (time.perf_counter() - self._t0) * 1e3, rays_traced=rays
-        )
-        return out
+        with span("rz.frame.resolve", frame=self.frame_no):
+            out, rays = self._r._readback(self._img, self._rays)
+            self._r.profiler.record(
+                (time.perf_counter() - self._t0) * 1e3, rays_traced=rays
+            )
+            return out
