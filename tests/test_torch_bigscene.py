@@ -25,6 +25,7 @@ from rayzen_tpu_torch import RenderConfig, bigscene, demo, pack_scene
 from rayzen_tpu_torch.image_io import ssim
 from rayzen_tpu_torch.ops.walk import Hit
 from rayzen_tpu_torch.renderer import Renderer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 2
 CHUNK = 2000  # the demo's 4,852 world triangles -> 3 chunks

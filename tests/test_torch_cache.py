@@ -21,6 +21,7 @@ from rayzen_tpu import packing as jpack
 from rayzen_tpu import profiler as jprofiler
 from rayzen_tpu_torch import RenderConfig, cache, demo, packing, profiler
 from rayzen_tpu_torch.image_io import to_uint8, write_png
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 32, 24
 

@@ -24,6 +24,7 @@ from rayzen_tpu_torch.light import Light, pack_lights
 from rayzen_tpu_torch.material import Material, pack_materials
 from rayzen_tpu_torch.ops import walk
 from rayzen_tpu_torch.ops.traverse import brute_force_world, traverse_world
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 32, 24
 

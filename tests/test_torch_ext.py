@@ -7,6 +7,7 @@ and the standalone walks' instantiations (mode, walk, counting; K6's packet
 walk by mode and counting) apart."""
 
 from rayzen_tpu_torch import ext
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _PFX = "_ZN49_GLOBAL__N__9c999aa8_16_sample_kernel_cu_1bedf115"
 _TAIL = "EEEvT_PKfS6_S6_S6_PKhiNS1_12SampleParamsEPfPi"

@@ -34,6 +34,7 @@ from rayzen_tpu_torch.integrator import check_config, render_rays
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
 from rayzen_tpu_torch.packing import world_geometry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 4
 

@@ -28,6 +28,7 @@ from rayzen_tpu_torch import demo, image_io, overlay, packing
 from rayzen_tpu_torch.accel import builder
 from rayzen_tpu_torch.config import RenderConfig
 from rayzen_tpu_torch.ops import intersect, rng
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def random_soup(n, seed=0):

@@ -18,6 +18,7 @@ from rayzen_tpu_torch import RenderConfig, demo
 from rayzen_tpu_torch.cli import main
 from rayzen_tpu_torch.interactive import InteractiveSession
 from rayzen_tpu_torch.renderer import Renderer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 32, 24
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,7 @@ import torch
 
 from rayzen_tpu.accel.lbvh import build_lbvh as jax_build_lbvh
 from rayzen_tpu_torch.accel.lbvh import build_lbvh
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ADVERSARIAL = {
     "chain": [(2.0 ** k, 0.0, 0.0) for k in range(1, 11)],

@@ -19,6 +19,7 @@ from rayzen_tpu_torch.config import RenderConfig as TConfig
 from rayzen_tpu_torch.image_io import ssim
 from rayzen_tpu_torch.ops import megakernel
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _render_both(scene, cfg, tmp_path):

@@ -23,6 +23,7 @@ from rayzen_tpu.ops import traverse as jtrav
 from rayzen_tpu.ops.pallas_traverse import pallas_closest_hit, pallas_shadow_walk
 from rayzen_tpu_torch import convert
 from rayzen_tpu_torch.ops import traverse, walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 64, 32  # 2,048 primary rays
 

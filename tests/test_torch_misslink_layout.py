@@ -24,6 +24,7 @@ from rayzen_tpu_torch.demo import build_demo_scene, build_small_scene
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
 from rayzen_tpu_torch.packing import pack_scene, world_geometry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _world(builder):

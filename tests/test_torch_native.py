@@ -19,6 +19,7 @@ from rayzen_tpu_torch import RenderConfig, packing, procedural
 from rayzen_tpu_torch.accel import builder, native
 from rayzen_tpu_torch.demo import ASSET_DIR
 from rayzen_tpu_torch.mesh import Mesh, parse_obj, save_obj
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MONKEY = os.path.join(ASSET_DIR, "monkey.obj")

@@ -20,6 +20,7 @@ from rayzen_tpu import demo as jdemo
 from rayzen_tpu import overlay as jov
 from rayzen_tpu import packing as jpack
 from rayzen_tpu_torch import RenderConfig, demo, overlay, pack_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 48, 32
 FPS = 57.3

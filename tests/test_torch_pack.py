@@ -18,6 +18,7 @@ from rayzen_tpu_torch import demo as tdemo
 from rayzen_tpu_torch import packing as tpack
 from rayzen_tpu_torch import transforms as ttf
 from rayzen_tpu_torch.scene import GameObject as TGameObject
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 64, 48
 

@@ -18,6 +18,7 @@ from rayzen_tpu_torch.demo import build_small_scene
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
 from rayzen_tpu_torch.packing import pack_scene, world_geometry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("shape", [(256, 192, None), (33, 17, None),

@@ -31,6 +31,7 @@ from rayzen_tpu_torch.parallel import (
     jit_sharded_renderer, make_mesh, render_radiance_sharded, replicate,
 )
 from rayzen_tpu_torch.renderer import Renderer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

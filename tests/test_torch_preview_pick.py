@@ -19,6 +19,7 @@ from rayzen_tpu import picking as jpicking
 from rayzen_tpu.preview import render_preview as jpreview
 from rayzen_tpu_torch import RenderConfig, bigscene, demo, pack_scene, picking
 from rayzen_tpu_torch.preview import render_preview
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 48, 32
 

@@ -7,6 +7,7 @@ import pytest
 
 from rayzen_tpu_torch import RenderConfig
 from rayzen_tpu_torch.integrator import check_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("knob,tracer", [

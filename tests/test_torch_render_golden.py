@@ -16,6 +16,7 @@ from rayzen_tpu_torch.demo import build_demo_scene
 from rayzen_tpu_torch.image_io import ssim
 from rayzen_tpu_torch.integrator import render_rays
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")

@@ -20,6 +20,7 @@ from rayzen_tpu.integrator import render_radiance_with_stats as jrender
 from rayzen_tpu_torch import RenderConfig, demo, renderer as renderer_mod
 from rayzen_tpu_torch.integrator import render_radiance_with_stats
 from rayzen_tpu_torch.renderer import Renderer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 3
 

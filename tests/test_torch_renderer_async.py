@@ -14,6 +14,7 @@ import torch
 from rayzen_tpu_torch import RenderConfig, demo
 from rayzen_tpu_torch.integrator import render_radiance_with_stats
 from rayzen_tpu_torch.renderer import PendingFrame, Renderer, stack_camera_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 24, 16
 OVERLAYS = dict(show_fps_overlay=True, debug_show_lights=True, debug_show_bvh=True)

@@ -17,6 +17,7 @@ from rayzen_tpu_torch import RenderConfig
 from rayzen_tpu_torch import integrator
 from rayzen_tpu_torch.demo import build_demo_scene
 from rayzen_tpu_torch.ops import camera_rays
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 64, 48
 

@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from rayzen_tpu_torch import RenderConfig, demo, profiler
 from rayzen_tpu_torch.ops import megakernel
 from rayzen_tpu_torch.renderer import Renderer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 24, 16
 DISPATCH_CHILDREN = {"rz.refit", "rz.k1.launch", "rz.accumulate", "rz.overlay"}

@@ -11,6 +11,7 @@ import torch
 
 from rayzen_tpu.ops import megakernel as jmk
 from rayzen_tpu_torch.ops import megakernel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("n", [1000, 4097])

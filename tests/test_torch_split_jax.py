@@ -19,6 +19,7 @@ from rayzen_tpu.integrator import render_radiance_with_stats
 from rayzen_tpu_torch import RenderConfig, convert
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 4
 

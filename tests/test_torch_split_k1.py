@@ -10,6 +10,7 @@ from rayzen_tpu_torch.demo import build_small_scene
 from rayzen_tpu_torch.integrator import render_rays
 from rayzen_tpu_torch.ops import megakernel
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SW, SH = 40, 36
 

@@ -15,6 +15,7 @@ from rayzen_tpu_torch.demo import build_small_scene
 from rayzen_tpu_torch.ops import megakernel
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
 from rayzen_tpu_torch.packing import world_geometry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 5
 

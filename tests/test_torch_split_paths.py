@@ -12,6 +12,7 @@ from rayzen_tpu_torch.demo import build_small_scene
 from rayzen_tpu_torch.integrator import check_config, render_rays
 from rayzen_tpu_torch.ops import megakernel
 from rayzen_tpu_torch.packing import world_geometry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_split_continuation_state(small_k1):

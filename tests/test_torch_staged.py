@@ -11,6 +11,7 @@ import torch
 
 from test_torch_wave import assert_matches, port_render, renders  # noqa: F401
 from rayzen_tpu_torch.ops import walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("kernels", ["pallas-ml", "pallas-bvh2"])

@@ -37,6 +37,7 @@ from rayzen_tpu_torch.scene import GameObject as TGameObject
 from rayzen_tpu_torch.scene import Scene as TScene
 from rayzen_tpu_torch.transforms import rotation as trotation
 from rayzen_tpu_torch.transforms import translation as ttranslation
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H = 32, 24
 TREELET_FIELDS = ("top_child_node", "top_child_ref", "top_child_count",

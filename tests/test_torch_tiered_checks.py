@@ -15,6 +15,7 @@ from rayzen_tpu_torch import config as tconfig
 from rayzen_tpu_torch import demo as tdemo
 from rayzen_tpu_torch import packing as tpack
 from rayzen_tpu_torch.ops import megakernel, walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("tiered", ["on", "off"])

@@ -26,6 +26,7 @@ from rayzen_tpu_torch.mesh import Mesh
 from rayzen_tpu_torch.ops import traverse
 from rayzen_tpu_torch.packing import pack_scene
 from rayzen_tpu_torch.scene import GameObject, Scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 

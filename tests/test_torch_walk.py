@@ -18,6 +18,7 @@ from rayzen_tpu.ops.pallas_traverse import (
 from rayzen_tpu.packing import world_geometry
 from rayzen_tpu_torch import convert
 from rayzen_tpu_torch.ops import walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

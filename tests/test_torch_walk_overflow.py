@@ -9,6 +9,7 @@ import torch
 
 from rayzen_tpu_torch.ops import walk
 from rayzen_tpu_torch.packing import WorldArrays
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 class TestStackOverflowPoison:

@@ -19,6 +19,7 @@ from rayzen_tpu_torch import RenderConfig, demo, integrator, pack_scene
 from rayzen_tpu_torch import packing as tpack
 from rayzen_tpu_torch.image_io import ssim
 from rayzen_tpu_torch.ops import megakernel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 3
 

@@ -28,6 +28,7 @@ from rayzen_tpu_torch import packing as tpack
 from rayzen_tpu_torch.integrator import check_config, render_rays
 from rayzen_tpu_torch.ops import megakernel, walk
 from rayzen_tpu_torch.ops.camera_rays import pixel_grid
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W, H, MB = 32, 24, 4
 BVH8_FIELDS = ("bvh8_child_node", "bvh8_child_ref", "bvh8_child_count",
