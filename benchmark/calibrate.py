@@ -34,7 +34,8 @@ def state_unchanged_numbers(cell, seed: int, fl, pixels) -> dict:
     from benchmark.harness import check
 
     idx, _, (ref, ref_rpp) = cell.reference(seed, fl, pixels)
-    return check.numbers(np.repeat(ref[:1], ref.shape[0], 0), ref, ref_rpp, ref_rpp, idx)
+    return check.numbers(np.repeat(ref[:1], ref.shape[0], 0), ref, ref_rpp, ref_rpp, idx,
+                         cell.accumulate)
 
 
 def half_samples_numbers(cell, seed: int, fl, pixels) -> dict:
@@ -46,7 +47,8 @@ def half_samples_numbers(cell, seed: int, fl, pixels) -> dict:
     half_spp = max(1, cell.spp // 2)
     idx, _, (half, half_rpp) = cell.reference(seed, fl, pixels, spp=half_spp)
     *_, (ref, ref_rpp) = cell.reference(seed, fl, pixels)
-    return check.numbers(half, ref, half_rpp * half_spp / cell.spp, ref_rpp, idx)
+    return check.numbers(half, ref, half_rpp * half_spp / cell.spp, ref_rpp, idx,
+                         cell.accumulate)
 
 
 def main(argv=None) -> int:

@@ -3,11 +3,13 @@ and the check, as data in BENCHMARK.json and the files it names say.
 
 A cell (BENCHMARK.json ``workloads``) names a configuration (its ``file``,
 configs/<name>.json), a traffic mix (traffic/<traffic>.json) and the
-chips. The per-layer metrics are found by name (metrics/<name>.py, a
-``read(run)`` that returns a number or None), and the check's limits by
-the cell's name (limits/<cell>.json). Nothing here names a cell, so a
-later change adds a configuration, a mix, a metric or a cell as files and
-entries.
+chips. The configuration's scene kind is found by name (its ``"kind"``,
+kinds/<kind>.py: the scene arrays, the program object, a hook before each
+dispatch, the reference's world at a frame), as are the per-layer metrics
+(metrics/<name>.py, a ``read(run)`` that returns a number or None) and the
+check's limits (limits/<cell>.json). Nothing here names a cell, so a later
+change adds a configuration, a kind, a mix, a metric or a cell as files
+and entries.
 """
 
 from __future__ import annotations
@@ -26,12 +28,18 @@ import time
 import numpy as np
 import torch
 
-from . import check, frames, scenes
+from . import check, frames, kinds, scenes
 from . import trace as trace_mod
 from .peaks import peak_for
 
 REPO = os.path.dirname(scenes.BENCH_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "rayzen_tpu")
+# the Renderer's options where the traffic file's ``render`` block leaves
+# them out; ``single_tree`` sets chunk_tris to the scene's triangles
+RENDER_DEFAULTS = {"accumulate": True, "tiered": "auto"}
+# RenderConfig fields that the harness sets itself (the frame settings of
+# the configuration besides): a traffic file may not pass them
+HARNESS_FIELDS = ("spp", "log_level", "cache_dir")
 
 
 class NoDevice(RuntimeError):
@@ -85,45 +93,35 @@ def window_numbers(fl, t_start: float, t_end: float, paths: int):
     return done, msps, [(f.t_done - f.t_dispatch) * 1e3 for f in done]
 
 
-def port_scene(sc: dict):
-    """The scene arrays as the program's Scene (the same arrays)."""
-    from rayzen_tpu_torch.camera import Camera
-    from rayzen_tpu_torch.light import Light
-    from rayzen_tpu_torch.material import Material
-    from rayzen_tpu_torch.mesh import Mesh
-    from rayzen_tpu_torch.scene import GameObject, Scene
-
-    meshes = {k: Mesh(v, np.zeros(v.shape[0], np.int32)) for k, v in sc["meshes"].items()}
-    cam = sc["camera"]
-    return Scene(
-        camera=Camera(position=np.asarray(cam["position"], np.float32),
-                      target=np.asarray(cam["target"], np.float32),
-                      up=np.asarray(cam["up"], np.float32), fov=float(cam["fov"]),
-                      aspect_ratio=cam["aspect"], near_clip=float(cam["near"]),
-                      far_clip=float(cam["far"])),
-        materials=[Material(tuple(float(x) for x in m[:3]), float(m[3]), float(m[4]),
-                            float(m[5]), float(m[6]), float(m[7]))
-                   for m in sc["materials"]],
-        lights=[Light(tuple(float(x) for x in l[:4]), tuple(float(x) for x in l[4:7]),
-                      float(l[7])) for l in sc["lights"]],
-        game_objects=[GameObject(meshes[m], x, name=f"{m} {i}", material_override=mo)
-                      for i, (m, x, mo) in enumerate(sc["instances"])],
-    )
+def render_options(traffic: dict) -> dict:
+    """The traffic file's ``render`` block over RENDER_DEFAULTS."""
+    return {**RENDER_DEFAULTS, **traffic.get("render", {})}
 
 
 def render_config(fr: dict, traffic: dict, n_tris: int):
+    """The program's RenderConfig: the configuration's frame settings
+    ``fr``, the mix's spp, and its ``render`` options by name. An option
+    that RenderConfig lacks, or that the frame settings or the harness set,
+    is refused: the run never renders something else than it says."""
     from rayzen_tpu_torch.config import RenderConfig
 
-    opts = traffic.get("render", {})
+    opts = render_options(traffic)
+    single = bool(opts.pop("single_tree", False))
+    fields = {f.name for f in dataclasses.fields(RenderConfig)}
+    for k in opts:
+        if k not in fields:
+            raise Refused(f"render option {k!r}: RenderConfig has no such field")
+        if k in fr or k in HARNESS_FIELDS or (single and k == "chunk_tris"):
+            raise Refused(f"render option {k!r}: set by the configuration or the harness")
     return RenderConfig(
         width=fr["width"], height=fr["height"], spp=int(traffic["spp"]),
         max_bounces=fr["max_bounces"], rr_start_bounce=fr["rr_start_bounce"],
         rng=fr["rng"], ambient=tuple(fr["ambient"]),
         sky_horizon=tuple(fr["sky_horizon"]), sky_zenith=tuple(fr["sky_zenith"]),
-        shadow_min_visibility=fr["shadow_min_visibility"], accumulate=True,
-        tiered=opts.get("tiered", "auto"),
-        chunk_tris=n_tris if opts.get("single_tree") else 0,
-        log_level="error", cache_dir=os.path.join(REPO, ".rayzen_cache"))
+        shadow_min_visibility=fr["shadow_min_visibility"],
+        chunk_tris=n_tris if single else 0,
+        log_level="error", cache_dir=os.path.join(REPO, ".rayzen_cache"),
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in opts.items()})
 
 
 def _smi() -> str:
@@ -136,7 +134,7 @@ def _smi() -> str:
         return "unknown"
 
 
-def _profiled_window(renderer, seconds, in_flight, xs, ys, cuda: bool):
+def _profiled_window(renderer, seconds, in_flight, xs, ys, cuda: bool, **loop):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -145,7 +143,7 @@ def _profiled_window(renderer, seconds, in_flight, xs, ys, cuda: bool):
         with profile(activities=acts) as prof:
             with record_function("bench.window"):
                 out = frames.run_window(renderer, seconds, in_flight, xs, ys,
-                                        span=record_function)
+                                        span=record_function, **loop)
             if cuda:
                 torch.cuda.synchronize()
         t = time.perf_counter()
@@ -159,10 +157,10 @@ def _profiled_window(renderer, seconds, in_flight, xs, ys, cuda: bool):
 
 
 class Cell:
-    """A cell set up for runs: its files read, the program's Renderer built
-    and warmed up. ``overrides`` replaces frame settings and check sizes
-    (the CPU tests run a cell at a tiny size; the command line never
-    passes it)."""
+    """A cell set up for runs: its files read, the program built by the
+    configuration's kind and warmed up. ``overrides`` replaces frame
+    settings, check sizes and the kind's sizes (the CPU tests run a cell at
+    a tiny size; the command line never passes it)."""
 
     def __init__(self, name: str, device: str = "cuda", overrides: dict | None = None):
         sp = spec()
@@ -190,39 +188,56 @@ class Cell:
             self.chk[k] = overrides.get(k, self.chk[k])
         cfg_json.update({k: v for k, v in overrides.items()
                          if k in ("width", "height", "max_bounces")})
-        if "grid_count" in overrides and "grid" in cfg_json:
-            cfg_json["grid"] = dict(cfg_json["grid"], count=overrides["grid_count"])
         if "spp" in overrides:
             self.traffic["spp"] = overrides["spp"]
-        self.scene = scenes.scene_arrays(cfg_json)
+        try:
+            self.kind = kinds.load(cfg_json)
+        except kinds.UnknownKind as e:
+            raise Refused(str(e)) from None
+        self.scene = self.kind.scene(cfg_json, overrides)
         self.frame = self.scene["frame"]
         self.spp = int(self.traffic["spp"])
         self.paths = self.frame["width"] * self.frame["height"] * self.spp
         self.renderer = None
+        self.first = 0  # the window's first frame number (set_up)
         self.setup_parts = {"cuda_check_s": t_scene - t,
                             "scene_s": time.perf_counter() - t_scene}
 
+    @property
+    def accumulate(self) -> bool:
+        """Whether the program accumulates the frames (the mix's option)."""
+        return bool(render_options(self.traffic)["accumulate"])
+
     def set_up(self, seed: int) -> None:
-        """Build the program's Renderer (kernel library, pack, start-up)
-        and warm it up at the window's shapes; the seed picks the keys."""
+        """Build the program (kernel library, pack, start-up) and warm it
+        up at the window's shapes; the seed picks the frames' numbers."""
         t_import = time.perf_counter()
-        from rayzen_tpu_torch.renderer import Renderer  # the system under test
+        import rayzen_tpu_torch.renderer  # noqa: F401  (the system under test)
 
         t = time.perf_counter()
+        warm = int(self.traffic["warmup_frames"])
+        if warm < 1 and not self.accumulate:
+            raise Refused("a mix that does not accumulate needs warmup_frames >= 1: "
+                          "the program draws frame 0 with its first-frame bounces")
         if self.renderer is None:
             rcfg = render_config(self.frame, self.traffic, scenes.num_triangles(self.scene))
-            self.renderer = Renderer(port_scene(self.scene), rcfg, async_compile=False,
-                                     device=self.device)
+            self.renderer = self.kind.program(self.scene, rcfg, self.device)
         t_warm = time.perf_counter()
         self.renderer.reset_accumulation()
-        self.renderer.frame_index = int(seed) % int(self.traffic["key_span"])
-        frames.warm_up(self.renderer, int(self.traffic["warmup_frames"]))
+        start = int(seed) % int(self.traffic["key_span"])
+        self.renderer.frame_index = start
+        frames.warm_up(self.renderer, warm, start, self._before)
+        self.first = start + warm
         if self.device == "cuda":
             torch.cuda.synchronize()
         self.setup_parts.update({
             "program_import_s": t - t_import, "renderer_s": t_warm - t,
             "warmup_s": time.perf_counter() - t_warm,
             **{k: v * 1e-3 for k, v in self.renderer.startup_steps.items()}})
+
+    def _before(self, program, number: int) -> None:
+        """The kind's hook before the dispatch of frame ``number``."""
+        self.kind.before_dispatch(program, self.scene, number)
 
     def ray_pixels(self, seed: int):
         """The pixels of the reference's ray count, drawn from the seed."""
@@ -235,37 +250,46 @@ class Cell:
         xs, ys = check.sample_pixels(seed, self.frame["width"], self.frame["height"],
                                      check.CANDIDATES * self.chk["pixels"])
         n = int(self.traffic["in_flight"])
+        loop = dict(first=self.first, accumulate=self.accumulate, before=self._before)
         if traced:
             (fl, t0, t1), tr = _profiled_window(self.renderer, seconds, n, xs, ys,
-                                                self.device == "cuda")
+                                                self.device == "cuda", **loop)
         else:
-            (fl, t0, t1), tr = frames.run_window(self.renderer, seconds, n, xs, ys), None
+            (fl, t0, t1), tr = frames.run_window(self.renderer, seconds, n, xs, ys,
+                                                 **loop), None
         return fl, t0, t1, tr, (xs, ys)
 
-    def checked(self, cand) -> np.ndarray:
-        """The candidates' indices that the check compares."""
-        imgs, _ = check.reference(self.scene, self.frame, self.spp, cand, cand, 1,
+    def checked(self, cand, world: dict) -> np.ndarray:
+        """The candidates' indices that the check compares, chosen on the
+        reference's ``world`` (the first checked frame's)."""
+        imgs, _ = check.reference(world, self.frame, self.spp, cand, cand, 1,
                                   list(check.SENSITIVITY_KEYS), self.device)
         score = np.abs(imgs[0] - imgs[1]).max(axis=-1)
         return check.choose_pixels(score, self.chk["pixels"])
 
     def reference(self, seed: int, fl, cand, spp=None, dtype=torch.float32):
         """The checked frames and pixels, and the reference's images of
-        them and its rays a path."""
+        them, each from the kind's world at the frame's number and with
+        its recorded key, and its rays a path."""
         idx = check.sample_frames(seed, len(fl), self.chk["frames"])
-        sel = self.checked(cand)
+        worlds = [self.kind.world(self.scene, fl[j].number) for j in idx]
+        sel = self.checked(cand, worlds[0])
         keys = [fl[j].key for j in idx]
         pixels = (cand[0][sel], cand[1][sel])
         return idx, sel, check.reference(
-            self.scene, self.frame, spp or self.spp, pixels, self.ray_pixels(seed),
+            worlds, self.frame, spp or self.spp, pixels, self.ray_pixels(seed),
             self.chk["ray_samples"], keys, self.device, dtype)
 
     def check_numbers(self, seed: int, fl, cand) -> dict:
-        """The compared numbers of a window's frames."""
+        """The compared numbers of a window's frames: the frames that the
+        accumulated readbacks imply, or each readback where the program
+        does not accumulate."""
         idx, sel, (ref_img, ref_rpp) = self.reference(seed, fl, cand)
         vals = np.stack([f.values[sel] for f in fl])
-        return check.numbers(check.implied_frames(vals, idx), ref_img,
-                             fl[0].rays / self.paths, ref_rpp, idx)
+        got = (check.implied_frames(vals, idx) if self.accumulate
+               else vals[idx].astype(np.float64))
+        return check.numbers(got, ref_img, fl[0].rays / self.paths, ref_rpp, idx,
+                             self.accumulate)
 
     def control_numbers(self, seed: int, fl, pixels) -> dict:
         """The control in the program's place: the reference in bfloat16,
@@ -273,7 +297,7 @@ class Cell:
         frames and pixels a run checks."""
         idx, _, (low, low_rpp) = self.reference(seed, fl, pixels, dtype=torch.bfloat16)
         *_, (ref, ref_rpp) = self.reference(seed, fl, pixels)
-        return check.numbers(low, ref, low_rpp, ref_rpp, idx)
+        return check.numbers(low, ref, low_rpp, ref_rpp, idx, self.accumulate)
 
 
 def run_cell(name: str, seed: int, seconds: float, traced: bool, t0: float,

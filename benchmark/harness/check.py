@@ -1,10 +1,16 @@
 """The comparison that decides ``correct``.
 
-What the timed path produced: the accumulated image read back after each
-frame of the window. For a sample of pixels and a sample of frames, both
-drawn from the seed, the plain reference (reference/tracer.py) renders
-the frame's own image from the scene arrays and the frame's key. The
-frame image that the program's readbacks imply is
+What the timed path produced: the image read back after each frame of
+the window. For a sample of pixels and a sample of frames, both drawn
+from the seed, the plain reference (reference/tracer.py) renders the
+frame's own image from the scene kind's world at the frame's number
+(kinds/: one world built for each distinct world, so a static scene
+builds one) and the frame's recorded key (frames.frame_key). What is
+compared with it depends on whether the cell accumulates.
+
+Where it does not, each checked readback is the frame's image, and is
+compared directly. Where it does, the frame image that the program's
+readbacks imply is
 
     frame 0:  acc_0
     frame j:  (acc_j - acc_{j-1} * (1 - a)) / a,   a = float32(1 / (j + 1)),
@@ -40,14 +46,16 @@ The numbers compared (each against the cell's limit, limits/<cell>.json):
 - ``frame_off_share``: the share of those values off by more than the
   float32 rounding that the implied frame can carry, tau_j = OFF_BASE +
   OFF_PER_FRAME * (j + 1) (four times the accumulator's rounding, ~6e-8 of
-  a value, grown by 1 / a = j + 1). Only a pixel that holds an
-  edge-grazing path passes it in a sound run; a frame made from other
-  samples (a lost or repeated frame, a wrong key) passes it wherever its
-  samples change the pixel, which the quantile misses where most of a
-  frame is sky or fixed by the upstream shader's first-bounce draws.
+  a value, grown by 1 / a = j + 1); without accumulation, with no running
+  mean to divide, tau = OFF_BASE + OFF_PER_FRAME for every frame. Only a
+  pixel that holds an edge-grazing path passes it in a sound run; a frame
+  made from other samples (a lost or repeated frame, a wrong key) passes
+  it wherever its samples change the pixel, which the quantile misses
+  where most of a frame is sky or fixed by the upstream shader's
+  first-bounce draws.
 - ``rays_gap``: |the program's traced rays a path - the reference's| / the
-  reference's, for the window's first frame. The program's count is the
-  whole frame's (its profiler's record); the reference traces
+  reference's, for the window's first frame, in its world. The program's
+  count is the whole frame's (its profiler's record); the reference traces
   ``ray_pixels`` pixels drawn from the seed at the frame's first
   ``ray_samples`` samples, which estimates the frame's mean to about
   0.7 / sqrt(ray_pixels * ray_samples) of it, and equals it when they are
@@ -118,11 +126,14 @@ def implied_frames(values: np.ndarray, idx) -> np.ndarray:
 
 
 def numbers(implied: np.ndarray, ref_img: np.ndarray, prog_rays_per_path: float,
-            ref_rays_per_path: float, idx) -> dict:
+            ref_rays_per_path: float, idx, accumulated: bool = True) -> dict:
     """The compared numbers (see the module's docstring); ``idx`` are the
-    checked frames' indices in the window."""
+    checked frames' indices in the window, ``implied`` their images as
+    the program's readbacks give them (implied_frames where
+    ``accumulated``)."""
     err = np.abs(implied - ref_img)
-    tau = OFF_BASE + OFF_PER_FRAME * (np.asarray(idx, np.float64) + 1.0)
+    grown = np.asarray(idx, np.float64) + 1.0 if accumulated else np.ones(len(idx))
+    tau = OFF_BASE + OFF_PER_FRAME * grown
     return {
         "frame_mae": float(err.mean()),
         "frame_p90": float(np.quantile(err, 0.9)),
@@ -140,18 +151,32 @@ def judge(nums: dict, limits: dict) -> tuple[bool, dict]:
     return ok, out
 
 
-def reference(scene: dict, frame: dict, spp: int, pixels, ray_pixels, ray_samples: int,
+def reference(scene, frame: dict, spp: int, pixels, ray_pixels, ray_samples: int,
               keys, device, dtype=torch.float32):
     """The reference's frame images at ``pixels`` (xs, ys) for the frames
     ``keys``, (F, P, 3) float64 numpy, and its traced rays a path over the
     pixels ``ray_pixels`` at the first key's first ``ray_samples``
-    samples."""
+    samples, in the first frame's world. ``scene`` is the scene arrays of
+    every frame, or a list of them, one a key; a world is built once for
+    each distinct object among them, one at a time."""
     from benchmark.reference import tracer
 
-    world = tracer.build_world(scene, device, dtype)
-    cam = tracer.camera_table(scene["camera"])
-    img, _ = tracer.render_frames(world, frame, cam, *pixels, keys, spp)
-    _, rays = tracer.render_frames(world, frame, cam, *ray_pixels, keys[:1], spp,
-                                   samples=ray_samples)
+    per_frame = list(scene) if isinstance(scene, (list, tuple)) else [scene] * len(keys)
+    groups = {}  # one world's scene arrays and its frames' positions
+    for i, sc in enumerate(per_frame):
+        groups.setdefault(id(sc), (sc, []))[1].append(i)
+    img, rays = [None] * len(keys), None
+    for sc, pos in groups.values():
+        world = tracer.build_world(sc, device, dtype)
+        cam = tracer.camera_table(sc["camera"])
+        got, _ = tracer.render_frames(world, frame, cam, *pixels, [keys[i] for i in pos],
+                                      spp)
+        for i, g in zip(pos, got):
+            img[i] = g
+        if pos[0] == 0:
+            _, rays = tracer.render_frames(world, frame, cam, *ray_pixels, keys[:1], spp,
+                                           samples=ray_samples)
+        del world
+    img = torch.stack(img)
     return (img.double().cpu().numpy(),
             float(rays.double().sum().item()) / (rays.numel() * ray_samples))

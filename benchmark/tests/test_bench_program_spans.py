@@ -41,7 +41,7 @@ def synthetic(jitter_us: float = 3.0, device: bool = True):
     records, ops, spans, frames = [], [], [], []
     for k in range(N):
         t = T0 + k * STEP
-        frames.append(bench.frames.Frame(k, t, t + 8 * ms))
+        frames.append(bench.frames.Frame(k, k, t, t + 8 * ms))
         jitter = jitter_us if k % 2 else -jitter_us
         spans.append(("bench.dispatch", on_trace(t) + jitter, on_trace(t + 8 * ms)))
         for name, parent, a, b in (

@@ -12,6 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, REPO)
 
 from benchmark.harness import bench, check, scenes  # noqa: E402
+from benchmark.harness.kinds import static  # noqa: E402
 from benchmark.reference import bvh, tracer  # noqa: E402
 
 
@@ -37,7 +38,7 @@ def _program_frames(sc, spp, keys, tiered="auto"):
     fr = sc["frame"]
     traffic = {"spp": spp, "render": {"tiered": tiered}}
     rcfg = bench.render_config(fr, traffic, scenes.num_triangles(sc))
-    scene = bench.port_scene(sc)
+    scene = static.port_scene(sc)
     arrays = pack_scene(scene, rcfg, "cpu")
     cam = scene.camera.device_params()
     out, rays = [], []

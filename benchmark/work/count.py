@@ -4,7 +4,8 @@ own BVH walk, and write it to work/<config>.json for the roofline.
     python3 benchmark/work/count.py --config demo [--pixels 2048 --samples 2]
 
 The paths are those of ``--pixels`` pixels drawn from a fixed seed, at
-``--samples`` consecutive sample indices each: an estimate of a path's
+``--samples`` consecutive sample indices each, in the world of frame 0 of
+the configuration's scene kind (harness/kinds/): an estimate of a path's
 average work, scaled to a frame by work/roofline.py. The count runs the
 reference path tracer (reference/tracer.py) with its hits found by the
 counting walk (reference/bvh.py) and imports nothing of the program.
@@ -27,11 +28,12 @@ def count(config: dict, pixels: int, samples: int, seed: int = 0, device="cpu",
     import numpy as np
     import torch
 
-    from benchmark.harness import scenes
+    from benchmark.harness import kinds
     from benchmark.reference import bvh, tracer
 
     config = dict(config, **(overrides or {}))
-    sc = scenes.scene_arrays(config)
+    kind = kinds.load(config)
+    sc = kind.world(kind.scene(config, {}), 0)
     fr = sc["frame"]
     world = tracer.build_world(sc, device)
     work = bvh.Work()
